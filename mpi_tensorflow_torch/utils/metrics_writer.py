@@ -1,0 +1,55 @@
+"""The accounting blocks ``PagedDecodeEngine.run`` returns.
+
+Counterpart of the constructors of ``mpi_tensorflow_tpu/utils/
+metrics_writer.py`` that a serving run's result carries: ``faults_block``
+in full, and ``prefix_block``, ``speculation_block`` and ``tier_block``
+in the disabled form this slice produces (their features are ROADMAP
+Queue 1 items).  Same keys and value types as the reference, so results
+of the two engines compare key for key.
+"""
+
+from __future__ import annotations
+
+#: canonical serving fault-tolerance counters — THE shape of the
+#: ``faults`` block
+SERVING_FAULT_KEYS = ("rejected", "shed", "deadline_exceeded",
+                      "evicted_too_often", "drained", "evictions",
+                      "replays")
+
+
+def faults_block(counters) -> dict:
+    """Scheduler counters -> the ``faults`` block: every key present (0
+    when the counter never fired), values plain ints."""
+    return {k: int(counters.get(k, 0)) for k in SERVING_FAULT_KEYS}
+
+
+def prefix_block() -> dict:
+    """The ``prefix`` (radix prefix cache) block with the cache off."""
+    return {
+        "enabled": False, "hit_tokens": 0, "prompt_tokens": 0,
+        "hit_rate": 0.0, "shared_blocks": 0, "cow_copies": 0,
+        "trie_evictions": 0, "trie_blocks": 0, "hit_admissions": 0,
+        "gen_inserted_blocks": 0, "partial_copy_tokens": 0,
+        "prefill_tokens_saved": 0, "router_prefix_hits": 0,
+    }
+
+
+def speculation_block(draft_k: int = 4) -> dict:
+    """The ``speculation`` block with speculative decoding off."""
+    return {
+        "enabled": False, "mode": "off", "draft_k": int(draft_k),
+        "draft_auto": "off", "effective_k": int(draft_k),
+        "draft_tokens": 0, "accepted_tokens": 0, "accept_rate": 0.0,
+        "verify_forwards": 0, "emitted_tokens": 0,
+        "mean_accepted_len": 0.0, "steps_saved": 0,
+    }
+
+
+def tier_block() -> dict:
+    """The ``tier`` (host-RAM block tier) block with tiering off."""
+    return {
+        "enabled": False, "mode": "off", "demotions": 0, "promotions": 0,
+        "host_blocks": 0, "host_blocks_peak": 0,
+        "promote_latency_ms_total": 0.0, "promote_latency_ms_mean": 0.0,
+        "prefill_tokens_saved_tier": 0,
+    }
