@@ -1,10 +1,11 @@
-"""Run configuration — the fields the ported serving path reads.
+"""Run configuration — the fields the ported paths read.
 
-Counterpart of ``mpi_tensorflow_tpu/config.py``: the precision knob and
-its compute dtype, plus the ``serve_*`` pool, kernel and fault-policy
-knobs ``serving.engine.ServeConfig.from_config`` bridges to the engine.
-Defaults equal the reference's.  Training fields arrive with the
-training slices (ROADMAP Queue 1).
+Counterpart of ``mpi_tensorflow_tpu/config.py``: the training fields
+``train.mlm_loop.train_mlm`` and ``cli`` read, the precision knob and its
+compute dtype, and the ``serve_*`` pool, kernel and fault-policy knobs
+``serving.engine.ServeConfig.from_config`` bridges to the engine.
+Defaults equal the reference's.  A value whose path is not ported yet
+raises at construction and names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,6 +18,19 @@ import torch
 
 @dataclasses.dataclass
 class Config:
+    # --- training (the reference's defaults, mpipy.py:18-21) ---
+    epochs: int = 2               # ``iteration`` at mpipy.py:18
+    batch_size: int = 64          # per-device batch (one card: global)
+    log_every: int = 50           # trace and held-out eval cadence
+    seed: int = 1                 # the reference seeds everything with 1
+    model: str = "mnist_cnn"      # the trainer's model family
+    dataset: str = "mnist"
+    optimizer: str = "adamw"      # transformer-family optimizer
+    remat: bool = False           # recompute layer activations in backward
+    grad_accum: int = 1           # microbatches per optimizer step
+    param_sharding: str = "replicated"  # transformer state layout
+    text_file: Optional[str] = None     # real-text corpus (None: synthetic)
+
     # --- serving (continuous-batching decode engine, serving/) ---
     serve_pool_blocks: int = 128  # paged-KV pool size in blocks (block 0
                                   # reserved as the null/scratch block)
@@ -38,6 +52,25 @@ class Config:
     # --- precision ---
     precision: str = "fp32"       # "fp32" | "bf16": compute dtype of the
                                   # matmuls; parameters stay float32
+
+    def __post_init__(self):
+        not_ported = (
+            (self.remat, "remat=True", "13 (remat)"),
+            (self.optimizer == "lamb", "optimizer='lamb'", "13 (lamb)"),
+            (self.grad_accum > 1, f"grad_accum={self.grad_accum}",
+             "12 (gradient accumulation)"),
+            (self.param_sharding != "replicated",
+             f"param_sharding={self.param_sharding!r}",
+             "12 (zero1/fsdp over NCCL)"),
+            (self.text_file is not None, "text_file",
+             "13 (corpus data)"),
+        )
+        for bad, what, item in not_ported:
+            if bad:
+                raise NotImplementedError(
+                    f"{what} is not ported yet: ROADMAP Queue 1 item {item}")
+        if self.optimizer not in ("adamw", "lamb"):
+            raise ValueError(f"unknown optimizer {self.optimizer!r}")
 
     @property
     def compute_dtype(self) -> torch.dtype:

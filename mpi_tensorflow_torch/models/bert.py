@@ -1,20 +1,30 @@
-"""Transformer geometry and the shared per-layer math.
+"""BERT masked-LM: geometry, the shared per-layer math, and ``BertMlm``.
 
-Counterpart of ``mpi_tensorflow_tpu/models/bert.py`` for the pieces the
-serving forward needs: ``BertConfig`` with its ``BERT_BASE`` and
-``BERT_TINY`` presets, the seeded parameter init, and the layer math
-(``qkv_proj``, ``attn_out_proj``, ``gelu_mlp``, the LayerNorm,
-``rope`` and the LM head's ``head_hidden``) as ``nn.Module``s.
-``BertMlm``'s training machinery comes with the training slices.
+Counterpart of ``mpi_tensorflow_tpu/models/bert.py``: ``BertConfig``
+with its ``BERT_BASE`` and ``BERT_TINY`` presets, ``ce_capacity``,
+``dropout_mask``, the seeded parameter init, the layer math
+(``qkv_proj``, ``attn_out_proj``, ``gelu_mlp``, the LayerNorm, ``rope``
+and the LM head's ``head_hidden``) as ``nn.Module``s, and ``BertMlm``
+with ``encode``, ``head_hidden``, ``apply`` and ``loss`` for training.
+The sequence-parallel attention branches wait for the parallelism
+slices (ROADMAP Queue 1 item 14).
 
 Parameters keep the JAX layouts — ``wq/wk/wv`` (E, H, D), ``wo``
 (H, D, E), ``w1`` (E, F), ``w2`` (F, E), ``tok_emb`` (V, E) — so the
-einsums below read like the reference's.  The reference casts each
-matmul weight and bias to the compute dtype at every use
-(``w.astype(dt)``); a cast is deterministic, so the modules store those
-tensors in the compute dtype once, at construction, and the per-use
-``.to(dt)`` below is a no-op.  LayerNorm parameters stay float32, as
-their use in the reference promotes to float32.
+einsums below read like the reference's.  The reference keeps float32
+leaves and casts each matmul weight and bias to the compute dtype at
+every use (``w.astype(dt)``); its gradient flows back to float32.  The
+layer modules do the same (``.to(dt)`` at each use) and store their
+parameters one of two ways:
+
+- ``trainable=True`` (``BertMlm``): float32 leaves with gradients, cast
+  at each use exactly as the reference does;
+- ``trainable=False`` (serving's ``CausalLm``): frozen copies already in
+  the compute dtype — a cast is deterministic, so the per-use ``.to(dt)``
+  is then a no-op and serving pays no cast per step.
+
+LayerNorm parameters stay float32 either way, as their use in the
+reference promotes to float32.
 
 Two numerics traps the reference sets, kept here on purpose:
 
@@ -33,6 +43,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mpi_tensorflow_torch.ops import mlm_head
+from mpi_tensorflow_torch.ops.flash_attention import flash_attention
+from mpi_tensorflow_torch.parallel.ring import dense_attention
+
+ATTENTION = ("auto", "flash", "dense")
+
 
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
@@ -46,11 +62,28 @@ class BertConfig:
     dtype: torch.dtype = torch.float32   # compute dtype
     pos_kind: str = "learned"            # "learned" absolute embeddings
                                          # or "rope" rotary on q/k
+    ce_impl: str = "auto"                # MLM loss: "dense" logits; "auto"
+                                         # = dense under masked packing;
+                                         # "chunked" is not ported yet
+    ce_positions: str = "masked"         # "masked": pack each row's masked
+                                         # positions before the head;
+                                         # "all": head over every position
+    ce_capacity_frac: float = 0.25       # packed-buffer width / S
+    flash_min_seq: int = 4096            # BertMlm's "auto" attention takes
+                                         # the flash kernels at S >= this
+                                         # (the reference's TPU threshold;
+                                         # the card's own is not measured)
 
     def __post_init__(self):
         if self.pos_kind not in ("learned", "rope"):
             raise ValueError(f"pos_kind must be 'learned' or 'rope', "
                              f"got {self.pos_kind!r}")
+        if self.ce_positions not in ("masked", "all"):
+            raise ValueError(f"ce_positions must be 'masked' or 'all', "
+                             f"got {self.ce_positions!r}")
+        if self.ce_impl not in ("auto", "dense", "chunked"):
+            raise ValueError(f"ce_impl must be auto, dense or chunked, "
+                             f"got {self.ce_impl!r}")
 
     @property
     def head_dim(self) -> int:
@@ -100,7 +133,26 @@ def init_params(cfg: BertConfig, generator: torch.Generator) -> dict:
     return params
 
 
-def _param(t, dtype: torch.dtype) -> nn.Parameter:
+def ce_capacity(cfg: BertConfig, S: int) -> int:
+    """Packed-buffer width for the masked-position head: ``ce_capacity_frac
+    * S`` rounded up to a multiple of 8, floored at 8, capped at S."""
+    return min(S, max(8, -(-int(cfg.ce_capacity_frac * S) // 8) * 8))
+
+
+def dropout_mask(x, rate: float, generator: torch.Generator):
+    """Inverted dropout: zero with probability ``rate``, scale survivors
+    by 1/keep.  The mask is drawn from ``generator`` (on x's device):
+    torch cannot reproduce the reference's keyed ``jax.random`` masks, so
+    the two agree in distribution, not bit for bit."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+def _param(t, dtype: torch.dtype, trainable: bool = False) -> nn.Parameter:
+    """A frozen copy in ``dtype``, or a float32 leaf with gradients."""
+    if trainable:
+        return nn.Parameter(torch.as_tensor(t).to(torch.float32).clone())
     return nn.Parameter(torch.as_tensor(t).to(dtype), requires_grad=False)
 
 
@@ -130,11 +182,14 @@ class LayerNorm(nn.Module):
     the input's dtype; the float32 scale/bias promote the result to
     float32 — callers cast back to the compute dtype)."""
 
-    def __init__(self, p: dict, eps: float = 1e-12):
+    def __init__(self, p: dict, eps: float = 1e-12, trainable: bool = False):
         super().__init__()
-        self.scale = _param(p["scale"], torch.float32)
-        self.bias = _param(p["bias"], torch.float32)
+        self.scale = _param(p["scale"], torch.float32, trainable)
+        self.bias = _param(p["bias"], torch.float32, trainable)
         self.eps = eps
+
+    def tree(self) -> dict:
+        return {"scale": self.scale, "bias": self.bias}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mu = x.mean(-1, keepdim=True)
@@ -146,15 +201,38 @@ class LayerNorm(nn.Module):
 class EncoderLayer(nn.Module):
     """One transformer layer's parameters and its shared math; the
     attention between ``qkv_proj`` and ``attn_out_proj`` is the
-    caller's (``models/gpt`` routes it to the paged-attention ops)."""
+    caller's (``models/gpt`` routes it to the paged-attention ops,
+    ``BertMlm`` to flash or dense attention)."""
 
-    def __init__(self, lp: dict, dt: torch.dtype):
+    NAMES = ("wq", "wk", "wv", "bq", "bk", "bv", "wo", "bo", "w1", "b1",
+             "w2", "b2")
+
+    def __init__(self, lp: dict, dt: torch.dtype, trainable: bool = False):
         super().__init__()
-        for name in ("wq", "wk", "wv", "bq", "bk", "bv", "wo", "bo",
-                     "w1", "b1", "w2", "b2"):
-            setattr(self, name, _param(lp[name], dt))
-        self.ln1 = LayerNorm(lp["ln1"])
-        self.ln2 = LayerNorm(lp["ln2"])
+        for name in self.NAMES:
+            setattr(self, name, _param(lp[name], dt, trainable))
+        self.ln1 = LayerNorm(lp["ln1"], trainable=trainable)
+        self.ln2 = LayerNorm(lp["ln2"], trainable=trainable)
+
+    def tree(self) -> dict:
+        t = {name: getattr(self, name) for name in self.NAMES}
+        t.update(ln1=self.ln1.tree(), ln2=self.ln2.tree())
+        return t
+
+    def forward(self, h: torch.Tensor, attention, dt: torch.dtype,
+                drop=None) -> torch.Tensor:
+        """The post-LN block around ``attention(q, k, v) -> (B, H, S,
+        D)``; ``drop`` (training) is applied to the attention output and
+        to the MLP output before each residual add."""
+        q, k, v = self.qkv_proj(h, dt)
+        a = self.attn_out_proj(attention(q, k, v), dt)
+        if drop is not None:
+            a = drop(a)
+        h = self.ln1(h + a).to(dt)
+        m = self.gelu_mlp(h, dt)
+        if drop is not None:
+            m = drop(m)
+        return self.ln2(h + m).to(dt)
 
     def qkv_proj(self, h: torch.Tensor, dt: torch.dtype):
         """(B, S, E) -> per-head q, k, v, each (B, H, S, D)."""
@@ -180,13 +258,153 @@ class LmHead(nn.Module):
     feeding the vocab decoder tied to the token embedding, plus the
     float32 output bias."""
 
-    def __init__(self, p: dict, dt: torch.dtype):
+    def __init__(self, p: dict, dt: torch.dtype, trainable: bool = False):
         super().__init__()
-        self.w = _param(p["w"], dt)
-        self.b = _param(p["b"], dt)
-        self.ln = LayerNorm(p["ln"])
-        self.out_b = _param(p["out_b"], torch.float32)
+        self.w = _param(p["w"], dt, trainable)
+        self.b = _param(p["b"], dt, trainable)
+        self.ln = LayerNorm(p["ln"], trainable=trainable)
+        self.out_b = _param(p["out_b"], torch.float32, trainable)
+
+    def tree(self) -> dict:
+        return {"w": self.w, "b": self.b, "ln": self.ln.tree(),
+                "out_b": self.out_b}
 
     def head_hidden(self, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         t = F.gelu(h @ self.w.to(dt) + self.b.to(dt), approximate="tanh")
         return self.ln(t).to(dt)
+
+
+class BertMlm(nn.Module):
+    """BERT masked-LM for training: float32 trainable leaves in the
+    reference's tree, computed in ``cfg.dtype``.
+
+    ``attention`` picks the attention of every layer (the reference's
+    ``_attention``, without its sequence-parallel branches):
+
+    - ``"auto"`` — the flash kernels for CUDA tensors at ``S >=
+      cfg.flash_min_seq``, ``dense_attention`` otherwise (always on the
+      CPU, as the reference is dense off the TPU);
+    - ``"flash"`` — ``flash_attention`` at any S (its plain version for
+      CPU tensors);
+    - ``"dense"`` — ``dense_attention`` at any S.
+    """
+
+    def __init__(self, cfg: BertConfig, params: dict, attention: str = "auto"):
+        super().__init__()
+        if attention not in ATTENTION:
+            raise ValueError(f"attention must be one of {ATTENTION}, got "
+                             f"{attention!r}")
+        if cfg.ce_impl == "chunked" or (cfg.ce_impl == "auto"
+                                        and cfg.ce_positions == "all"):
+            raise NotImplementedError(
+                "the chunked MLM cross-entropy (ce_impl='chunked', or "
+                "'auto' with ce_positions='all') is not ported yet: "
+                "ROADMAP Queue 1 item 13")
+        self.cfg = cfg
+        self.attention = attention
+        f32 = torch.float32
+        self.tok_emb = _param(params["tok_emb"], f32, trainable=True)
+        self.pos_emb = _param(params["pos_emb"], f32, trainable=True)
+        self.emb_ln = LayerNorm(params["emb_ln"], trainable=True)
+        self.layers = nn.ModuleList(
+            EncoderLayer(lp, cfg.dtype, trainable=True)
+            for lp in params["layers"])
+        self.mlm = LmHead(params["mlm"], cfg.dtype, trainable=True)
+
+    @classmethod
+    def from_seed(cls, cfg: BertConfig, seed: int = 0,
+                  attention: str = "auto") -> "BertMlm":
+        """Random weights from ``seed`` (``init_params`` on a CPU
+        ``torch.Generator``)."""
+        gen = torch.Generator().manual_seed(seed)
+        return cls(cfg, init_params(cfg, gen), attention)
+
+    def param_tree(self) -> dict:
+        """The parameters in the reference's pytree layout (nested dicts,
+        ``layers`` a list) — what the optimizer's decay mask and
+        ``convert.params_to_numpy`` walk."""
+        return {"tok_emb": self.tok_emb, "pos_emb": self.pos_emb,
+                "emb_ln": self.emb_ln.tree(),
+                "layers": [layer.tree() for layer in self.layers],
+                "mlm": self.mlm.tree()}
+
+    def _attention(self, q, k, v):
+        S = q.shape[2]
+        flash = self.attention == "flash" or (
+            self.attention == "auto" and q.device.type == "cuda"
+            and S >= self.cfg.flash_min_seq)
+        if flash:
+            return flash_attention(q, k, v)
+        return dense_attention(q, k, v)
+
+    def encode(self, tokens, *, train: bool = False, generator=None):
+        """Embeddings + encoder stack: ``tokens`` (B, S) int ids ->
+        hidden states (B, S, E) in the compute dtype.  Dropout (train
+        mode, ``cfg.dropout > 0``) draws from ``generator`` at the
+        reference's sites, in its order: the embedding, then the
+        attention and MLP outputs of each layer."""
+        c = self.cfg
+        S = tokens.shape[1]
+        if c.pos_kind != "rope" and S > c.max_positions:
+            raise ValueError(f"sequence length {S} exceeds max_positions "
+                             f"{c.max_positions}")
+        drop = None
+        if train and c.dropout > 0.0:
+            if generator is None:
+                raise ValueError("dropout needs a generator in train mode")
+
+            def drop(x):
+                return dropout_mask(x, c.dropout, generator)
+        h = F.embedding(tokens.long(), self.tok_emb)
+        if c.pos_kind != "rope":
+            h = h + self.pos_emb[None, :S]
+        h = self.emb_ln(h)
+        if drop is not None:
+            h = drop(h)
+        h = h.to(c.dtype)
+
+        def attention(q, k, v):
+            if c.pos_kind == "rope":
+                pos = torch.arange(S, device=q.device)
+                q, k = rope(q, pos), rope(k, pos)
+            return self._attention(q, k, v)
+
+        for layer in self.layers:
+            h = layer(h, attention, c.dtype, drop)
+        return h
+
+    def head_hidden(self, h):
+        """MLM head transform (dense + GELU + LN) in the compute dtype."""
+        return self.mlm.head_hidden(h, self.cfg.dtype)
+
+    def _logits(self, t):
+        """Tied vocab decoder: float32 logits of head hidden ``t``."""
+        dt = self.cfg.dtype
+        return (t @ self.tok_emb.to(dt).t() + self.mlm.out_b).to(
+            torch.float32)
+
+    def apply(self, tokens, *, train: bool = False, generator=None):
+        """``tokens`` (B, S) (already masked) -> float32 logits (B, S,
+        V)."""
+        h = self.encode(tokens, train=train, generator=generator)
+        return self._logits(self.head_hidden(h))
+
+    def loss(self, batch: dict, labels, *, train: bool = False,
+             generator=None):
+        """Masked-LM loss: mean CE over the masked positions.  ``batch``
+        holds ``tokens`` (B, S) and ``mask`` (B, S) bool; ``labels``
+        (B, S) the original ids.  The denominator counts every masked
+        position, overflow-dropped ones included, as the reference's."""
+        h = self.encode(batch["tokens"], train=train, generator=generator)
+        mask = batch["mask"].to(torch.bool)
+        labels = labels.long()
+        if self.cfg.ce_positions == "masked":
+            h, labels, weights = mlm_head.gather_masked_rows(
+                h, labels, mask, ce_capacity(self.cfg, h.shape[1]))
+        else:
+            weights = mask.to(torch.float32)
+        logits = self._logits(self.head_hidden(h))
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        ce = torch.logsumexp(logits, dim=-1) - gold
+        return (ce * weights).sum() / torch.clamp(
+            mask.to(torch.float32).sum(), min=1.0)

@@ -1,11 +1,16 @@
-"""JAX parameter pytree -> the port's parameter tree.
+"""Parameter trees between the JAX layout and the port, both ways.
 
-The one place a JAX model's weights cross into the port.  The port keeps
-the JAX layouts (``wq`` (E, H, D), ``wo`` (H, D, E), ``w1`` (E, F),
-``tok_emb`` (V, E), ...), so the conversion only turns each leaf —
-given as a numpy array (``jax.tree.map(np.asarray, params)``) — into a
-float32 CPU tensor, keeping the nesting: dicts stay dicts, ``layers``
-stays a list.  ``models.gpt.CausalLm(cfg, tree)`` consumes the result.
+The one place a model's weights cross between the packages.  The port
+keeps the JAX layouts (``wq`` (E, H, D), ``wo`` (H, D, E), ``w1``
+(E, F), ``tok_emb`` (V, E), ...), so a conversion only turns each leaf
+into the other side's array type, keeping the nesting: dicts stay
+dicts, ``layers`` stays a list.
+
+- ``params_from_jax``: numpy leaves (``jax.tree.map(np.asarray,
+  params)``) -> float32 CPU tensors, which ``models.gpt.CausalLm(cfg,
+  tree)`` and ``models.bert.BertMlm(cfg, tree)`` consume;
+- ``params_to_numpy``: a port tree (``BertMlm.param_tree()``) -> float32
+  numpy leaves, to compare with a JAX model's parameters.
 """
 
 from __future__ import annotations
@@ -23,3 +28,13 @@ def params_from_jax(tree):
         return [params_from_jax(v) for v in tree]
     arr = np.asarray(tree, dtype=np.float32)
     return torch.from_numpy(arr.copy())
+
+
+def params_to_numpy(tree):
+    """Nested dicts/lists of tensors (on any device) -> the same nesting
+    of float32 numpy arrays (copies)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return tree.detach().to("cpu", torch.float32).numpy().copy()

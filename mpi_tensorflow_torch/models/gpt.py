@@ -4,8 +4,8 @@ Counterpart of ``mpi_tensorflow_tpu/models/gpt.py``'s ``CausalLm`` for
 inference: the paged forward the engine dispatches (``forward_paged``,
 pool held in the compute dtype), and the contiguous-cache forward with
 greedy ``generate`` that the serving tests use as the token-identity
-anchor.  Training (the next-token loss, ``BertMlm``) comes with the
-training slices.
+anchor.  Causal-LM training (the next-token loss) is not ported yet
+(ROADMAP Queue 1 item 13).
 
 The model is an ``nn.Module`` built from a parameter tree in the
 reference's layout: ``bert.init_params`` (seeded on the CPU) or
@@ -71,14 +71,6 @@ class CausalLm(nn.Module):
         tied = self.tok_emb if self.tok_emb_dt is None else self.tok_emb_dt
         return (t @ tied.t() + self.mlm.out_b).to(torch.float32)
 
-    def _block(self, layer, h, attention):
-        """One layer around ``attention(q, k, v) -> (B, H, S, D)``."""
-        dt = self.cfg.dtype
-        q, k, v = layer.qkv_proj(h, dt)
-        a = layer.attn_out_proj(attention(q, k, v), dt)
-        h = layer.ln1(h + a).to(dt)
-        return layer.ln2(h + layer.gelu_mlp(h, dt)).to(dt)
-
     # ---------------- paged cache (serving) ----------------
 
     def forward_paged(self, tokens, pools, block_tables, lengths,
@@ -125,7 +117,7 @@ class CausalLm(nn.Module):
                 paged_ops.write_kv(pl["v"], v, block_tables, pos, valid)
                 return paged_ops.attend(q, pl["k"], pl["v"], block_tables,
                                         lengths, dt, kernel=kernel)
-            h = self._block(layer, h, attention)
+            h = layer(h, attention, dt)
         return self._logits(h)
 
     # ---------------- contiguous cache (parity anchor) ----------------
@@ -162,7 +154,7 @@ class CausalLm(nn.Module):
                 # the same fp32 masked softmax as the paged gather path
                 return paged_ops.masked_softmax_attention(
                     q, cc["k"], cc["v"], vis[None, None], dt)
-            h = self._block(layer, h, attention)
+            h = layer(h, attention, dt)
         return self._logits(h)
 
     @torch.no_grad()

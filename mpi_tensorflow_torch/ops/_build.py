@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 #: library name -> its CUDA source under csrc/
-SOURCES = {"paged_attention": "paged_attention.cu"}
+SOURCES = {"paged_attention": "paged_attention.cu",
+           "flash_attention": "flash_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,0 +1,177 @@
+"""The transformer-family optimizer: adamw under a warmup schedule with
+global-norm clipping.
+
+Counterpart of ``warmup_linear``, ``decay_mask`` and ``transformer_tx``
+in ``mpi_tensorflow_tpu/train/optimizer.py``, written out to match optax
+rather than ``torch.optim.AdamW`` — the two differ in where the
+schedule is read and in how clipping scales:
+
+- ``clip_by_global_norm(1.0)``: gradients are scaled by ``max / |g|``
+  only when ``|g| >= max`` (not ``clip_grad_norm_``'s ``max / (|g| +
+  1e-6)``);
+- adamw: b1 0.9, b2 0.999, eps 1e-8, bias correction at ``count + 1``,
+  ``u = m_hat / (sqrt(v_hat) + eps) + wd * p`` with the decay only on
+  ``decay_mask`` leaves, then ``p -= lr * u``;
+- the learning rate is read at ``count`` BEFORE the increment, so step 0
+  runs at LR 0 under warmup-linear.
+
+The update runs in place on the parameter tensors (optax returns new
+arrays; here the parameters live in an ``nn.Module``), with ``torch``'s
+multi-tensor ops, and reads nothing back to the host.  LAMB is not
+ported yet (ROADMAP Queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+
+import numpy as np
+import torch
+
+_F32 = np.float32
+# bias-like leaf names across the families (the reference's regex)
+_BIAS_NAME = re.compile(r"^x?(b[a-z0-9]?|eb\d)$")
+B1, B2, EPS = 0.9, 0.999, 1e-8          # optax.adamw's defaults
+
+
+def constant(base_lr: float):
+    """A flat learning rate, in float32."""
+    return lambda step: _F32(base_lr)
+
+
+def warmup_linear(base_lr: float, warmup_steps: int, total_steps: int,
+                  end_fraction: float = 0.0):
+    """BERT's schedule: 0 -> ``base_lr`` linearly over ``warmup_steps``,
+    then linearly to ``end_fraction * base_lr`` at ``total_steps`` (flat
+    after).  Computed in float32 with the reference's operation order, so
+    the values are the reference's to the bit."""
+    def schedule(step):
+        step = _F32(step)
+        warm = step / np.maximum(_F32(warmup_steps), _F32(1.0))
+        frac = (step - _F32(warmup_steps)) \
+            / np.maximum(_F32(total_steps - warmup_steps), _F32(1.0))
+        decay = _F32(1.0) - _F32(1.0 - end_fraction) \
+            * np.clip(frac, _F32(0.0), _F32(1.0))
+        return _F32(base_lr) * (warm if step < warmup_steps else decay)
+    return schedule
+
+
+def named_leaves(tree, name=""):
+    """``(leaf name, leaf)`` pairs of a nested dict/list tree, depth
+    first; a leaf's name is its last dict key ('' for pure lists)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, k)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from named_leaves(v, name)
+    else:
+        yield name, tree
+
+
+def _map_tree(fn, tree, name=""):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(fn, v, name) for v in tree]
+    return fn(name, tree)
+
+
+def _decayable(name: str, leaf) -> bool:
+    if name in ("scale", "bias") or name.endswith("_b") \
+            or _BIAS_NAME.match(name):
+        return False
+    return leaf.ndim >= 2
+
+
+def decay_mask(tree):
+    """The BERT-recipe weight-decay mask, by leaf NAME: decay weight
+    matrices; skip LayerNorm ``scale``/``bias``, every bias (``b``,
+    ``bq`` ... ``b2``, ``eb1``, ``xbq``, ``*_b``) and every leaf under 2
+    dimensions.  Returns the tree with a bool at each leaf."""
+    return _map_tree(_decayable, tree)
+
+
+@dataclasses.dataclass
+class AdamWState:
+    count: int                    # updates applied (optax's int32 count)
+    mu: list                      # first moments, one per leaf
+    nu: list                      # second moments, one per leaf
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerTx:
+    """clip_by_global_norm then adamw, over a parameter tree's leaves."""
+    lr: object                    # schedule: step -> float32 LR
+    weight_decay: float = 0.01
+    grad_clip_norm: float = 1.0   # 0 disables clipping
+
+    def init(self, tree) -> AdamWState:
+        leaves = [p for _, p in named_leaves(tree)]
+        return AdamWState(0, [torch.zeros_like(p) for p in leaves],
+                          [torch.zeros_like(p) for p in leaves])
+
+    @torch.no_grad()
+    def update(self, tree, grads: list, state: AdamWState) -> None:
+        """One update of every leaf of ``tree`` in place from ``grads``
+        (one per leaf, in ``tree``'s leaf order); ``state.count``
+        advances by one."""
+        named = list(named_leaves(tree))
+        params = [p for _, p in named]
+        grads = list(grads)
+        if self.grad_clip_norm and self.grad_clip_norm > 0:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+            factor = torch.where(norm < self.grad_clip_norm,
+                                 torch.ones_like(norm),
+                                 self.grad_clip_norm / norm)
+            grads = torch._foreach_mul(grads, factor)
+        lr = float(self.lr(state.count))
+        state.count += 1
+        c = state.count
+        torch._foreach_mul_(state.mu, B1)
+        torch._foreach_add_(state.mu, grads, alpha=1 - B1)
+        torch._foreach_mul_(state.nu, B2)
+        torch._foreach_addcmul_(state.nu, grads, grads, value=1 - B2)
+        mu_hat = torch._foreach_div(state.mu, 1 - B1 ** c)
+        denom = torch._foreach_div(state.nu, 1 - B2 ** c)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, EPS)
+        u = torch._foreach_div(mu_hat, denom)
+        decay = [i for i, (name, p) in enumerate(named)
+                 if _decayable(name, p)]
+        if self.weight_decay and decay:
+            torch._foreach_add_([u[i] for i in decay],
+                                [params[i] for i in decay],
+                                alpha=self.weight_decay)
+        torch._foreach_add_(params, u, alpha=-lr)
+
+
+def transformer_tx(base_lr: float, num_steps: int, *,
+                   schedule: str = "warmup_linear",
+                   warmup_fraction: float = 0.1,
+                   weight_decay: float = 0.01,
+                   grad_clip_norm: float = 1.0,
+                   optimizer: str = "adamw") -> TransformerTx:
+    """The transformer-family optimizer under the named schedule
+    (``"warmup_linear"`` or ``"constant"``), with the reference's
+    defaults: warmup over 10 % of the steps, weight decay 0.01, global
+    norm clipped at 1.0."""
+    warmup = max(1, int(warmup_fraction * num_steps))
+    if schedule == "constant":
+        lr = constant(base_lr)
+    elif schedule == "warmup_linear":
+        lr = warmup_linear(base_lr, warmup, num_steps)
+    elif schedule == "warmup_cosine":
+        raise NotImplementedError("the warmup_cosine schedule is not "
+                                  "ported yet: ROADMAP Queue 1 item 13")
+    else:
+        raise ValueError(f"unknown schedule {schedule!r}")
+    if optimizer == "lamb":
+        raise NotImplementedError("optimizer='lamb' is not ported yet: "
+                                  "ROADMAP Queue 1 item 13")
+    if optimizer != "adamw":
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    return TransformerTx(lr, weight_decay=weight_decay,
+                         grad_clip_norm=grad_clip_norm)

@@ -1,0 +1,43 @@
+"""Analytic model FLOPs of a transformer train step, and the card's peak.
+
+The port's own copy of ``transformer_train_flops`` from
+``mpi_tensorflow_tpu/utils/flops.py`` (PaLM-appendix accounting: 6 N
+flops per token for a matmul of N parameters with its backward,
+12 B S^2 E per layer for attention scores and values, the tied decoder
+counted at the positions that reach the head).  The peak is the H100
+SXM's (NVIDIA data sheet, dense): 989 TFLOP/s in bf16 on the tensor
+cores, 67 TFLOP/s in float32 outside them.
+"""
+
+from __future__ import annotations
+
+PEAK_TFLOPS = {"bf16": 989.0, "fp32": 67.0}
+
+
+def transformer_train_flops(cfg, batch: int, seq_len: int,
+                            head_positions: int | None = None) -> float:
+    """Model flops for ONE forward+backward step of the transformer stack
+    (``models/bert.py`` geometry).  ``head_positions``: tokens reaching
+    the MLM head per sequence (default: ``ce_capacity`` under masked
+    packing, S otherwise)."""
+    E, L, M, V = cfg.hidden, cfg.layers, cfg.mlp, cfg.vocab_size
+    B, S = batch, seq_len
+    layer_mm = 4 * E * E + 2 * E * M        # QKV + out proj, MLP
+    enc = 6 * B * S * L * layer_mm          # encoder matmuls, fwd+bwd
+    attn = 12 * L * B * S * S * E           # scores + AV, fwd+bwd
+    if head_positions is None:
+        if getattr(cfg, "ce_positions", "all") == "masked":
+            from mpi_tensorflow_torch.models.bert import ce_capacity
+
+            head_positions = ce_capacity(cfg, S)
+        else:
+            head_positions = S
+    P = B * head_positions
+    head = 6 * P * (E * E + V * E)          # transform + tied decoder
+    return float(enc + attn + head)
+
+
+def mfu(flops_per_step: float, step_seconds: float, precision: str) -> float:
+    """Model-FLOP utilisation against the card's peak for ``precision``
+    ("bf16" or "fp32")."""
+    return flops_per_step / step_seconds / (PEAK_TFLOPS[precision] * 1e12)

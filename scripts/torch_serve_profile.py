@@ -31,28 +31,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from mpi_tensorflow_torch.serving.harness import build_serving  # noqa: E402
+from mpi_tensorflow_torch.utils.profiling import (  # noqa: E402
+    cuda_kernels, device_summary)
 
 # the profiled replay serves the trace's first requests only: the
 # profiler's post-processing of a full replay (~1M events) takes minutes
 PROFILE_REQUESTS = 8
-CATEGORIES = (                       # first match wins, on the lower name
-    ("paged_attention", ("paged_attention",)),
-    ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet", "matmul",
-                "gemv")),
-    ("index/gather/scatter", ("index", "gather", "scatter")),
-    ("reduce/norm/softmax", ("reduce", "softmax", "norm", "argmax",
-                             "max_kernel")),
-    ("elementwise", ("elementwise", "vectorized", "unrolled", "fill",
-                     "copy", "cat")),
-)
-
-
-def category(name: str) -> str:
-    low = name.lower()
-    for cat, keys in CATEGORIES:
-        if any(k in low for k in keys):
-            return cat
-    return "other"
 
 
 def replay(engine, trace) -> dict:
@@ -73,38 +57,13 @@ def profile(engine, trace) -> dict:
         res = engine.run(trace.requests()[:PROFILE_REQUESTS])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name, by_cat = {}, {}
-    spans = []
-    for e in kernels:
-        dur = e.time_range.end - e.time_range.start
-        by_name[e.name] = by_name.get(e.name, 0.0) + dur
-        cat = category(e.name)
-        by_cat[cat] = by_cat.get(cat, 0.0) + dur
-        spans.append((e.time_range.start, e.time_range.end))
-    spans.sort()
-    busy, end = 0.0, float("-inf")
-    for s, t in spans:                   # union of the kernel intervals
-        if t > end:
-            busy += t - max(s, end)
-            end = t
-    window = (spans[-1][1] - spans[0][0]) if spans else 0.0
-    total = sum(by_cat.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    summary = device_summary(cuda_kernels(prof))
     return {
-        "kernel_events": len(kernels),
+        "kernel_events": summary["kernel_events"],
         "kernels_per_forward_dispatch":
-            len(kernels) / max(1, res["forward_dispatches"]),
-        "device_busy_ms": busy / 1e3,
-        "window_ms": window / 1e3,
+            summary["kernel_events"] / max(1, res["forward_dispatches"]),
         "host_wall_ms": wall_us / 1e3,
-        "device_idle_share": 1.0 - busy / window if window else None,
-        "device_ms_by_category": {k: v / 1e3 for k, v in sorted(
-            by_cat.items(), key=lambda kv: -kv[1])},
-        "share_by_category": {k: v / total for k, v in by_cat.items()}
-        if total else {},
-        "top_kernels_ms": [[n[:90], v / 1e3] for n, v in top],
+        **{k: v for k, v in summary.items() if k != "kernel_events"},
     }
 
 
