@@ -18,14 +18,27 @@ fails:
    at the decode shape beside the plain version,
    ``F.scaled_dot_product_attention`` on a pre-gathered view (the
    yardstick only: the port never calls it) and its memory bound;
+2b. the same for the quantized modes — int8, int4 (g = 32; g = 16 at
+   H=4, D=16) and int4 with the residual lane, float32 and bfloat16, the
+   null block's and dead lanes' scales poisoned to 1e30 — then each mode
+   timed at the decode shape beside its plain version, SDPA on a
+   pre-gathered, pre-dequantized view, the fp-mode kernel on the same
+   blocks and its memory bound;
 3. full-width serving — a seeded Poisson trace (24 requests at 4 rps,
    prompts <= 32, outputs <= 128 tokens, seed 0) through
    ``PagedDecodeEngine`` at ``BERT_BASE`` geometry in bfloat16 with
    ``kernel="cuda"``; the kernel's launch count must equal layers x
    forward dispatches;
+3b. the same run from an int8 and from an int4 pool (``kv_dtype``), each
+   with its launches counted alone; every request ``ok``, the
+   ``kv_quant`` block against phase 3's run (capacity multipliers
+   exactly 1.8824 and 3.2; the token match rate is printed, not held:
+   random weights cannot judge quality);
 4. cross-check — a short trace in float32 at 2 layers (full width)
    served with ``kernel="cuda"`` and with ``kernel="gather"``: the greedy
    tokens must be identical to each other and to ``CausalLm.generate``;
+4b. the same two lowerings from an int8 and from an int4 pool: identical
+   greedy tokens;
 5. flash kernels against their plain versions — ``flash_fwd`` (out and
    lse), ``flash_dq`` and ``flash_dkdv`` against
    ``flash_forward_reference`` / ``flash_backward_reference`` at every S
@@ -46,7 +59,16 @@ fails:
    train steps;
 8. cross-check — float32, 2 layers at full width, S = 512, B = 2,
    dropout 0, three train steps with ``attention="flash"`` and with
-   ``"dense"``: loss, gradients and parameters must agree.
+   ``"dense"``: loss, gradients and parameters must agree;
+9. fused kernels — ``layer_norm_forward`` and ``online_logsumexp``
+   against their plain versions (N in {1, 7, 4096}, F in {16, 768,
+   1000}, V in {1, 511, 30522}, float32 and bfloat16, logits of +-1e4),
+   ``softmax_cross_entropy``'s gradient against autograd through the
+   plain version, and their device times at (4096, 768) and (4096,
+   30522) beside ``F.layer_norm`` / ``torch.logsumexp`` (yardsticks
+   only) and the bound.  No path runs these two kernels (the JAX
+   package's models do not call them either), so their main-path
+   launches are 0.
 
 Prints one ``kernels`` JSON line, then the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a card it
@@ -217,18 +239,34 @@ def wall_ms(fn, inputs, reps: int) -> float:
     return start.elapsed_time(end) / (reps * len(inputs))
 
 
+# calls that keep the card busy this long are timed by CUDA events alone
+LONG_CALL_MS = 0.2
+
+
 def device_ms(fn, inputs, reps: int, kernels_per_call=None) -> float:
-    """Mean device time per call of ``fn(*x)``: the durations of the
-    kernels it launched, from ``torch.profiler``, over ``reps`` passes
-    through ``inputs`` (after a pass the profiler records and discards,
-    ``profiled_kernels``).  Rotating through input sets larger than the
+    """Mean device time per call of ``fn(*x)`` over ``reps`` passes
+    through ``inputs``.  Rotating through input sets larger than the
     50 MB L2 finds every set's data cold, as the model finds each
-    layer's.  ``kernels_per_call``: the number of kernels one call
-    launches, checked against the kernels recorded.  A recording that
-    holds no device time or the wrong number of kernels is taken again,
-    up to three times in all (an H100 run once recorded no kernel at
-    all for a pass whose launches had run)."""
+    layer's.
+
+    A call of ``LONG_CALL_MS`` or more keeps the card busy while the
+    host queues the next, so CUDA events around the back-to-back passes
+    (``wall_ms``) read the card's busy time; ``torch.profiler`` is not
+    used for those (on an H100 that had profiled for minutes it recorded
+    one of every three 10 ms launches of a pass).  A shorter call is
+    timed by the durations of the kernels it launched, from
+    ``torch.profiler`` (after a pass the profiler records and discards,
+    ``profiled_kernels``), which leaves out the host's launch gaps.
+    ``kernels_per_call``: the number of kernels one call launches,
+    checked against the kernels recorded.  A recording that holds no
+    device time or the wrong number of kernels is taken again, up to
+    three times in all; after the third, the CUDA-event time stands, and
+    the log says so."""
     from mpi_tensorflow_torch.utils.profiling import profiled_kernels
+
+    event_ms = wall_ms(fn, inputs, reps)
+    if event_ms >= LONG_CALL_MS:
+        return event_ms
 
     def one_pass():
         for x in inputs:
@@ -238,8 +276,6 @@ def device_ms(fn, inputs, reps: int, kernels_per_call=None) -> float:
         for _ in range(reps):
             one_pass()
 
-    one_pass()
-    torch.cuda.synchronize()
     calls = reps * len(inputs)
     for attempt in range(3):
         kernels = profiled_kernels(one_pass, measured)
@@ -249,8 +285,9 @@ def device_ms(fn, inputs, reps: int, kernels_per_call=None) -> float:
             return us / 1e3 / calls
         log(f"[profiler] recording {attempt + 1} of 3 held {len(kernels)} "
             f"kernels ({us} us) for {calls} calls; recording again")
-    raise AssertionError(f"the profiler recorded {len(kernels)} kernels, "
-                         f"{us} us, for {calls} calls of {kernels_per_call}")
+    log(f"[profiler] no full recording: {event_ms:.4f} ms per call from "
+        f"CUDA events instead (device time plus launch gaps)")
+    return event_ms
 
 
 def time_decode(dev) -> dict:
@@ -308,16 +345,154 @@ def time_decode(dev) -> dict:
             "call_ms": call_ms, "library_call_ms": library_call_ms}
 
 
+# --------------------------------------------------------------- phase 2b
+
+QUANT_MODES = ("int8", "int4", "int4_res")
+QUANT_GROUP = 32                         # the serving default kv_group
+
+
+def quantize_case(args, mode: str, group: int, gen):
+    """Quantize the pools of ``args`` (q, pools, table, lengths on the
+    card) for ``mode``: codes and scales from the port's quantizers, then
+    every scale of a row that held the 1e30 poison set to 1e30 itself;
+    the residual mode
+    adds random ``k_new``/``v_new`` in q's dtype.  Returns
+    ``(positional args, keyword args)`` of the kernel wrapper."""
+    from mpi_tensorflow_torch.ops import paged_attention as ops
+
+    q, kp, vp, bt, lens = args
+    quant = (ops.quantize_kv if mode == "int8"
+             else lambda x: ops.quantize_kv_int4(x, group))
+    kw = {}
+    pools = []
+    for name, pool in (("k", kp), ("v", vp)):
+        codes, scale = quant(pool)
+        dead = (pool == POISON).all(-1)              # (N, H, bs)
+        scale[dead if scale.ndim == 3 else dead[..., None].expand_as(
+            scale)] = POISON
+        pools.append(codes)
+        kw[f"{name}_scale"] = scale
+    if mode == "int4_res":
+        kw["k_new"], kw["v_new"] = (
+            torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+            for _ in range(2))
+    return (q, pools[0], pools[1], bt, lens), kw
+
+
+def check_kernel_quant(dev) -> dict:
+    """The quantized modes against the plain version at phase 2's shapes
+    (BERT_BASE heads with g = 32, BERT_TINY's H=4 D=16 with g = 16);
+    returns the max absolute error per (mode, dtype)."""
+    from mpi_tensorflow_torch.ops import paged_attention_kernel as pk
+
+    rng = np.random.default_rng(1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    shapes = [(S, B, NB, H, D, QUANT_GROUP)
+              for S in (1, 2, 4, 8, 16, 32, 64)
+              for B, NB in ((1, 16), (8, 32))]
+    shapes += [(S, 8, 8, 4, 16, 16) for S in (1, 8, 64)]
+    worst = {}
+    for mode in QUANT_MODES:
+        for dtype in (torch.float32, torch.bfloat16):
+            atol, rtol = TOL[dtype]
+            worst[mode, dtype] = 0.0
+            for S, B, NB, h, d, g in shapes:
+                args, live = paged_case(rng, B, NB, S, torch.float32, dev,
+                                        h, d)
+                args = (args[0].to(dtype),) + args[1:]
+                pos, kw = quantize_case(args, mode, g, gen)
+                got = pk.paged_attention_kernel(*pos, **kw)
+                torch.cuda.synchronize(dev)
+                want = pk.paged_attention_reference(*pos, **kw)
+                worst[mode, dtype] = max(worst[mode, dtype], check_close(
+                    got[live], want[live], atol, rtol,
+                    f"paged {mode} {str(dtype)[6:]} S={S} B={B} NB={NB} "
+                    f"H={h} D={d} g={g}"))
+            log(f"[kernel {mode}] {str(dtype)[6:]}: max|kernel - plain| = "
+                f"{worst[mode, dtype]:.3e} over {len(shapes)} shapes: "
+                f"S=1..64, B in (1, 8), H={H} D={D} g={QUANT_GROUP}, and "
+                f"H=4 D=16 g=16 (tolerance {atol} abs + {rtol} rel)")
+    return worst
+
+
+def time_decode_quant(dev) -> dict:
+    """Each quantized mode at phase 2's decode shape (B=8 rows of 160 live
+    tokens, a 16-wide table bucket, bfloat16 q), on the pools of the
+    fp-mode kernel's own inputs, quantized: device ms beside the fp-mode
+    kernel on the same blocks, the plain version, SDPA on a pre-gathered,
+    pre-dequantized view (yardstick only) and the memory bound — codes,
+    scales, q and out (and the residual lane's k_new/v_new)."""
+    from mpi_tensorflow_torch.ops import paged_attention as ops
+    from mpi_tensorflow_torch.ops import paged_attention_kernel as pk
+
+    B, S, NB, live = 8, 1, 16, 160
+    dt = torch.bfloat16
+    nlive = live // BS
+    gen = torch.Generator(device=dev).manual_seed(3)
+    fp_sets, sets = [], {m: [] for m in QUANT_MODES}
+    lib_sets = {m: [] for m in QUANT_MODES}
+    for _ in range(12):                  # 12 x 6.3 MB of bf16 pools > L2
+        q = torch.randn((B, H, S, D), generator=gen, device=dev).to(dt)
+        kp, vp = (torch.randn((1 + B * NB, H, BS, D), generator=gen,
+                              device=dev).to(dt) for _ in range(2))
+        bt = torch.zeros((B, NB), dtype=torch.int32, device=dev)
+        bt[:, :nlive] = 1 + torch.randperm(
+            B * NB, generator=gen, device=dev)[:B * nlive].view(
+                B, nlive).to(torch.int32)
+        lens = torch.full((B,), live - S, dtype=torch.int32, device=dev)
+        fp_sets.append(((q, kp, vp, bt, lens), {}))
+        for mode in QUANT_MODES:
+            pos, kw = quantize_case(fp_sets[-1][0], mode, QUANT_GROUP, gen)
+            sets[mode].append((pos, kw))
+            lib_sets[mode].append((q, *(
+                ops._gather_kv_dequant(pool, kw[f"{name}_scale"],
+                                       bt[:, :nlive], dt)
+                for name, pool in (("k", pos[1]), ("v", pos[2])))))
+    kern = pk.paged_attention_kernel
+    call = lambda pos, kw: kern(*pos, **kw)
+    plain = lambda pos, kw: pk.paged_attention_reference(*pos, **kw)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    before = kern.launches
+    fp_ms = device_ms(call, fp_sets, reps=20, kernels_per_call=1)
+    res = {}
+    esize = torch.finfo(dt).bits // 8
+    for mode in QUANT_MODES:
+        ms = device_ms(call, sets[mode], reps=20, kernels_per_call=1)
+        call_ms = wall_ms(call, sets[mode], reps=20)
+        plain_ms = wall_ms(plain, sets[mode][:2], reps=2)
+        library_ms = device_ms(sdpa, lib_sets[mode], reps=20)
+        row = D + 4 if mode == "int8" else D // 2 + 4 * (D // QUANT_GROUP)
+        nbytes = (2 * B * H * S * D * esize            # q in, out
+                  + 2 * B * H * live * row             # K and V codes+scales
+                  + B * NB * 4 + B * 4)                # table, lengths
+        if mode == "int4_res":
+            nbytes += 2 * B * H * S * D * esize        # k_new, v_new
+        ops_n = 4 * B * H * S * live * D
+        bound_ms, bound_by = bound(nbytes, ops_n, dt)
+        res[mode] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "fp_kernel_ms": fp_ms}
+        log(f"[kernel {mode}] decode B={B} S={S} H={H} D={D} live={live} "
+            f"bf16 q: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms "
+            f"per call back to back), fp-mode kernel on the same blocks "
+            f"{fp_ms:.4f} ms, plain {plain_ms:.4f} ms per call, sdpa on "
+            f"the gathered, dequantized view {library_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}: {nbytes} B, {ops_n} ops)")
+    kern.launches = before                # timing is not the main path
+    return res
+
+
 # ---------------------------------------------------------------- phase 3
 
-def serve_full_width(dev) -> int:
-    """BERT_BASE, bf16, the CUDA kernel, the bench's default trace.
-    Returns the kernel's launches in the measured run."""
+def serve_full_width(dev, kv_dtype: str = "fp32"):
+    """BERT_BASE, bf16, the CUDA kernel, the bench's default trace, the
+    pool in ``kv_dtype``.  Returns ``(launches of the measured run, its
+    result, the engine, the trace)``."""
     from mpi_tensorflow_torch.ops import paged_attention_kernel as pk
     from mpi_tensorflow_torch.serving.harness import build_serving
 
     engine, trace = build_serving(precision="bf16", kernel="cuda",
-                                  device=dev)
+                                  kv_dtype=kv_dtype, device=dev)
     cfg = engine.model.cfg
     engine.run(trace.requests())                    # warmup replay
     engine.reset()
@@ -327,26 +502,73 @@ def serve_full_width(dev) -> int:
     launches = pk.paged_attention_kernel.launches
     want = cfg.layers * res["forward_dispatches"]
     if launches != want or launches == 0:
-        raise AssertionError(f"kernel launches {launches} != layers x "
-                             f"forward dispatches = {want}")
+        raise AssertionError(f"{kv_dtype}: kernel launches {launches} != "
+                             f"layers x forward dispatches = {want}")
     bad = {i: s for i, s in res["statuses"].items() if s != "ok"}
     if bad or len(res["outputs"]) != len(trace.prompts):
-        raise AssertionError(f"requests not served: {bad}")
+        raise AssertionError(f"{kv_dtype}: requests not served: {bad}")
     for i, toks in res["outputs"].items():
         if len(toks) != int(trace.outputs[i]) or \
                 not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"request {i}: bad output {toks[:8]}...")
+            raise AssertionError(f"{kv_dtype} request {i}: bad output "
+                                 f"{toks[:8]}...")
     log("[serve] " + json.dumps({
         "layers": cfg.layers, "hidden": cfg.hidden, "heads": cfg.heads,
         "vocab": cfg.vocab_size, "precision": "bf16",
-        "kernel": res["kernel"], "requests": len(trace.prompts),
+        "kernel": res["kernel"], "kv_dtype": res["kv_dtype"],
+        "requests": len(trace.prompts),
         "tokens": res["tokens"], "elapsed_s": res["elapsed_s"],
         "tokens_per_sec": res["tokens_per_sec"],
         "p50_token_latency_ms": res["p50_token_latency_ms"],
         "p99_token_latency_ms": res["p99_token_latency_ms"],
         "forward_dispatches": res["forward_dispatches"],
         "dispatch_shapes": len(res["dispatch_shapes"]),
+        "peak_live_blocks": res["peak_live_blocks"],
         "launches": launches, "device": res["device"]}))
+    return launches, res, engine, trace
+
+
+# --------------------------------------------------------------- phase 3b
+
+CAPACITY = {"int8": 1.8824, "int4": 3.2}     # 256/136 and 256/80 bytes
+
+
+def serve_quant(dev, ref: dict) -> dict:
+    """Phase 3's run from an int8 and from an int4 pool, each held
+    against ``ref`` (phase 3's compute-dtype result: same trace, same
+    weights) by the ``kv_quant`` block.  The match rate of the gather
+    lowering over the compute-dtype pool against ``ref`` is printed
+    beside them: on random weights greedy tokens part at any rounding
+    difference, and that rate is the floor the weights set.  Returns the
+    launches per ``kv_dtype``."""
+    from mpi_tensorflow_torch.serving.harness import (build_serving,
+                                                      kv_quant_report)
+
+    engine, trace = build_serving(precision="bf16", kernel="gather",
+                                  device=dev)
+    floor = kv_quant_report(ref, engine.run(trace.requests()), engine,
+                            trace)
+    del engine
+    launches = {}
+    for kv_dtype in ("int8", "int4"):
+        launches[kv_dtype], res, engine, trace = serve_full_width(
+            dev, kv_dtype)
+        block = kv_quant_report(ref, res, engine, trace)
+        log(f"[serve {kv_dtype}] " + json.dumps({
+            "tokens_per_sec": res["tokens_per_sec"],
+            "tokens_per_sec_ref": ref["tokens_per_sec"],
+            "p50_token_latency_ms": res["p50_token_latency_ms"],
+            "p99_token_latency_ms": res["p99_token_latency_ms"],
+            "p50_token_latency_ms_ref": ref["p50_token_latency_ms"],
+            "p99_token_latency_ms_ref": ref["p99_token_latency_ms"],
+            "token_match_rate_gather_vs_cuda_same_pool":
+                floor["token_match_rate"],
+            "kv_quant": block}))
+        if block["capacity_multiplier"] != CAPACITY[kv_dtype]:
+            raise AssertionError(
+                f"{kv_dtype} capacity multiplier "
+                f"{block['capacity_multiplier']} != {CAPACITY[kv_dtype]}")
+        del engine
     return launches
 
 
@@ -380,6 +602,33 @@ def cross_check(dev) -> None:
     log(f"[cross-check] fp32, 2 layers, {len(trace.prompts)} requests: "
         f"cuda == gather == generate "
         f"({sum(len(v) for v in outs['cuda'].values())} tokens)")
+
+
+# --------------------------------------------------------------- phase 4b
+
+def cross_check_quant(dev) -> None:
+    """fp32, 2 layers at full width, phase 4's trace, from an int8 and
+    from an int4 pool: ``cuda`` and ``gather`` serve identical greedy
+    tokens."""
+    from mpi_tensorflow_torch.serving.harness import build_serving
+
+    for kv_dtype in ("int8", "int4"):
+        outs = {}
+        for kernel in ("cuda", "gather"):
+            engine, trace = build_serving(
+                num_requests=6, rate_rps=1000.0, prompt_max=32,
+                output_max=16, precision="fp32", layers=2, kernel=kernel,
+                kv_dtype=kv_dtype, device=dev)
+            res = engine.run(trace.requests())
+            assert (res["kernel"], res["kv_dtype"]) == (kernel, kv_dtype)
+            outs[kernel] = res["outputs"]
+        if outs["cuda"] != outs["gather"]:
+            raise AssertionError(f"{kv_dtype}: cuda and gather tokens "
+                                 f"differ: {outs['cuda']} vs "
+                                 f"{outs['gather']}")
+        log(f"[cross-check {kv_dtype}] fp32, 2 layers, "
+            f"{len(trace.prompts)} requests: cuda == gather "
+            f"({sum(len(v) for v in outs['cuda'].values())} tokens)")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -736,6 +985,127 @@ def cross_check_train(dev) -> None:
         f"tolerance 3e-4)")
 
 
+# ---------------------------------------------------------------- phase 9
+
+FUSED_REPLACES = {"layer_norm": "mpi_tensorflow_tpu/ops/fused.py:56",
+                  "logsumexp": "mpi_tensorflow_tpu/ops/fused.py:123"}
+# the logsumexp is float32 for either input type; rows of +-1e4 make it
+# ~1e4, where one float32 ulp is ~1e-3, hence the relative part
+LSE_TOL = (1e-4, 1e-6)
+
+
+def check_fused(dev) -> dict:
+    """``layer_norm_forward`` and ``online_logsumexp`` against their plain
+    versions, and ``softmax_cross_entropy``'s gradient against autograd
+    through the plain version.  Returns the max absolute error per
+    kernel."""
+    from mpi_tensorflow_torch.ops import fused
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst = {"layer_norm": 0.0, "logsumexp": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for N, F in itertools.product((1, 7, 4096), (16, 768, 1000)):
+            x = (3 * torch.randn((N, F), generator=gen, device=dev)
+                 + 1).to(dtype)
+            scale, bias = (torch.randn((F,), generator=gen, device=dev)
+                           for _ in range(2))
+            got = fused.layer_norm_forward(x, scale, bias)
+            torch.cuda.synchronize(dev)
+            want = fused.layer_norm_reference(x, scale, bias)
+            worst["layer_norm"] = max(worst["layer_norm"], check_close(
+                got, want, *TOL[dtype],
+                f"layer_norm {str(dtype)[6:]} N={N} F={F}"))
+        for N, V in itertools.product((1, 7, 4096), (1, 511, 30522)):
+            x = 4 * torch.randn((N, V), generator=gen, device=dev)
+            x[0] = torch.where(torch.rand((V,), generator=gen, device=dev)
+                               < 0.5, -1e4, 1e4)
+            if N > 1:
+                x[1] = 1e4 + torch.randn((V,), generator=gen, device=dev)
+            x = x.to(dtype)
+            got = fused.online_logsumexp(x)
+            torch.cuda.synchronize(dev)
+            want = fused.logsumexp_reference(x)
+            worst["logsumexp"] = max(worst["logsumexp"], check_close(
+                got, want, *LSE_TOL,
+                f"logsumexp {str(dtype)[6:]} N={N} V={V}"))
+    logits = 4 * torch.randn((64, 30522), generator=gen, device=dev)
+    labels = torch.randint(0, 30522, (64,), generator=gen, device=dev)
+    g = torch.randn((64,), generator=gen, device=dev)
+    grads = []
+    for ce in (fused.softmax_cross_entropy,
+               lambda lg, lb: fused.logsumexp_reference(lg) - torch.gather(
+                   lg, -1, lb[:, None])[:, 0]):
+        lg = logits.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(ce(lg, labels), lg, g)[0])
+    ce_err = check_close(grads[0], grads[1], 1e-5, 0.0,
+                         "softmax_cross_entropy gradient")
+    log(f"[fused] max|kernel - plain|: layer_norm "
+        f"{worst['layer_norm']:.3e} (N in 1, 7, 4096; F in 16, 768, 1000; "
+        f"float32 and bfloat16; tolerance as phase 2), logsumexp "
+        f"{worst['logsumexp']:.3e} (V in 1, 511, 30522, rows of +-1e4; "
+        f"tolerance {LSE_TOL[0]} abs + {LSE_TOL[1]} rel); "
+        f"softmax_cross_entropy gradient vs autograd through the plain "
+        f"version, (64, 30522) float32: {ce_err:.3e} (tolerance 1e-5)")
+    return worst
+
+
+def time_fused(dev) -> dict:
+    """Device ms of each fused kernel at the BERT-base shapes — LayerNorm
+    over (4096, 768) bf16 activations, logsumexp over (4096, 30522)
+    float32 logits — beside its plain version, the PyTorch call that
+    computes the same function (yardstick only) and the bound."""
+    from mpi_tensorflow_torch.ops import fused
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    N, F, V = 4096, 768, 30522
+    dt = torch.bfloat16
+    ln_sets = [((torch.randn((N, F), generator=gen, device=dev)).to(dt),
+                torch.randn((F,), generator=gen, device=dev),
+                torch.randn((F,), generator=gen, device=dev))
+               for _ in range(12)]       # 12 x 6.3 MB > L2
+    lse_sets = [(torch.randn((N, V), generator=gen, device=dev),)
+                for _ in range(2)]       # 500 MB each
+    lib_ln = [(x, s.to(dt), b.to(dt)) for x, s, b in ln_sets]
+    cases = {
+        "layer_norm": (fused.layer_norm_forward, fused.layer_norm_reference,
+                       ln_sets,
+                       lambda x, s, b: torch.nn.functional.layer_norm(
+                           x, (F,), s, b, 1e-12), lib_ln,
+                       2 * N * F * 2 + 2 * F * 4, 8 * N * F),
+        "logsumexp": (fused.online_logsumexp, fused.logsumexp_reference,
+                      lse_sets, lambda x: torch.logsumexp(x, -1), lse_sets,
+                      N * V * 4 + N * 4, 4 * N * V),
+    }
+    res = {}
+    for name, (kern, plain, sets, lib, lsets, nbytes, ops_n) in \
+            cases.items():
+        reps = 20 if name == "layer_norm" else 5
+        ms = device_ms(kern, sets, reps=reps, kernels_per_call=1)
+        call_ms = wall_ms(kern, sets, reps=reps)
+        plain_ms = wall_ms(plain, sets[:1], reps=2)
+        library_ms = device_ms(lib, lsets, reps=reps)
+        bound_ms, bound_by = bound(nbytes, ops_n, torch.float32)
+        res[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+        what, lib_name = (("(4096, 768) bf16", "F.layer_norm")
+                          if name == "layer_norm" else
+                          ("(4096, 30522) float32", "torch.logsumexp"))
+        log(f"[fused] {name} {what}: kernel {ms:.4f} ms on the device "
+            f"({call_ms:.4f} ms per call back to back), plain "
+            f"{plain_ms:.4f} ms per call, {lib_name} {library_ms:.4f} ms "
+            f"on the device, bound {bound_ms:.5f} ms "
+            f"({bound_by}: {nbytes} B, {ops_n} ops)")
+    return res
+
+
+def fused_counts() -> dict:
+    from mpi_tensorflow_torch.ops import fused
+
+    return {"layer_norm": fused.layer_norm_forward.launches,
+            "logsumexp": fused.online_logsumexp.launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda reports no card; nothing was run",
@@ -751,24 +1121,56 @@ def main() -> int:
     build()
     worst = check_kernel(dev)
     timing = time_decode(dev)
-    launches = serve_full_width(dev)
+    quant_worst = check_kernel_quant(dev)
+    quant_timing = time_decode_quant(dev)
+    launches, ref, engine, _ = serve_full_width(dev)
+    del engine
+    quant_launches = serve_quant(dev, ref)
     cross_check(dev)
+    cross_check_quant(dev)
     flash_worst = check_flash(dev)
     check_flash_grads(dev)
     flash_timing = time_flash(dev)
     flash_launches = train_full_width(dev)
     cross_check_train(dev)
+    # no path runs the fused kernels: their counts stay at 0 through
+    # every main path above, and the comparison launches below are reset
+    fused_launches = fused_counts()
+    if any(fused_launches.values()):
+        raise AssertionError(f"a main path launched a fused kernel: "
+                             f"{fused_launches}")
+    fused_worst = check_fused(dev)
+    fused_timing = time_fused(dev)
+    from mpi_tensorflow_torch.ops import fused
+
+    fused.layer_norm_forward.launches = fused_launches["layer_norm"]
+    fused.online_logsumexp.launches = fused_launches["logsumexp"]
+    paged_src = "mpi_tensorflow_torch/ops/csrc/paged_attention.cu"
+    paged_replaces = "mpi_tensorflow_tpu/ops/paged_attention_kernel.py:90"
     kernels = [{
         "name": "paged_attention",
         "route": "cuda",
-        "source": "mpi_tensorflow_torch/ops/csrc/paged_attention.cu",
-        "replaces": "mpi_tensorflow_tpu/ops/paged_attention_kernel.py:90",
+        "source": paged_src,
+        "replaces": paged_replaces,
         "launches": launches,
         "max_abs_err": max(worst.values()),
         "max_abs_err_fp32": worst[torch.float32],
         "max_abs_err_bf16": worst[torch.bfloat16],
         **timing,
     }]
+    for kv_dtype, modes, timed in (("int8", ("int8",), "int8"),
+                                   ("int4", ("int4", "int4_res"),
+                                    "int4_res")):
+        errs = {dt: max(quant_worst[m, dt] for m in modes)
+                for dt in (torch.float32, torch.bfloat16)}
+        kernels.append({
+            "name": f"paged_attention_{kv_dtype}", "route": "cuda",
+            "source": paged_src, "replaces": paged_replaces,
+            "mode": "+".join(modes), "launches": quant_launches[kv_dtype],
+            "max_abs_err": max(errs.values()),
+            "max_abs_err_fp32": errs[torch.float32],
+            "max_abs_err_bf16": errs[torch.bfloat16],
+            **quant_timing[timed]})
     for name in FLASH:
         t = flash_timing[name]
         flash_worst[name, torch.bfloat16] = max(
@@ -785,6 +1187,13 @@ def main() -> int:
             "max_abs_err_bf16": flash_worst[name, torch.bfloat16],
             **t[False],                  # the main path is not causal
             "causal": t[True]})
+    for name in ("layer_norm", "logsumexp"):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mpi_tensorflow_torch/ops/csrc/fused.cu",
+            "replaces": FUSED_REPLACES[name], "on_path": False,
+            "launches": fused_launches[name],
+            "max_abs_err": fused_worst[name], **fused_timing[name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,12 @@ class Config:
                                   # CUDA kernel for CUDA tensors, the
                                   # gather path on the CPU) | gather |
                                   # cuda
+    serve_kv_dtype: str = "fp32"  # paged-pool storage: fp32 (the compute
+                                  # dtype) | int8 (row-scaled codes) |
+                                  # int4 (group-scaled nibbles + the
+                                  # fp-residual self lane)
+    serve_kv_group: int = 32      # int4 scale-group size along head_dim
+                                  # (clamped to head_dim, must divide it)
     # fault-tolerance policy (serving/engine.ServeConfig; None = off)
     serve_deadline_ms: Optional[float] = None  # default per-request TTL
     serve_queue_depth: Optional[int] = None    # bound on the waiting queue

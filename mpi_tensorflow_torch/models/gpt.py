@@ -2,10 +2,10 @@
 
 Counterpart of ``mpi_tensorflow_tpu/models/gpt.py``'s ``CausalLm`` for
 inference: the paged forward the engine dispatches (``forward_paged``,
-pool held in the compute dtype), and the contiguous-cache forward with
-greedy ``generate`` that the serving tests use as the token-identity
-anchor.  Causal-LM training (the next-token loss) is not ported yet
-(ROADMAP Queue 1 item 13).
+over a pool in the compute dtype, int8 or int4), and the
+contiguous-cache forward with greedy ``generate`` that the serving
+tests use as the token-identity anchor.  Causal-LM training (the
+next-token loss) is not ported yet (ROADMAP Queue 1 item 13).
 
 The model is an ``nn.Module`` built from a parameter tree in the
 reference's layout: ``bert.init_params`` (seeded on the CPU) or
@@ -81,9 +81,10 @@ class CausalLm(nn.Module):
         implementation serves chunked prefill (S = chunk) and decode
         (S = 1).
 
-        pools:        per-layer ``{"k", "v"}`` pools, each
-                      (num_blocks, H, block_size, D) in the compute
-                      dtype, UPDATED IN PLACE with this step's K/V
+        pools:        per-layer pools (``paged_cache.init_pools``):
+                      ``{"k", "v"}`` in the compute dtype, or int8/int4
+                      codes with ``{"k_scale", "v_scale"}``; UPDATED IN
+                      PLACE with this step's K/V (quantized on store)
         block_tables: (B, NB) int32; entries past a row's allocation are
                       the null block (0)
         lengths:      (B,) int32 cache entries already written per row
@@ -113,10 +114,26 @@ class CausalLm(nn.Module):
                     # rotate at ABSOLUTE per-row positions; keys enter
                     # the pool already rotated
                     q, k = bert_lib.rope(q, pos), bert_lib.rope(k, pos)
-                paged_ops.write_kv(pl["k"], k, block_tables, pos, valid)
-                paged_ops.write_kv(pl["v"], v, block_tables, pos, valid)
-                return paged_ops.attend(q, pl["k"], pl["v"], block_tables,
-                                        lengths, dt, kernel=kernel)
+                if "k_scale" not in pl:
+                    paged_ops.write_kv(pl["k"], k, block_tables, pos, valid)
+                    paged_ops.write_kv(pl["v"], v, block_tables, pos, valid)
+                    return paged_ops.attend(q, pl["k"], pl["v"],
+                                            block_tables, lengths, dt,
+                                            kernel=kernel)
+                # quantized pool: quantize on store (codes and scales
+                # through the same block/slot index), dequantize inside
+                # attend; int4 (4-d group scales) also passes the step's
+                # own K/V for the fp-residual self lane
+                int4 = pl["k_scale"].ndim == 4
+                write = (paged_ops.write_kv_quant_int4 if int4
+                         else paged_ops.write_kv_quant)
+                write(pl["k"], pl["k_scale"], k, block_tables, pos, valid)
+                write(pl["v"], pl["v_scale"], v, block_tables, pos, valid)
+                return paged_ops.attend(
+                    q, pl["k"], pl["v"], block_tables, lengths, dt,
+                    kernel=kernel, k_scale=pl["k_scale"],
+                    v_scale=pl["v_scale"], k_new=k if int4 else None,
+                    v_new=v if int4 else None)
             h = layer(h, attention, dt)
         return self._logits(h)
 

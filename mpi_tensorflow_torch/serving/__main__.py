@@ -4,12 +4,14 @@ The port's counterpart of the timed engine arm of the reference's
 ``bench.py --mode serving``, with the reference's flags where they
 apply.  One untimed warmup replay, then the timed replay; prints ONE
 JSON line: throughput, per-token latency percentiles, the resolved
-kernel, the CUDA kernel's launches in the timed replay, and the device.
+kernel, the pool's ``kv_dtype``, the CUDA kernel's launches in the timed
+replay, and the device.
 Runs on the card unless ``--device cpu``.
 
     python -m mpi_tensorflow_torch.serving                     # BERT_BASE
     python -m mpi_tensorflow_torch.serving --serve-tiny --device cpu \\
-        --requests 2 --prompt-len 8 --new-tokens 4 --arrival-rate 1000
+        --requests 2 --prompt-len 8 --new-tokens 4 --arrival-rate 1000 \\
+        --serve-kv-dtype int4
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ def parse_args(argv=None):
     ap.add_argument("--batch-size", type=int, default=None,
                     help="decode slots (default: serve_max_slots = 8)")
     ap.add_argument("--precision", choices=["fp32", "bf16"], default="fp32",
-                    help="compute dtype (the pool is held in it too)")
+                    help="compute dtype (of the pool too, under "
+                         "--serve-kv-dtype fp32)")
     ap.add_argument("--serve-tiny", action="store_true",
                     help="BERT_TINY geometry instead of BERT_BASE")
     ap.add_argument("--serve-kernel", choices=["auto", "gather", "cuda"],
@@ -51,6 +54,16 @@ def parse_args(argv=None):
                     help="cache entries per pool block (default 16)")
     ap.add_argument("--serve-pool-blocks", type=int, default=None,
                     help="pool blocks (default: every slot at full length)")
+    ap.add_argument("--serve-kv-dtype", choices=["fp32", "int8", "int4"],
+                    default=None,
+                    help="pool storage: fp32 keeps the compute dtype; "
+                         "int8 stores row-scaled codes; int4 packs two "
+                         "codes per byte with group scales and serves "
+                         "each token's own K/V at full precision "
+                         "(default fp32)")
+    ap.add_argument("--serve-kv-group", type=int, default=None,
+                    help="int4 scale-group size along head_dim (clamped "
+                         "to head_dim, must divide it; default 32)")
     ap.add_argument("--seed", type=int, default=0, help="trace seed")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card fails")
@@ -66,6 +79,7 @@ def main(argv=None) -> int:
         tiny=args.serve_tiny, kernel=args.serve_kernel,
         block_size=args.serve_block_size,
         pool_blocks=args.serve_pool_blocks, seed=args.seed,
+        kv_dtype=args.serve_kv_dtype, kv_group=args.serve_kv_group,
         device=args.device)
     engine.run(trace.requests())          # warmup (lazy builds, caches)
     engine.reset()
@@ -80,6 +94,7 @@ def main(argv=None) -> int:
         "p50_token_latency_ms": res["p50_token_latency_ms"],
         "p99_token_latency_ms": res["p99_token_latency_ms"],
         "kernel": res["kernel"],
+        "kv_dtype": res["kv_dtype"],
         "launches": launches,
         "device": res["device"],
         "tokens": res["tokens"],

@@ -17,11 +17,12 @@ donation.  The host waits on the device once per decode dispatch (the
 next tokens) and once per admission (the token a prompt's final chunk
 emits).
 
-Served here: the pool in the compute dtype, greedy decoding, the fault
-policy (deadlines, bounded queue, eviction cap, graceful drain).  The
-prefix cache, speculation, mixed batching, quantized pools, host tier,
-tensor parallelism and tracing are later slices: ``ServeConfig`` raises
-for them, naming the ROADMAP item.
+Served here: the pool in the compute dtype or quantized (``kv_dtype``
+int8, or int4 with ``kv_group`` and the fp-residual self lane), greedy
+decoding, the fault policy (deadlines, bounded queue, eviction cap,
+graceful drain).  The prefix cache, speculation, mixed batching, host
+tier, tensor parallelism and tracing are later slices: ``ServeConfig``
+raises for them, naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -61,8 +62,9 @@ class ServeConfig:
     draft_auto: str = "off"
     mixed_batch: str = "off"
     prefill_budget: int = 64
-    kv_dtype: str = "fp32"        # "fp32": pool in the compute dtype
-    kv_group: int = 32
+    kv_dtype: str = "fp32"        # pool storage: "fp32" (the compute
+                                  # dtype) | "int8" | "int4"
+    kv_group: int = 32            # int4 scale-group size along head_dim
     kv_tier: str = "off"
     tp: int = 1
     # --- fault-tolerance policy (None = feature off / unbounded) ---
@@ -83,6 +85,8 @@ class ServeConfig:
                     max_slots=config.serve_max_slots,
                     max_seq_len=config.serve_max_seq_len,
                     kernel=config.serve_kernel,
+                    kv_dtype=config.serve_kv_dtype,
+                    kv_group=config.serve_kv_group,
                     deadline_ms=config.serve_deadline_ms,
                     queue_depth=config.serve_queue_depth,
                     max_evictions=config.serve_max_evictions,
@@ -163,8 +167,6 @@ class ServeConfig:
                 ("kv_tier", "off", "Queue 1 item 2 (prefix cache)"),
                 ("mixed_batch", "off", "Queue 1 item 3 (mixed batching)"),
                 ("speculative", "off", "Queue 1 item 4 (speculation)"),
-                ("kv_dtype", "fp32",
-                 "Queue 1 item 5 / Queue 2 item 4(b)/(c) (quantized pools)"),
                 ("prefix_route", "off", "Queue 1 item 6 (fleet)"),
                 ("tp", 1, "Queue 1 item 6 (tensor parallelism)"),
                 ("trace", "off", "Queue 1 item 6 (tracing)")):
@@ -215,7 +217,8 @@ class PagedDecodeEngine:
         """Fresh pools and scheduler (a trace replay starts clean)."""
         cfg = self.model.cfg
         self.pools = paged_cache.init_pools(
-            cfg, self.serve.num_blocks, self.serve.block_size, self.device)
+            cfg, self.serve.num_blocks, self.serve.block_size, self.device,
+            self.serve.kv_dtype, self.serve.kv_group)
         self.allocator = paged_cache.BlockAllocator(self.serve.num_blocks)
         self.sched = sched_lib.Scheduler(
             self.allocator, self.serve.max_slots, self.serve.block_size,
@@ -431,6 +434,7 @@ class PagedDecodeEngine:
             "drain": drain.result(len(self.sched.finished),
                                   self.sched.counters["drained"]),
             "kernel": self.kernel,
+            "kv_dtype": serve.kv_dtype,
             "device": device_name(self.device),
             "prefix": metrics_writer.prefix_block(),
             "speculation": metrics_writer.speculation_block(serve.draft_k),

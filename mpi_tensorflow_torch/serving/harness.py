@@ -7,12 +7,16 @@ seeded Poisson trace (``loadgen``, vocabulary of the model), and the
 same sizing rules — ``max_seq_len`` is the power of two at or above the
 longest request, and the default pool holds every slot at full length
 (no eviction churn).  Weights are random, drawn from seed 0.
+``kv_quant_report`` is the reference bench's ``--serve-kv-ab`` block:
+a quantized run held against the compute-dtype run of the same trace.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import numpy as np
 
 from mpi_tensorflow_torch.config import Config
 from mpi_tensorflow_torch.models import bert
@@ -21,6 +25,7 @@ from mpi_tensorflow_torch.serving import loadgen
 from mpi_tensorflow_torch.serving.engine import (PagedDecodeEngine,
                                                  ServeConfig, pow2_ceil)
 from mpi_tensorflow_torch.serving.paged_cache import blocks_for
+from mpi_tensorflow_torch.utils.metrics_writer import kv_quant_block
 
 
 def build_serving(*, num_requests: int = 24, rate_rps: float = 4.0,
@@ -31,7 +36,8 @@ def build_serving(*, num_requests: int = 24, rate_rps: float = 4.0,
                   block_size: Optional[int] = None,
                   pool_blocks: Optional[int] = None,
                   layers: Optional[int] = None, seed: int = 0,
-                  device="cuda"):
+                  kv_dtype: Optional[str] = None,
+                  kv_group: Optional[int] = None, device="cuda"):
     """-> ``(engine, trace)``.  Unset knobs resolve through ``Config``'s
     ``serve_*`` defaults; ``layers`` cuts the model's depth (widths stay
     the preset's)."""
@@ -52,7 +58,46 @@ def build_serving(*, num_requests: int = 24, rate_rps: float = 4.0,
         pool_blocks = max_slots * blocks_for(max_seq_len, block_size) + 1
     serve = ServeConfig.from_config(
         cfg, num_blocks=pool_blocks, block_size=block_size,
-        max_slots=max_slots, max_seq_len=max_seq_len, kernel=kernel)
+        max_slots=max_slots, max_seq_len=max_seq_len, kernel=kernel,
+        kv_dtype=kv_dtype, kv_group=kv_group)
     engine = PagedDecodeEngine(CausalLm.from_seed(bcfg, seed=0), serve,
                                device=device)
     return engine, trace
+
+
+def kv_quant_report(ref: dict, quant: dict, engine, trace) -> dict:
+    """``metrics_writer.kv_quant_block`` for ``quant`` (a run of
+    ``engine``, whose pool is int8 or int4) against ``ref`` (the
+    compute-dtype run of the same trace and weights), with the reference
+    bench's byte formulas (``bench.py`` ``--serve-kv-ab``): a block
+    holds K and V rows of ``head_dim`` compute-dtype values, or of
+    ``head_dim + 4`` bytes (int8: codes + one float32 scale), or of
+    ``head_dim / 2 + 4 * head_dim / g`` bytes (int4); a decode token
+    reads every live context row of every layer once."""
+    cfg, serve = engine.model.cfg, engine.serve
+    matched = compared = 0
+    for rid, ref_out in ref["outputs"].items():
+        q_out = quant["outputs"].get(rid, [])
+        compared += max(len(ref_out), len(q_out))
+        matched += sum(a == b for a, b in zip(ref_out, q_out))
+    itemsize = cfg.dtype.itemsize
+    rows = cfg.heads * serve.block_size
+    if serve.kv_dtype == "int4":
+        q_row = cfg.head_dim // 2 + 4 * (cfg.head_dim
+                                         // min(serve.kv_group, cfg.head_dim))
+    else:
+        q_row = cfg.head_dim + 4
+    mean_ctx = float(np.mean([len(p) + t + 1 for p, o in
+                              zip(trace.prompts, trace.outputs)
+                              for t in range(o)]))
+    per_token = cfg.layers * 2 * cfg.heads * mean_ctx
+    return kv_quant_block(
+        kv_dtype=serve.kv_dtype, matched_tokens=matched,
+        compared_tokens=compared,
+        block_bytes_ref=2 * rows * cfg.head_dim * itemsize * cfg.layers,
+        block_bytes=2 * rows * q_row * cfg.layers,
+        num_blocks=serve.num_blocks,
+        peak_live_blocks_ref=ref["peak_live_blocks"],
+        peak_live_blocks=quant["peak_live_blocks"],
+        bytes_per_decode_token_ref=per_token * cfg.head_dim * itemsize,
+        bytes_per_decode_token=per_token * q_row)

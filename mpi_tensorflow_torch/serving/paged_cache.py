@@ -1,8 +1,9 @@
 """Paged KV cache: host block allocator + device pool construction.
 
 Counterpart of ``mpi_tensorflow_tpu/serving/paged_cache.py``: the
-refcounted ``BlockAllocator``, ``blocks_for`` and the pools held in the
-model's compute dtype.  ``HostBlockStore`` and ``partial_copy_block``
+refcounted ``BlockAllocator``, ``blocks_for`` and ``init_pools`` for the
+three pool formats (compute dtype, int8, int4).  ``HostBlockStore`` and
+``partial_copy_block``
 (host tiering and prefix sharing v2) wait for the prefix-cache slice
 (ROADMAP Queue 1).
 
@@ -100,13 +101,47 @@ def blocks_for(tokens: int, block_size: int) -> int:
     return -(-tokens // block_size)
 
 
-def init_pools(cfg, num_blocks: int, block_size: int,
-               device: torch.device) -> list:
-    """Per-layer ``{"k", "v"}`` zero pools of shape (num_blocks, heads,
-    block_size, head_dim) in the model's compute dtype (the reference's
-    ``kv_dtype="fp32"`` pool; its int8/int4 pools are ROADMAP Queue 2
-    items 4(b)/(c))."""
-    shape = (num_blocks, cfg.heads, block_size, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
-            for _ in range(cfg.layers)]
+def init_pools(cfg, num_blocks: int, block_size: int, device: torch.device,
+               kv_dtype: str = "fp32", kv_group: int = 32) -> list:
+    """Per-layer zero pools, the reference's leaves and shapes:
+
+    - ``fp32``: ``{"k", "v"}`` of (num_blocks, heads, block_size,
+      head_dim) in the model's compute dtype;
+    - ``int8``: int8 code pools of that shape plus ``{"k_scale",
+      "v_scale"}`` (num_blocks, heads, block_size) float32 row scales;
+    - ``int4``: uint8 pools (num_blocks, heads, block_size, head_dim /
+      2) of packed nibbles plus (num_blocks, heads, block_size, head_dim
+      / g) float32 group scales, ``g = min(kv_group, head_dim)``.  An odd
+      head_dim or a group that does not divide it raises.
+
+    The scale leaves share the pools' leading axes, so block-table
+    indexing treats them like the codes; their rank tells the consume
+    paths int8 from int4."""
+    if kv_dtype not in ("fp32", "int8", "int4"):
+        raise ValueError(
+            f"serve kv dtype must be fp32|int8|int4, got {kv_dtype!r}")
+    H, D = cfg.heads, cfg.head_dim
+    if kv_dtype == "fp32":
+        shape, dtype, sshape = (num_blocks, H, block_size, D), cfg.dtype, None
+    elif kv_dtype == "int8":
+        shape, dtype = (num_blocks, H, block_size, D), torch.int8
+        sshape = (num_blocks, H, block_size)
+    else:
+        g = min(kv_group, D)
+        if D % 2 or g < 1 or D % g:
+            raise ValueError(
+                f"int4 pool needs even head_dim divisible by the "
+                f"effective group min(kv_group, head_dim); got "
+                f"head_dim={D}, kv_group={kv_group}")
+        shape, dtype = (num_blocks, H, block_size, D // 2), torch.uint8
+        sshape = (num_blocks, H, block_size, D // g)
+    pools = []
+    for _ in range(cfg.layers):
+        layer = {key: torch.zeros(shape, dtype=dtype, device=device)
+                 for key in ("k", "v")}
+        if sshape is not None:
+            layer.update({key: torch.zeros(sshape, dtype=torch.float32,
+                                           device=device)
+                          for key in ("k_scale", "v_scale")})
+        pools.append(layer)
+    return pools

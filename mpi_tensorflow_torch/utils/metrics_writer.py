@@ -2,10 +2,11 @@
 
 Counterpart of the constructors of ``mpi_tensorflow_tpu/utils/
 metrics_writer.py`` that a serving run's result carries: ``faults_block``
-in full, and ``prefix_block``, ``speculation_block`` and ``tier_block``
-in the disabled form this slice produces (their features are ROADMAP
-Queue 1 items).  Same keys and value types as the reference, so results
-of the two engines compare key for key.
+and ``kv_quant_block`` in full, and ``prefix_block``,
+``speculation_block`` and ``tier_block`` in the disabled form this slice
+produces (their features are ROADMAP Queue 1 items).  Same keys and
+value types as the reference, so results of the two engines compare key
+for key.
 """
 
 from __future__ import annotations
@@ -52,4 +53,42 @@ def tier_block() -> dict:
         "host_blocks": 0, "host_blocks_peak": 0,
         "promote_latency_ms_total": 0.0, "promote_latency_ms_mean": 0.0,
         "prefill_tokens_saved_tier": 0,
+    }
+
+
+def kv_quant_block(*, kv_dtype: str = "fp32", matched_tokens: int = 0,
+                   compared_tokens: int = 0, block_bytes_ref: int = 0,
+                   block_bytes: int = 0, num_blocks: int = 0,
+                   peak_live_blocks_ref: int = 0,
+                   peak_live_blocks: int = 0,
+                   bytes_per_decode_token_ref: float = 0.0,
+                   bytes_per_decode_token: float = 0.0) -> dict:
+    """The ``kv_quant`` block of a quantized-pool A/B: ``*_ref`` is the
+    compute-dtype arm.  ``token_match_rate`` is positionwise greedy
+    agreement over the trace; ``capacity_multiplier`` and
+    ``effective_capacity_blocks`` say how many blocks the same memory
+    holds at the quantized bytes per block (codes + scales);
+    ``bytes_per_decode_token`` is the K/V a decode token reads."""
+    return {
+        "enabled": True,
+        "kv_dtype": kv_dtype,
+        "matched_tokens": int(matched_tokens),
+        "compared_tokens": int(compared_tokens),
+        "token_match_rate": (round(matched_tokens / compared_tokens, 4)
+                             if compared_tokens else 0.0),
+        "block_bytes_ref": int(block_bytes_ref),
+        "block_bytes": int(block_bytes),
+        "capacity_multiplier": (round(block_bytes_ref / block_bytes, 4)
+                                if block_bytes else 0.0),
+        "effective_capacity_blocks": (
+            int(num_blocks * block_bytes_ref // block_bytes)
+            if block_bytes else 0),
+        "num_blocks": int(num_blocks),
+        "peak_live_blocks_ref": int(peak_live_blocks_ref),
+        "peak_live_blocks": int(peak_live_blocks),
+        "peak_live_blocks_delta": int(peak_live_blocks
+                                      - peak_live_blocks_ref),
+        "bytes_per_decode_token_ref": round(
+            float(bytes_per_decode_token_ref), 2),
+        "bytes_per_decode_token": round(float(bytes_per_decode_token), 2),
     }

@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
 """Where the port's serving time goes, on one NVIDIA card.
 
-    python3 scripts/torch_serve_profile.py
+    python3 scripts/torch_serve_profile.py [--kv-dtype fp32,int8,int4]
 
 Serves the bench's default Poisson trace (24 requests at 4 rps, prompts
 <= 32, outputs <= 128, seed 0) through ``mpi_tensorflow_torch``'s
-``PagedDecodeEngine`` at ``BERT_BASE`` geometry in bfloat16, with the
-CUDA paged-attention kernel and with the gather path (the control arm),
-in turns (cuda, gather, gather, cuda) after one warmup replay each, and
-prints one JSON line per timed replay.  Then it replays once more per
-arm under ``torch.profiler``, serving the trace's first
-``PROFILE_REQUESTS`` requests, and prints the device time by kernel
-category, the top kernels, the kernels launched per forward dispatch and
-the device's idle share of the window (1 - union of kernel intervals /
-window).  Profiled replays are slower than the timed ones; only their
-shares and counts are read.
+``PagedDecodeEngine`` at ``BERT_BASE`` geometry in bfloat16.  The arms:
+the CUDA paged-attention kernel over the pool in the compute dtype, the
+gather path over it (the control arm), and the CUDA kernel over an int8
+and an int4 pool (one arm per quantized ``--kv-dtype`` named).  After
+one warmup replay each, the arms replay in turns, forward then backward
+(A B C D D C B A), printing one JSON line per timed replay.  Then each
+arm replays once more under ``torch.profiler``, serving the trace's
+first ``PROFILE_REQUESTS`` requests, and prints the device time by
+kernel category (the paged kernel's share among them), the top kernels,
+the kernels launched per forward dispatch and the device's idle share of
+the window (1 - union of kernel intervals / window).  Profiled replays
+are slower than the timed ones; only their shares and counts are read.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -67,7 +70,14 @@ def profile(engine, trace) -> dict:
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kv-dtype", default="fp32,int8,int4",
+                    help="comma-separated pool formats: fp32 gives the "
+                         "cuda and gather arms, int8/int4 a cuda arm each")
+    kv_dtypes = ap.parse_args(argv).kv_dtype.split(",")
+    if not set(kv_dtypes) <= {"fp32", "int8", "int4"}:
+        ap.error(f"--kv-dtype takes fp32, int8, int4; got {kv_dtypes}")
     if not torch.cuda.is_available():
         print("torch_serve_profile: no card", file=sys.stderr)
         return 1
@@ -76,16 +86,18 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(f"[card] {card}", flush=True)
+    names = [(k, dt) for dt in kv_dtypes
+             for k in (("cuda", "gather") if dt == "fp32" else ("cuda",))]
     arms = {}
-    for kernel in ("cuda", "gather"):
+    for kernel, kv_dtype in names:
         engine, trace = build_serving(precision="bf16", kernel=kernel,
-                                      device="cuda")
+                                      kv_dtype=kv_dtype, device="cuda")
         engine.run(trace.requests())     # warmup (kernel build, caches)
-        arms[kernel] = (engine, trace)
-    for kernel in ("cuda", "gather", "gather", "cuda"):
-        res = replay(*arms[kernel])
+        arms[kernel, kv_dtype] = (engine, trace)
+    for kernel, kv_dtype in names + names[::-1]:
+        res = replay(*arms[kernel, kv_dtype])
         print(json.dumps({
-            "arm": kernel, "card": card,
+            "arm": kernel, "kv_dtype": kv_dtype, "card": card,
             "tokens_per_sec": res["tokens_per_sec"],
             "p50_token_latency_ms": res["p50_token_latency_ms"],
             "p99_token_latency_ms": res["p99_token_latency_ms"],
@@ -94,9 +106,9 @@ def main() -> int:
             "wall_ms_per_forward_dispatch":
                 res["elapsed_s"] * 1e3 / res["forward_dispatches"]}),
             flush=True)
-    for kernel in ("cuda", "gather"):
-        print(json.dumps({"profile": kernel, **profile(*arms[kernel])}),
-              flush=True)
+    for kernel, kv_dtype in names:
+        print(json.dumps({"profile": kernel, "kv_dtype": kv_dtype,
+                          **profile(*arms[kernel, kv_dtype])}), flush=True)
     return 0
 
 

@@ -1,0 +1,149 @@
+"""The port's fused LayerNorm and logsumexp against the reference's
+Pallas kernels, on the CPU.
+
+The reference's ``layer_norm``, ``online_logsumexp`` and
+``softmax_cross_entropy`` (``mpi_tensorflow_tpu/ops/fused.py``) run in
+interpret mode with 8-row and 16-wide vocabulary blocks, so the shapes
+below pad both axes and walk several vocabulary blocks; every reference
+value comes from one compile.  On the port's side the same numpy inputs
+go through the kernel wrappers on CPU tensors (their plain versions) and
+the autograd functions.
+
+Tolerances: float32 1e-5 absolute (the same sums in other orders), plus
+1e-6 relative for the logsumexp of rows of +-1e4; bfloat16 inputs keep
+float32 statistics on both sides, so the logsumexp keeps the float32
+tolerance and the LayerNorm's bf16 output is held to 1e-2 + 1e-2
+relative (one rounding at slightly different float32 values).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mpi_tensorflow_tpu.ops import fused as jax_fused
+from mpi_tensorflow_torch.ops import fused
+
+SHAPE_LN = (2, 5, 16)                    # N = 10 rows: padded to 16
+SHAPE_LSE = (2, 3, 40)                   # V = 40: three 16-wide blocks
+BLOCK_ROWS, BLOCK_V = 8, 16
+DTYPES = ("float32", "bfloat16")
+# XLA's optimisation passes only slow the compile of the interpreted
+# kernels here; the arithmetic is the same without them
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def _inputs():
+    rng = np.random.default_rng(0)
+    x = (3.0 * rng.normal(size=SHAPE_LN) + 1.0).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.normal(size=SHAPE_LN[-1])).astype(np.float32)
+    bias = (0.1 * rng.normal(size=SHAPE_LN[-1])).astype(np.float32)
+    g_ln = rng.normal(size=SHAPE_LN).astype(np.float32)
+    logits = (4.0 * rng.normal(size=SHAPE_LSE)).astype(np.float32)
+    logits[0, 0] = rng.choice([-1e4, 1e4], size=SHAPE_LSE[-1])
+    logits[0, 1] = 1e4 + rng.normal(size=SHAPE_LSE[-1])
+    logits[1, 2, ::3] = -np.inf          # masked logits
+    labels = rng.integers(0, SHAPE_LSE[-1], size=SHAPE_LSE[:-1])
+    labels[1, 2] = 1                     # a label whose logit is finite
+    g_ce = rng.normal(size=SHAPE_LSE[:-1]).astype(np.float32)
+    return x, scale, bias, g_ln, logits, labels.astype(np.int32), g_ce
+
+
+@functools.lru_cache(maxsize=None)
+def _reference():
+    """The reference's outputs and gradients, as float32 numpy arrays."""
+    x, scale, bias, g_ln, logits, labels, g_ce = map(jnp.asarray, _inputs())
+
+    def ln(x, s, b):
+        return jax_fused.layer_norm(x, s, b, 1e-12, BLOCK_ROWS, True)
+
+    def ce(lg):
+        return jax_fused.softmax_cross_entropy(lg, labels, BLOCK_V, True)
+
+    def lse(lg):
+        return jax_fused.online_logsumexp(lg, block_rows=BLOCK_ROWS,
+                                          block_v=BLOCK_V, interpret=True)
+
+    def run(x, scale, bias, g_ln, logits, g_ce):
+        y, vjp = jax.vjp(ln, x, scale, bias)
+        loss, ce_vjp = jax.vjp(ce, logits)
+        return {"ln": {dt: ln(x.astype(dt), scale, bias) for dt in DTYPES},
+                "ln_grads": vjp(g_ln), "ln_f32": y,
+                "lse": {dt: lse(logits.astype(dt)) for dt in DTYPES},
+                "ce": loss, "ce_grad": ce_vjp(g_ce)[0]}
+
+    args = (x, scale, bias, g_ln, logits, g_ce)
+    res = jax.jit(run).lower(*args).compile(FAST_COMPILE)(*args)
+    return jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), res)
+
+
+def _t(a, dtype="float32", grad=False):
+    t = torch.from_numpy(np.array(a)).to(getattr(torch, dtype))
+    return t.requires_grad_(True) if grad else t
+
+
+def _close(got, want, atol, rtol=0.0):
+    got = got.detach().to(torch.float32).numpy()
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_layer_norm_forward_matches_pallas(dtype):
+    x, scale, bias = _inputs()[:3]
+    before = fused.layer_norm_forward.launches
+    got = fused.layer_norm_forward(_t(x, dtype), _t(scale), _t(bias))
+    assert fused.layer_norm_forward.launches == before, \
+        "a CPU tensor must run the plain version, not count a launch"
+    assert got.dtype == getattr(torch, dtype) and got.shape == SHAPE_LN
+    tol = (1e-5, 0.0) if dtype == "float32" else (1e-2, 1e-2)
+    _close(got, _reference()["ln"][dtype], *tol)
+
+
+def test_layer_norm_grads_match_reference():
+    x, scale, bias, g_ln = _inputs()[:4]
+    xs = [_t(a, grad=True) for a in (x, scale, bias)]
+    y = fused.layer_norm(*xs)
+    _close(y, _reference()["ln_f32"], 1e-5)
+    y.backward(_t(g_ln))
+    for t, want in zip(xs, _reference()["ln_grads"]):
+        assert t.grad.dtype == torch.float32
+        _close(t.grad, want, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_online_logsumexp_matches_pallas(dtype):
+    logits = _inputs()[4]
+    before = fused.online_logsumexp.launches
+    got = fused.online_logsumexp(_t(logits, dtype))
+    assert fused.online_logsumexp.launches == before
+    assert got.dtype == torch.float32 and got.shape == SHAPE_LSE[:-1]
+    want = _reference()["lse"][dtype]
+    assert abs(want[0, 1] - 1e4) < 100   # the +1e4 row is really held
+    _close(got, want, 1e-5, 1e-6)
+
+
+def test_softmax_cross_entropy_matches_reference():
+    logits, labels, g_ce = _inputs()[4:]
+    lg = _t(logits, grad=True)
+    loss = fused.softmax_cross_entropy(lg, torch.from_numpy(labels))
+    assert loss.dtype == torch.float32 and loss.shape == SHAPE_LSE[:-1]
+    _close(loss, _reference()["ce"], 1e-5, 1e-6)
+    loss.backward(_t(g_ce))
+    assert lg.grad.dtype == torch.float32
+    _close(lg.grad, _reference()["ce_grad"], 1e-5)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    x, scale, bias = (_t(a) for a in _inputs()[:3])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused.online_logsumexp(x.half())
+    with pytest.raises(ValueError, match="scale and bias"):
+        fused.layer_norm_forward(x, scale[:-1], bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.layer_norm_forward(x.transpose(0, 1), scale, bias)
+    with pytest.raises(ValueError, match="last axis"):
+        fused.online_logsumexp(torch.zeros((3, 0)))

@@ -7,7 +7,8 @@
   masking drift explodes instead of shifting by epsilon);
 - ``attend(kernel="gather")`` against ``attend(kernel="xla")``;
 - ``write_kv`` pools byte-identical to the reference's;
-- the dispatch and validation rules (no silent fallback).
+- the dispatch and validation rules (no silent fallback).  The quantized
+  modes have their own file, ``test_torch_kv_quant.py``.
 
 Inputs come from ``numpy.random.default_rng`` and enter both frameworks
 as the same arrays.  Tolerances: float32 1e-5 absolute (the two sides
@@ -177,9 +178,17 @@ def test_resolve_kernel_never_falls_back():
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     q, kp, vp, bt, lens = _torch(
         _case(np.random.default_rng(1), **CASES["decode"])[0])
-    with pytest.raises(NotImplementedError, match=r"4\(b\)/\(c\)"):
-        pk.paged_attention_kernel(q, kp.to(torch.int8), vp.to(torch.int8),
-                                  bt, lens)
+    # quantized pools: scales both or neither, the residual lane only
+    # beside int4 group scales, codes of the mode's dtype
+    k8, scale8 = kp.to(torch.int8), torch.ones(kp.shape[:3])
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        pk.paged_attention_kernel(q, k8, k8, bt, lens, k_scale=scale8)
+    with pytest.raises(ValueError, match="int4"):
+        pk.paged_attention_kernel(q, k8, k8, bt, lens, k_scale=scale8,
+                                  v_scale=scale8, k_new=q, v_new=q)
+    with pytest.raises(ValueError, match="dtype"):
+        pk.paged_attention_kernel(q, kp, vp, bt, lens, k_scale=scale8,
+                                  v_scale=scale8)
     with pytest.raises(ValueError, match="int32"):
         pk.paged_attention_kernel(q, kp, vp, bt.long(), lens)
     with pytest.raises(ValueError, match="dtype"):

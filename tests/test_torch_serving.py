@@ -7,7 +7,10 @@ same decisions on the same randomized operation stream.  The engine on
 the same tokens, statuses, dispatch shapes and dispatch count as the
 reference engine on its ``xla`` lowering — with the port's ``gather``
 lowering and with its ``cuda`` lowering (the kernel's plain version on
-CPU tensors), and through a pool small enough to force an eviction.
+CPU tensors), and through a pool small enough to force an eviction —
+with the pool in the compute dtype, and quantized to int8 and to int4
+(quantization is per token row or group, so an eviction replay writes
+the same bytes and the tokens stay identical).
 
 Also pinned: ``ServeConfig`` refuses what this slice does not serve,
 naming the ROADMAP item; ``cuda`` without a card raises instead of
@@ -18,6 +21,7 @@ so an import check would prove nothing).
 """
 
 import ast
+import contextlib
 import dataclasses
 import json
 import os
@@ -160,10 +164,22 @@ def test_scheduler_decisions_identical(seed):
 # ---------------------------------------------------------------- engine
 
 def _np_params(seed):
+    """Seeded weights under which greedy tokens vary from step to step
+    (LayerNorm scales near 1; with scales near 0 every step emits the
+    output bias's argmax).  Under them the int4 pool's tokens differ
+    from the compute-dtype pool's, so identical tokens show the two
+    engines' quantized paths agree."""
     rng = np.random.default_rng(seed)
-    tree = jax_gpt.CausalLm(JAX_TINY).init(jax.random.key(0))
-    return jax.tree.map(
-        lambda x: (0.1 * rng.normal(size=x.shape)).astype(np.float32), tree)
+
+    def leaf(path, x):
+        if jax.tree_util.keystr(path).endswith("['scale']"):
+            return (1.0 + 0.1 * rng.normal(size=x.shape)).astype(np.float32)
+        return (0.1 * rng.normal(size=x.shape)).astype(np.float32)
+
+    # only the tree's shapes are read
+    shapes = jax.eval_shape(jax_gpt.CausalLm(JAX_TINY).init,
+                            jax.random.key(0))
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
 ENGINE_CASES = {
@@ -187,17 +203,30 @@ def _requests(mod, lens, seed):
             for i, (n, m) in enumerate(lens)]
 
 
+@contextlib.contextmanager
+def _fast_compile():
+    """XLA's optimisation passes off while the reference engine compiles
+    its steps: they only slow the compile; the arithmetic is the same."""
+    saved = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", saved)
+
+
 @pytest.fixture(scope="module")
 def reference_runs():
     """The JAX engine's result per case, computed once per module."""
     out = {}
     params = _np_params(1)
     model = jax_gpt.CausalLm(JAX_TINY)
-    for name, case in ENGINE_CASES.items():
-        eng = jax_engine.PagedDecodeEngine(
-            model, jax.tree.map(jnp.asarray, params),
-            jax_engine.ServeConfig(kernel="xla", **case["serve"]))
-        out[name] = eng.run(_requests(jax_sched, case["requests"], 2))
+    with _fast_compile():
+        for name, case in ENGINE_CASES.items():
+            eng = jax_engine.PagedDecodeEngine(
+                model, jax.tree.map(jnp.asarray, params),
+                jax_engine.ServeConfig(kernel="xla", **case["serve"]))
+            out[name] = eng.run(_requests(jax_sched, case["requests"], 2))
     return params, out
 
 
@@ -216,6 +245,51 @@ def test_engine_matches_reference(reference_runs, case, kernel):
     assert got["kernel"] == kernel and got["device"] == "cpu"
     if case == "eviction":
         assert got["evictions"] >= 1
+    assert len({t for toks in got["outputs"].values() for t in toks}) > 3
+    eng.allocator.check()
+    assert eng.allocator.num_used == 0
+
+
+@pytest.fixture(scope="module")
+def quant_reference_runs():
+    """The JAX engine's int8 and int4 results per case, computed once per
+    module."""
+    params = _np_params(1)
+    model = jax_gpt.CausalLm(JAX_TINY)
+    out = {}
+    with _fast_compile():
+        for kv_dtype in ("int8", "int4"):
+            for name, case in ENGINE_CASES.items():
+                eng = jax_engine.PagedDecodeEngine(
+                    model, jax.tree.map(jnp.asarray, params),
+                    jax_engine.ServeConfig(kernel="xla", kv_dtype=kv_dtype,
+                                           **case["serve"]))
+                out[kv_dtype, name] = eng.run(
+                    _requests(jax_sched, case["requests"], 2))
+    return params, out
+
+
+@pytest.mark.parametrize("kernel", ["gather", "cuda"])
+@pytest.mark.parametrize("case", sorted(ENGINE_CASES))
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+def test_quantized_engine_matches_reference(quant_reference_runs, kv_dtype,
+                                            case, kernel):
+    params, runs = quant_reference_runs
+    want = runs[kv_dtype, case]
+    model = gpt.CausalLm(bert.BERT_TINY, convert.params_from_jax(params))
+    eng = engine.PagedDecodeEngine(
+        model, engine.ServeConfig(kernel=kernel, kv_dtype=kv_dtype,
+                                  **ENGINE_CASES[case]["serve"]),
+        device="cpu")
+    assert eng.pools[0]["k"].dtype == {"int8": torch.int8,
+                                       "int4": torch.uint8}[kv_dtype]
+    got = eng.run(_requests(sched, ENGINE_CASES[case]["requests"], 2))
+    for key in COMPARED:
+        assert got[key] == want[key], key
+    assert (got["kernel"], got["kv_dtype"]) == (kernel, kv_dtype)
+    if case == "eviction":
+        assert got["evictions"] >= 1
+    assert len({t for toks in got["outputs"].values() for t in toks}) > 3
     eng.allocator.check()
     assert eng.allocator.num_used == 0
 
@@ -232,8 +306,6 @@ def test_pow2_ceil_and_bucket_match_reference():
     ("prefix_cache", "on", "prefix cache"),
     ("speculative", "ngram", "speculation"),
     ("mixed_batch", "on", "mixed batching"),
-    ("kv_dtype", "int8", "quantized pools"),
-    ("kv_dtype", "int4", "quantized pools"),
     ("tp", 2, "tensor parallelism"),
     ("trace", "on", "tracing"),
 ])
@@ -270,6 +342,20 @@ def test_serve_config_from_config_defaults_match_reference():
     want = dataclasses.asdict(jax_engine.ServeConfig.from_config(JaxConfig()))
     assert got.pop("kernel") == "auto" and want.pop("kernel") == "auto"
     assert got == want
+
+
+def test_serve_config_from_config_bridges_kv_knobs():
+    from mpi_tensorflow_torch.config import Config
+
+    from mpi_tensorflow_tpu.config import Config as JaxConfig
+
+    kw = dict(serve_kv_dtype="int4", serve_kv_group=16)
+    got = engine.ServeConfig.from_config(Config(**kw))
+    want = jax_engine.ServeConfig.from_config(JaxConfig(**kw))
+    assert (got.kv_dtype, got.kv_group) == (want.kv_dtype, want.kv_group) \
+        == ("int4", 16)
+    with pytest.raises(ValueError, match="kv_group"):
+        engine.ServeConfig(kv_group=0)
 
 
 # ---------------------------------------------------- device + entry point
@@ -312,6 +398,22 @@ def test_entry_point_prints_one_json_line():
     assert res["tokens"] > 0 and res["tokens_per_sec"] > 0
     for key in ("p50_token_latency_ms", "p99_token_latency_ms"):
         assert res[key] >= 0
+
+
+def test_entry_point_serves_an_int4_pool():
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpi_tensorflow_torch.serving",
+         "--serve-tiny", "--device", "cpu", "--requests", "2",
+         "--prompt-len", "8", "--new-tokens", "4", "--arrival-rate", "1000",
+         "--serve-kv-dtype", "int4", "--serve-kv-group", "8"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1
+    res = json.loads(lines[0])
+    assert res["kv_dtype"] == "int4" and res["ok_requests"] == 2
+    assert res["tokens"] > 0
 
 
 # ------------------------------------------------------------------ rules
