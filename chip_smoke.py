@@ -43,13 +43,16 @@ fails:
    lse), ``flash_dq`` and ``flash_dkdv`` against
    ``flash_forward_reference`` / ``flash_backward_reference`` at every S
    in 1, 17, 64, 128, 255, 512, 1000, (B, H) in {(1, 1), (2, 3)}, D in
-   {16, 64}, float32 and bfloat16, causal and not; then the
+   {16, 20, 40, 64, 128} (20: rows not 16-byte aligned, loaded element
+   by element; 40: not a multiple of the 16-wide k step), float32 and
+   bfloat16 (the backward's tensor-core kernels), causal and not; then the
    ``flash_attention`` autograd function's gradients against autograd
    through ``dense_attention`` at S = 256 in float32;
 6. flash at the training shape (B=4, H=12, S=4096, D=64, bf16, causal
    and not): each kernel against its plain version on the same inputs
-   (the errors join the kernel's ``max_abs_err``), then its device time
-   beside its plain version's,
+   (the errors join the kernel's ``max_abs_err``; the share of elements
+   that differ at all is printed), then its device time, achieved
+   TFLOP/s and percentage of its bound beside its plain version's,
    ``F.scaled_dot_product_attention``'s forward and backward on the same
    tensors (the yardstick only: the port never calls it) and its bound;
 7. full-width training — ``train_mlm`` at ``BERT_BASE`` widths in
@@ -124,7 +127,7 @@ def build() -> None:
     for name, text in logs.items():
         for line in text.splitlines():
             if any(k in line for k in ("entry function", "registers",
-                                       "spill", "smem")):
+                                       "spill", "smem", "Performance Loss")):
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -677,7 +680,7 @@ def check_flash(dev) -> dict:
     dtypes = (torch.float32, torch.bfloat16)
     worst = {(k, dt): 0.0 for k in FLASH for dt in dtypes}
     cases = list(itertools.product(dtypes, (1, 17, 64, 128, 255, 512, 1000),
-                                   ((1, 1), (2, 3)), (16, 64),
+                                   ((1, 1), (2, 3)), (16, 20, 40, 64, 128),
                                    (False, True)))
     for dtype, S, (B, Hh), Dd, causal in cases:
         atol, rtol = TOL[dtype]
@@ -772,6 +775,7 @@ def check_flash_at(inputs, causal: bool) -> dict:
                          for part, got, want, t in parts)
         # how many elements differ at all, and the size of what is held
         notes += [f"{part} {int((got != want).sum())} of {got.numel()} "
+                  f"({100 * float((got != want).float().mean()):.4f} %) "
                   f"differ, max|plain| {float(want.float().abs().max()):.3g}"
                   for part, got, want, _ in parts]
     log(f"[flash] {what}: " + "; ".join(notes))
@@ -840,13 +844,18 @@ def time_flash(dev) -> dict:
         io = {"flash_fwd": 4 * bhsd + bhs,            # q k v in, out, lse
               "flash_dq": 5 * bhsd + 2 * bhs,         # q k v dO in, dq
               "flash_dkdv": 6 * bhsd + 2 * bhs}       # ... dk, dv out
+        # flops of the function's products, 2 B H S^2 D each (forward 2,
+        # dq 3, dk/dv 4); the bf16 kernels' split of ds adds one product
+        # each that these counts leave out
         mults = {"flash_fwd": 4, "flash_dq": 6, "flash_dkdv": 8}
         for name in FLASH:
             ops = mults[name] * B * Hh * S * S * Dd / (2 if causal else 1)
             bound_ms, bound_by = bound(io[name], ops, dt)
+            ms = device_ms(calls[name], sets, reps=2, kernels_per_call=1)
             res[name][causal] = {
-                "ms": device_ms(calls[name], sets, reps=2,
-                                kernels_per_call=1),
+                "ms": ms,
+                "tflops": ops / ms / 1e9,
+                "pct_of_bound": 100 * bound_ms / ms,
                 "call_ms": wall_ms(calls[name], sets, reps=2),
                 "plain_ms": plain[name],
                 "bound_ms": bound_ms, "bound_by": bound_by,
@@ -859,7 +868,9 @@ def time_flash(dev) -> dict:
                 f"(tolerance {TOL[dt][0]} abs + {TOL[dt][1]} rel; lse "
                 f"{TOL[torch.float32][0]} abs); "
                 f"kernel {r['ms']:.4f} ms on the device "
-                f"({r['call_ms']:.4f} ms per call back to back), plain "
+                f"({r['call_ms']:.4f} ms per call back to back; "
+                f"{r['tflops']:.2f} TFLOP/s, {r['pct_of_bound']:.2f} % of "
+                f"bound), plain "
                 f"{r['plain_ms']:.3f} ms per call, bound "
                 f"{bound_ms:.4f} ms ({bound_by}: {io[name]} B, {ops:.4g} "
                 f"ops); sdpa forward {lib_fwd:.4f} ms, sdpa backward "

@@ -5,9 +5,9 @@ library with a plain C interface and loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds instead of the minutes
 ``torch.utils.cpp_extension`` needs.  The build runs at first use, never
 at import, into ``build/torch_kernels/`` at the repository root (listed
-in ``.gitignore``), under a file name keyed by a hash of the source and
-the flags: a changed source or flag set builds a new library, an
-unchanged one is reused.  ``build_all`` starts one ``nvcc`` per missing
+in ``.gitignore``), under a file name keyed by a hash of the source, the
+headers under ``csrc/`` and the flags: a changed source, header or flag
+set builds a new library, an unchanged one is reused.  ``build_all`` starts one ``nvcc`` per missing
 source, all at once, and waits for every one.
 
 A missing ``nvcc`` or a failed compile raises; nothing here falls back
@@ -52,10 +52,15 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """Where library ``name`` is built: under a hash of its source, of
+    every header under ``csrc/`` (any source may include any of them) and
+    of the flags."""
+    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(p for p in CSRC.iterdir()
+                         if p.suffix in (".cuh", ".h")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict:

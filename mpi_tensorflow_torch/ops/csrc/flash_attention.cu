@@ -29,29 +29,67 @@
 // owns one (b*h, 64-query tile) for the forward and dq, or one (b*h, 64-key
 // tile) for dk/dv, and loops over the other axis itself: under `causal`
 // the forward and dq stop at the diagonal tile (the TPU kernel's last_k),
-// and dk/dv start at it (first_q).  Tiles of Q/K/V/dO are staged in shared
-// memory as float32 with an odd row stride (conflict-free column walks);
-// rows past S are filled with zeros and every score of such a row or
-// column is masked to p = 0, so S needs no padding.  256 threads form a
-// 16 x 16 grid; each thread computes a 4 x 4 micro-tile of the 64 x 64
-// score block (rows ty*4.., columns tx + 16 j) and owns 4 rows x D/16
-// columns of the float32 accumulators.  Row statistics are reduced across
-// the 16 threads of a half-warp with shuffles and stay in registers.
+// and dk/dv start at it (first_q).  Rows past S are zero-filled and every
+// score of such a row or column is masked to p = 0 before the exp (exp(0 -
+// lse) is not 0), so S needs no padding.  dq and dk/dv stay two kernels:
+// no atomics, so dq is deterministic.
 //
-// What bounds it.  Operations: at S = 4096, D = 64 the forward does 4 S D
-// = 1 M multiply-adds per 2 D bytes of q it reads in bf16 -- far past the
-// H100's ~295 flop/byte ridge.  The products run on the CUDA cores in
-// float32 (67 TFLOP/s peak, not the tensor cores' 989 in bf16), fed from
-// shared memory (two 4-byte loads per four multiply-adds).  mma.sync or
-// wgmma tiles, TMA loads and a bf16 staging of the tiles are later work.
+// The forward, and the backward in float32, run on the CUDA cores:
+// tiles staged in shared memory as float32 with an odd row stride; 256
+// threads form a 16 x 16 grid, each computing a 4 x 4 micro-tile of the
+// 64 x 64 score block (rows ty*4.., columns tx + 16 j) and owning 4 rows x
+// D/16 columns of the float32 accumulators; row statistics are reduced
+// across a half-warp with shuffles.  Float32 stays there because tensor
+// cores would mean TF32 (10 mantissa bits).
+//
+// The backward in bfloat16 runs on the tensor cores (flash_dq_kernel_tc,
+// flash_dkdv_kernel_tc; helpers in hopper_mma.cuh).  One warpgroup of 128
+// threads per 64-row tile; Q, K, V, dO tiles are bf16 in shared memory,
+// 128B-swizzled, the head dim zero-padded to kD = 64 or 128 (zeros add
+// nothing); the streamed tiles are double-buffered cp.async copies
+// (16 bytes a thread, zero-filled past S and D; rows that are not 16-byte
+// aligned, D % 8 != 0, are gathered element-wise) that run under the
+// current tile's products.  Products are wgmma m64nNk16 bf16 -> float32:
+//
+//   product                      A (64 rows)            B
+//   s = q k^T, dp = dO v^T       q, dO: smem K-major    k, v: K-major
+//   s^T = k q^T, dp^T = v dO^T   k, v: smem K-major     q, dO: K-major
+//   dq += ds k                   ds hi, lo: registers   k: MN-major
+//   dv += p^T dO, dk += ds^T q   p^T; ds^T hi, lo: reg. dO, q: MN-major
+//
+// The register operands are the score accumulators' own fragments
+// converted in place (no shared-memory round trip); lse and delta are
+// indexed through the same fragment layout (rows 16 warp + lane / 4 and
+// + 8).  p = exp(s - lse) uses __expf (ex2.approx, within 2 ulp of
+// float32, far below the bf16 rounding of what follows; the accurate expf
+// costs dq a visible share of its time).  ds stays float32 in its two
+// products: it is split
+// into hi = bf16(ds) and lo = bf16(ds - hi), and both are issued into one
+// float32 accumulator, so the sum is ds k to ~2^-16 relative -- one
+// extra product per kernel (dq: s, dp, 2 x ds k; dk/dv: s^T, dp^T, dv,
+// 2 x ds^T q).  Occupancy at kD = 64: dq fits 4 CTAs an SM (50 KB of
+// shared memory each); dk/dv is held to 3 by __launch_bounds__ (left
+// alone ptxas gives it registers for 2 only, which is slower).
+//
+// What bounds it.  Operations: at S = 4096, D = 64 each product is 2 S^2 D
+// flops per (b, h), far past the H100's ~295 flop/byte ridge.  The forward
+// and float32 backward are held to the CUDA cores' 67 TFLOP/s.  The bf16
+// backward reaches about a quarter of the tensor cores' 989: each CTA
+// waits on its own products (no warp specialisation, no overlap of the
+// softmax with the next tile's wgmma), so latency is hidden only by the 3-4
+// CTAs of an SM.  TMA loads, 128-row tiles of two warpgroups and a
+// producer warp are the next steps.
 //
 // Plain C interface (no PyTorch headers), built by ops/_build.py with nvcc
 // and loaded with ctypes; ops/flash_attention.py wraps it.
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -394,6 +432,261 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, kE>(dv + base, acc_dv, k0, S, D, ty, tx);
 }
 
+// ------------------------------------- dq, dk, dv in bf16: tensor cores
+//
+// One warpgroup (128 threads) per CTA owns a 64-row tile; products are
+// wgmma m64nNk16 bf16 -> f32 on swizzled tiles (hopper_mma.cuh), kD the
+// head dim padded to 64 or 128 in shared memory only.  Streamed tiles are
+// double-buffered: the next tile's cp.async copies run under this tile's
+// products.
+
+using bf16 = __nv_bfloat16;
+constexpr int kTcThreads = 128;
+
+template <int kD>
+__host__ __device__ constexpr size_t tc_tile_bytes() {
+  return (size_t)(kD / 64) * hopper::kBlockBytes;
+}
+
+// scores and dp of one 64 x 64 tile: d = A B^T with A, B tiles read
+// K-major.  Every k step runs, the zero-padded ones too: skipping them
+// under a runtime test makes ptxas serialize the wgmmas (C7515).
+template <int kD>
+__device__ __forceinline__ void tc_scores(float (&d)[32], uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    hopper::wgmma_ss_n64(d, hopper::desc_k_major(a, kk),
+                         hopper::desc_k_major(b, kk), kk > 0);
+}
+
+// acc += X B for a 64 x 64 float32 X given as its bf16 split hi + lo
+// (two products on one accumulator) and B (64 rows x kD) read MN-major
+template <int kD>
+__device__ __forceinline__ void tc_acc_split(float (&acc)[kD / 2],
+                                             const float (&x)[32],
+                                             uint32_t b) {
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::a_fragment_split(hi[kk], lo[kk], x, kk);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    hopper::wgmma_rs<kD>(acc, hi[kk], hopper::desc_mn_major(b, kk));
+    hopper::wgmma_rs<kD>(acc, lo[kk], hopper::desc_mn_major(b, kk));
+  }
+  hopper::wgmma_commit();
+}
+
+// a 64 x kD float32 accumulator to rows [row0, row0 + 64) of (S, D) bf16
+template <int kD>
+__device__ __forceinline__ void tc_store(bf16* dst, const float (&acc)[kD / 2],
+                                         int row0, int S, int D) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < kD / 2; ++j) {
+    const int row = row0 + hopper::frag_row(w, l, j);
+    const int col = hopper::frag_col(l, j);
+    if (row < S && col < D)
+      dst[(size_t)row * D + col] = __float2bfloat16(acc[j]);
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kTcThreads, kD == 64 ? 4 : 2)
+flash_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   int S, int D, float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr size_t kTileB = tc_tile_bytes<kD>();
+  uint8_t* qs = hopper::align_1024(smem_raw);
+  uint8_t* dos = qs + kTileB;
+  uint8_t* ks = dos + kTileB;              // 2 buffers
+  uint8_t* vs = ks + 2 * kTileB;           // 2 buffers
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * kTile, tid = threadIdx.x;
+  const int w = tid / 32, l = tid % 32;
+  const size_t base = (size_t)bh * S * D;
+  using hopper::load_tile;
+  load_tile<kD, kTcThreads>(qs, q + base, q0, S, D, tid);
+  load_tile<kD, kTcThreads>(dos, dout + base, q0, S, D, tid);
+  load_tile<kD, kTcThreads>(ks, k + base, 0, S, D, tid);
+  load_tile<kD, kTcThreads>(vs, v + base, 0, S, D, tid);
+  hopper::cp_async_commit();
+
+  // this thread's two rows of the tile, and their lse and delta
+  const int r0 = q0 + hopper::frag_row(w, l, 0), r1 = r0 + 8;
+  const float lse0 = r0 < S ? lse[(size_t)bh * S + r0] : 0.f;
+  const float lse1 = r1 < S ? lse[(size_t)bh * S + r1] : 0.f;
+  const float dl0 = r0 < S ? delta[(size_t)bh * S + r0] : 0.f;
+  const float dl1 = r1 < S ? delta[(size_t)bh * S + r1] : 0.f;
+
+  float acc[kD / 2], s[32], dp[32];
+#pragma unroll
+  for (int j = 0; j < kD / 2; ++j) acc[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+
+  const int nk = (S + kTile - 1) / kTile;
+  const int last_k = causal ? min((q0 + kTile - 1) / kTile, nk - 1) : nk - 1;
+  for (int kt = 0; kt <= last_k; ++kt) {
+    const int k0 = kt * kTile;
+    uint8_t* kb = ks + (kt & 1) * kTileB;
+    uint8_t* vb = vs + (kt & 1) * kTileB;
+    if (kt < last_k) {                     // the next tile, under this one
+      const size_t nb = ((kt + 1) & 1) * kTileB;
+      load_tile<kD, kTcThreads>(ks + nb, k + base, k0 + kTile, S, D, tid);
+      load_tile<kD, kTcThreads>(vs + nb, v + base, k0 + kTile, S, D, tid);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    hopper::fence_async_shared();
+    __syncthreads();
+
+    hopper::wgmma_fence();
+    tc_scores<kD>(s, hopper::smem_u32(qs), hopper::smem_u32(kb));
+    tc_scores<kD>(dp, hopper::smem_u32(dos), hopper::smem_u32(vb));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+
+    // ds = p (dp - delta) scale, in place of s; p = 0 where masked
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const bool second = (j >> 1) & 1;
+      const int row = second ? r1 : r0;
+      const int col = k0 + hopper::frag_col(l, j);
+      const float p = visible(row, col, S, causal)
+                          ? __expf(s[j] * scale - (second ? lse1 : lse0))
+                          : 0.f;
+      s[j] = p * (dp[j] - (second ? dl1 : dl0)) * scale;
+    }
+    tc_acc_split<kD>(acc, s, hopper::smem_u32(kb));   // dq += ds k
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    __syncthreads();                       // kb, vb free for kt + 2
+  }
+  tc_store<kD>(dq + base, acc, q0, S, D);
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kTcThreads, kD == 64 ? 3 : 2)
+flash_dkdv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int S, int D, float scale,
+                     int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr size_t kTileB = tc_tile_bytes<kD>();
+  uint8_t* ks = hopper::align_1024(smem_raw);
+  uint8_t* vs = ks + kTileB;
+  uint8_t* qs = vs + kTileB;               // 2 buffers
+  uint8_t* dos = qs + 2 * kTileB;          // 2 buffers
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kTileB);   // 2 x kTile
+  float* dl_s = lse_s + 2 * kTile;                              // 2 x kTile
+
+  const int bh = blockIdx.y, k0 = blockIdx.x * kTile, tid = threadIdx.x;
+  const int w = tid / 32, l = tid % 32;
+  const size_t base = (size_t)bh * S * D;
+  const float* lse_bh = lse + (size_t)bh * S;
+  const float* dl_bh = delta + (size_t)bh * S;
+  using hopper::load_tile;
+
+  // Q, dO, lse and delta of query tile q0 into buffer b; lse and delta
+  // past S are 0
+  auto load_q = [&](int q0, int b) {
+    load_tile<kD, kTcThreads>(qs + b * kTileB, q + base, q0, S, D, tid);
+    load_tile<kD, kTcThreads>(dos + b * kTileB, dout + base, q0, S, D, tid);
+    const int i = tid % kTile, row = q0 + i;
+    const float* src = tid < kTile ? lse_bh : dl_bh;
+    float* dst = (tid < kTile ? lse_s : dl_s) + b * kTile + i;
+    hopper::cp_async_4(hopper::smem_u32(dst), row < S ? src + row : src,
+                       row < S ? 4 : 0);
+  };
+
+  const int nq = (S + kTile - 1) / kTile;
+  const int first_q = causal ? k0 / kTile : 0;   // earlier rows are masked
+  load_tile<kD, kTcThreads>(ks, k + base, k0, S, D, tid);
+  load_tile<kD, kTcThreads>(vs, v + base, k0, S, D, tid);
+  load_q(first_q * kTile, 0);
+  hopper::cp_async_commit();
+
+  // this thread's two key rows of the tile
+  const int kr0 = k0 + hopper::frag_row(w, l, 0), kr1 = kr0 + 8;
+  float acc_dk[kD / 2], acc_dv[kD / 2], s[32], dp[32];
+#pragma unroll
+  for (int j = 0; j < kD / 2; ++j) acc_dk[j] = acc_dv[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+
+  for (int qt = first_q; qt < nq; ++qt) {
+    const int q0 = qt * kTile, b = (qt - first_q) & 1;
+    const uint32_t qb = hopper::smem_u32(qs + b * kTileB);
+    const uint32_t dob = hopper::smem_u32(dos + b * kTileB);
+    const float* lse_t = lse_s + b * kTile;
+    const float* dl_t = dl_s + b * kTile;
+    if (qt + 1 < nq) {                     // the next tile, under this one
+      load_q(q0 + kTile, b ^ 1);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    hopper::fence_async_shared();
+    __syncthreads();
+
+    // transposed orientation: rows are keys, columns are queries
+    hopper::wgmma_fence();
+    tc_scores<kD>(s, hopper::smem_u32(ks), qb);     // s^T = k q^T
+    tc_scores<kD>(dp, hopper::smem_u32(vs), dob);   // dp^T = v dO^T
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+
+    // p^T in place of s^T; p = 0 where masked
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int key = (j >> 1) & 1 ? kr1 : kr0;
+      const int c = hopper::frag_col(l, j);
+      s[j] = visible(q0 + c, key, S, causal)
+                 ? __expf(s[j] * scale - lse_t[c])
+                 : 0.f;
+    }
+    // dv += p^T dO, p rounded to dO's type (p_t.astype(do.dtype))
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::a_fragment(pf[kk], s, kk);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_rs<kD>(acc_dv, pf[kk], hopper::desc_mn_major(dob, kk));
+    hopper::wgmma_commit();
+
+    // ds^T = p^T (dp^T - delta) scale, in place of p^T
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = hopper::frag_col(l, j);
+      s[j] = s[j] * (dp[j] - dl_t[c]) * scale;
+    }
+    tc_acc_split<kD>(acc_dk, s, qb);                   // dk += ds^T q
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc_dk);
+    hopper::fence_regs(acc_dv);
+    __syncthreads();                       // buffer b free for qt + 2
+  }
+  tc_store<kD>(dk + base, acc_dk, k0, S, D);
+  tc_store<kD>(dv + base, acc_dv, k0, S, D);
+}
+
 // ------------------------------------------------------------- launches
 
 size_t fwd_smem(int D) {
@@ -422,35 +715,54 @@ bool bad_shape(int BH, int S, int D) {
 
 dim3 grid_of(int BH, int S) { return dim3((S + kTile - 1) / kTile, BH); }
 
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int threads, size_t smem, int BH, int S,
+                   cudaStream_t st, Args... args) {
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid_of(BH, S), threads, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// the tensor-core kernels' shared memory: six tiles (Q, dO and two
+// buffers each of K and V; or K, V and two each of Q and dO), dk/dv's
+// two buffers of lse and delta, and the slack of the 1024-byte alignment
+template <int kD> size_t dq_tc_smem() {
+  return 6 * tc_tile_bytes<kD>() + 1024;
+}
+template <int kD> size_t dkdv_tc_smem() {
+  return 6 * tc_tile_bytes<kD>() + 4 * kTile * sizeof(float) + 1024;
+}
+
 template <typename T, int kE>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 void* lse, int BH, int S, int D, float scale, int causal,
                 cudaStream_t st) {
-  auto kernel = flash_fwd_kernel<T, kE>;
-  const size_t smem = fwd_smem(D);
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid_of(BH, S), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), S, D, scale, causal);
-  return cudaGetLastError();
+  return launch(flash_fwd_kernel<T, kE>, kThreads, fwd_smem(D), BH, S, st,
+                static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<T*>(out),
+                static_cast<float*>(lse), S, D, scale, causal);
 }
 
+// float32 runs the CUDA-core bodies (tensor cores would mean TF32),
+// bfloat16 the tensor-core kernels with the head dim padded to 16 kE
 template <typename T, int kE>
 cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq_out, int BH,
                int S, int D, float scale, int causal, cudaStream_t st) {
-  auto kernel = flash_dq_kernel<T, kE>;
-  const size_t smem = dq_smem(D);
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid_of(BH, S), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq_out), S, D, scale, causal);
-  return cudaGetLastError();
+  auto run = [&](auto kernel, int threads, size_t smem) {
+    return launch(kernel, threads, smem, BH, S, st,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<const T*>(dout),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<T*>(dq_out),
+                  S, D, scale, causal);
+  };
+  if constexpr (std::is_same_v<T, bf16>)
+    return run(flash_dq_kernel_tc<16 * kE>, kTcThreads,
+               dq_tc_smem<16 * kE>());
+  else
+    return run(flash_dq_kernel<T, kE>, kThreads, dq_smem(D));
 }
 
 template <typename T, int kE>
@@ -458,22 +770,26 @@ cudaError_t dkdv(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dk, void* dv, int BH, int S, int D, float scale,
                  int causal, cudaStream_t st) {
-  auto kernel = flash_dkdv_kernel<T, kE>;
-  const size_t smem = dkdv_smem(D);
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid_of(BH, S), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), S, D, scale, causal);
-  return cudaGetLastError();
+  auto run = [&](auto kernel, int threads, size_t smem) {
+    return launch(kernel, threads, smem, BH, S, st,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<const T*>(dout),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<T*>(dk),
+                  static_cast<T*>(dv), S, D, scale, causal);
+  };
+  if constexpr (std::is_same_v<T, bf16>)
+    return run(flash_dkdv_kernel_tc<16 * kE>, kTcThreads,
+               dkdv_tc_smem<16 * kE>());
+  else
+    return run(flash_dkdv_kernel<T, kE>, kThreads, dkdv_smem(D));
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; D <= 64 takes the 4-column
-// accumulators, 64 < D <= 128 the 8-column ones.
+// accumulators (bf16 dq, dk/dv: head dim padded to 64), 64 < D <= 128
+// the 8-column ones (padded to 128).
 #define FLASH_DISPATCH(fn, ...)                                          \
   do {                                                                   \
     if (dtype == 0)                                                      \

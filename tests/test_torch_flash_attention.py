@@ -9,6 +9,11 @@ numpy inputs go through the plain versions (``flash_forward_reference``,
 ``flash_backward_reference``) and through the ``torch.autograd.Function``
 on CPU tensors, which the kernel wrappers route to those plain versions.
 
+``test_split_ds_emulation_keeps_the_rounding_points`` emulates the bf16
+backward kernels' arithmetic (ds split into bf16 hi + lo for the tensor
+cores) on the same cases and holds it against the plain version and the
+Pallas kernels.
+
 Tolerances (absolute): float32 outputs and lse 2e-5, gradients 2e-4 —
 the same sums taken blockwise on one side and whole-row on the other;
 bfloat16 3e-2 — both sides round p to bf16 before P.V and dV, but
@@ -143,3 +148,55 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="lse/delta"):
         fa.flash_dq(q, q, q, q, torch.zeros(1, 1, 8, dtype=torch.float64),
                     torch.zeros(1, 1, 8))
+
+
+BF16_CASES = [c for c in CASES if c[2] == "bfloat16"]
+
+
+def _split_ds_backward(q, k, v, do, lse, delta, causal):
+    """The bfloat16 backward kernels' arithmetic (``flash_dq_kernel_tc``,
+    ``flash_dkdv_kernel_tc``), emulated: bf16 operands, float32 scores,
+    p, dp and ds, p rounded to bf16 for dV, and ds split into bf16 hi =
+    bf16(ds) and lo = bf16(ds - hi), each half a product of bf16
+    operands summed in float32, as the tensor cores sum them."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(f32), k.to(f32)) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        S = q.shape[2]
+        pos = torch.arange(S)
+        p = torch.where(pos[None, :] <= pos[:, None], p, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.to(f32), v.to(f32))
+    ds = p * (dp - delta[..., None]) * scale
+    hi = ds.to(bf16).to(f32)
+    lo = (ds - hi).to(bf16).to(f32)
+    kf, qf = k.to(f32), q.to(f32)
+    dq = hi @ kf + lo @ kf
+    dk = hi.transpose(-1, -2) @ qf + lo.transpose(-1, -2) @ qf
+    dv = p.to(bf16).to(f32).transpose(-1, -2) @ do.to(f32)
+    return dq.to(bf16), dk.to(bf16), dv.to(bf16)
+
+
+@pytest.mark.parametrize("S,causal,dtype", BF16_CASES,
+                         ids=[i for i, c in zip(IDS, CASES)
+                              if c[2] == "bfloat16"])
+def test_split_ds_emulation_keeps_the_rounding_points(S, causal, dtype):
+    """The split keeps ds float32 to ~2^-16: against the plain version
+    (ds unrounded) each output differs by at most one bf16 ulp of its
+    magnitude (the final rounding may fall either side) plus 1e-5; against
+    the Pallas kernels, within the file's bfloat16 tolerance."""
+    x, _, _, grads = _case(S, causal, dtype)
+    q, k, v, g = _torch(x, dtype)
+    out, lse = fa.flash_forward_reference(q, k, v, causal=causal)
+    delta = (g.float() * out.float()).sum(-1)
+    got = _split_ds_backward(q, k, v, g, lse, delta, causal)
+    plain = fa.flash_backward_reference(q, k, v, g, lse, delta,
+                                        causal=causal)
+    for name, a, want, pallas in zip(("dq", "dk", "dv"), got, plain, grads):
+        a, want = a.float(), want.float()
+        ulp = 2.0 ** (torch.floor(torch.log2(want.abs())) - 7)
+        excess = (a - want).abs() - (ulp + 1e-5)
+        assert float(excess.max()) <= 0, (
+            f"{name}: {int((excess > 0).sum())} elements past one bf16 ulp")
+        _close(a, pallas, TOL[dtype][1], name)
