@@ -14,14 +14,18 @@ fails:
    ``paged_attention_reference`` at the serving shapes (H=12, D=64,
    bs=16, every S in 1, 2, 4, ..., 64, B in {1, 8}, NB up to 32, plus
    BERT_TINY's H=4, D=16; float32 and bfloat16; ragged rows, a
-   bucket-slack row, poisoned null-block and dead lanes), then times it
-   at the decode shape beside the plain version,
-   ``F.scaled_dot_product_attention`` on a pre-gathered view (the
+   bucket-slack row, poisoned null-block and dead lanes; and at S = 1 and
+   8 the edge rows of ``EDGE_LENS``: live lengths that are not a multiple
+   of bs, one live block, a query's own column on either side of a block
+   boundary), then times it at the decode shape (beside PERF.md's earlier
+   time), the plain version, ``F.scaled_dot_product_attention`` on a
+   pre-gathered view (the
    yardstick only: the port never calls it) and its memory bound;
 2b. the same for the quantized modes — int8, int4 (g = 32; g = 16 at
    H=4, D=16) and int4 with the residual lane, float32 and bfloat16, the
-   null block's and dead lanes' scales poisoned to 1e30 — then each mode
-   timed at the decode shape beside its plain version, SDPA on a
+   null block's and dead lanes' scales poisoned to 1e30, the edge rows
+   too (in int4 + residual the self column at a block boundary) — then
+   each mode timed at the decode shape beside its plain version, SDPA on a
    pre-gathered, pre-dequantized view, the fp-mode kernel on the same
    blocks and its memory bound;
 3. full-width serving — a seeded Poisson trace (24 requests at 4 rps,
@@ -44,15 +48,18 @@ fails:
    ``flash_forward_reference`` / ``flash_backward_reference`` at every S
    in 1, 17, 64, 128, 255, 512, 1000, (B, H) in {(1, 1), (2, 3)}, D in
    {16, 20, 40, 64, 128} (20: rows not 16-byte aligned, loaded element
-   by element; 40: not a multiple of the 16-wide k step), float32 and
-   bfloat16 (the backward's tensor-core kernels), causal and not; then the
+   by element; 40: not a multiple of the 16-wide k step), float32 (the
+   CUDA-core kernels) and bfloat16 (the tensor-core kernels), causal and
+   not; then the
    ``flash_attention`` autograd function's gradients against autograd
    through ``dense_attention`` at S = 256 in float32;
 6. flash at the training shape (B=4, H=12, S=4096, D=64, bf16, causal
    and not): each kernel against its plain version on the same inputs
    (the errors join the kernel's ``max_abs_err``; the share of elements
-   that differ at all is printed), then its device time, achieved
-   TFLOP/s and percentage of its bound beside its plain version's,
+   that differ at all is printed), then its device time (beside PERF.md's
+   earlier one),
+   achieved TFLOP/s and percentage of its bound beside its plain
+   version's,
    ``F.scaled_dot_product_attention``'s forward and backward on the same
    tensors (the yardstick only: the port never calls it) and its bound;
 7. full-width training — ``train_mlm`` at ``BERT_BASE`` widths in
@@ -103,6 +110,25 @@ POISON = 1e30
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-2, 1e-2)}
 
 
+# The kernels' earlier device ms at the shapes the phases below time,
+# from PERF.md's table (NVIDIA H100 80GB HBM3, 700 W): the paged kernel's
+# sequential walk and the flash forward on the CUDA cores, before their
+# current designs; dq and dk/dv in their current design.
+PREVIOUS_MS = {
+    "paged_attention": 0.0468, "int8": 0.0381, "int4": None,
+    "int4_res": 0.0439,
+    ("flash_fwd", False): 9.774, ("flash_fwd", True): 5.415,
+    ("flash_dq", False): 1.4786, ("flash_dq", True): 0.8455,
+    ("flash_dkdv", False): 2.2676, ("flash_dkdv", True): 1.3155,
+}
+
+
+def previous_ms(key) -> str:
+    ms = PREVIOUS_MS[key]
+    return ("" if ms is None else
+            f" (PERF.md's earlier run: {ms} ms)")
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -133,23 +159,29 @@ def build() -> None:
 
 # ---------------------------------------------------------------- phase 2
 
-def paged_case(rng, B: int, NB: int, S: int, dtype, dev, H=H, D=D):
+def paged_case(rng, B: int, NB: int, S: int, dtype, dev, H=H, D=D,
+               lens=None):
     """Rows cycle through a full table and a ragged partial table with a
     null-block tail; row 1 starts at length 0 (a first prefill chunk);
     with B > 2 the last row is bucket slack (all-null table, length 0).
+    ``lens`` instead gives the first rows' lengths (the rest are slack).
     The null block and every lane past a row's length + S hold 1e30, so
     a masking error shows as a huge error, not a small one."""
     nblocks = 1 + B * NB
     kp = rng.normal(size=(nblocks, H, BS, D)).astype(np.float32)
     vp = rng.normal(size=(nblocks, H, BS, D)).astype(np.float32)
     bt = np.zeros((B, NB), np.int32)
-    lens = np.zeros((B,), np.int32)
+    lens_given, lens = lens, np.zeros((B,), np.int32)
     live_rows = []
     nxt = 1
     for b in range(B):
-        if b == B - 1 and B > 2:
+        if lens_given is not None:
+            if b >= len(lens_given):
+                continue
+            lens[b] = lens_given[b]
+        elif b == B - 1 and B > 2:
             continue
-        if b == 1:
+        elif b == 1:
             lens[b] = 0
         elif b % 2 == 1:
             lens[b] = int(rng.integers(0, (NB - 1) * BS - S + 1))
@@ -176,22 +208,34 @@ def paged_case(rng, B: int, NB: int, S: int, dtype, dev, H=H, D=D):
              put(lens)), live_rows)
 
 
+# Rows whose lengths put the kernel's edges in play, and a bucket-slack
+# row after them: live lengths that are not a multiple of bs (37 + S,
+# 5 + S, 47 + S), at S = 1 one live block (length 0, and 15: the query's
+# own column on the block's last lane), the query's own column on a
+# block's first lane (16), and at S = 8 chunks that cross a block
+# boundary (12, 15) -- there each early query's own column lies in a
+# block before the last.
+EDGE_LENS = (37, 0, 15, 16, 5, 12, 47)
+EDGE_SHAPES = [(S, len(EDGE_LENS) + 1, 8, H, D) for S in (1, 8)]
+
+
 def check_kernel(dev) -> dict:
     """Kernel vs plain version at every serving shape (BERT_BASE heads,
-    and BERT_TINY's H=4, D=16 at a few S); returns the max absolute
-    error per dtype."""
+    and BERT_TINY's H=4, D=16 at a few S) and at the edge rows; returns
+    the max absolute error per dtype."""
     from mpi_tensorflow_torch.ops import paged_attention_kernel as pk
 
     rng = np.random.default_rng(0)
-    shapes = [(S, B, NB, H, D) for S in (1, 2, 4, 8, 16, 32, 64)
+    shapes = [(S, B, NB, H, D, None) for S in (1, 2, 4, 8, 16, 32, 64)
               for B, NB in ((1, 16), (8, 32))]
-    shapes += [(S, 8, 8, 4, 16) for S in (1, 8, 64)]
+    shapes += [(S, 8, 8, 4, 16, None) for S in (1, 8, 64)]
+    shapes += [(*shape, EDGE_LENS) for shape in EDGE_SHAPES]
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
         worst[dtype] = 0.0
-        for S, B, NB, h, d in shapes:
-            args, live = paged_case(rng, B, NB, S, dtype, dev, h, d)
+        for S, B, NB, h, d, lens in shapes:
+            args, live = paged_case(rng, B, NB, S, dtype, dev, h, d, lens)
             got = pk.paged_attention_kernel(*args)
             torch.cuda.synchronize(dev)
             want = pk.paged_attention_reference(*args)
@@ -210,8 +254,9 @@ def check_kernel(dev) -> dict:
                     f"(tolerance {atol} + {rtol}*|want|)")
         log(f"[kernel] {str(dtype)[6:]}: max|kernel - plain| = "
             f"{worst[dtype]:.3e} over {len(shapes)} shapes: S=1..64, "
-            f"B in (1, 8), H={H} D={D}, and H=4 D=16 "
-            f"(tolerance {atol} abs + {rtol} rel)")
+            f"B in (1, 8), H={H} D={D}, H=4 D=16, and the edge rows "
+            f"{EDGE_LENS} at S in (1, 8) (tolerance {atol} abs + {rtol} "
+            f"rel)")
     return worst
 
 
@@ -338,7 +383,8 @@ def time_decode(dev) -> dict:
     ops = 4 * B * H * S * live * D                 # QK^T and P.V
     bound_ms, bound_by = bound(nbytes, ops, dt)
     log(f"[kernel] decode B={B} S={S} H={H} D={D} live={live} bf16: "
-        f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms per call "
+        f"kernel {ms:.4f} ms on the device{previous_ms('paged_attention')} "
+        f"({call_ms:.4f} ms per call "
         f"back to back), plain {plain_ms:.4f} ms per call, sdpa on the "
         f"gathered view {library_ms:.4f} ms on the device "
         f"({library_call_ms:.4f} ms per call), bound {bound_ms:.5f} ms "
@@ -390,18 +436,19 @@ def check_kernel_quant(dev) -> dict:
 
     rng = np.random.default_rng(1)
     gen = torch.Generator(device=dev).manual_seed(1)
-    shapes = [(S, B, NB, H, D, QUANT_GROUP)
+    shapes = [(S, B, NB, H, D, QUANT_GROUP, None)
               for S in (1, 2, 4, 8, 16, 32, 64)
               for B, NB in ((1, 16), (8, 32))]
-    shapes += [(S, 8, 8, 4, 16, 16) for S in (1, 8, 64)]
+    shapes += [(S, 8, 8, 4, 16, 16, None) for S in (1, 8, 64)]
+    shapes += [(*shape, QUANT_GROUP, EDGE_LENS) for shape in EDGE_SHAPES]
     worst = {}
     for mode in QUANT_MODES:
         for dtype in (torch.float32, torch.bfloat16):
             atol, rtol = TOL[dtype]
             worst[mode, dtype] = 0.0
-            for S, B, NB, h, d, g in shapes:
+            for S, B, NB, h, d, g, lens in shapes:
                 args, live = paged_case(rng, B, NB, S, torch.float32, dev,
-                                        h, d)
+                                        h, d, lens)
                 args = (args[0].to(dtype),) + args[1:]
                 pos, kw = quantize_case(args, mode, g, gen)
                 got = pk.paged_attention_kernel(*pos, **kw)
@@ -413,8 +460,9 @@ def check_kernel_quant(dev) -> dict:
                     f"H={h} D={d} g={g}"))
             log(f"[kernel {mode}] {str(dtype)[6:]}: max|kernel - plain| = "
                 f"{worst[mode, dtype]:.3e} over {len(shapes)} shapes: "
-                f"S=1..64, B in (1, 8), H={H} D={D} g={QUANT_GROUP}, and "
-                f"H=4 D=16 g=16 (tolerance {atol} abs + {rtol} rel)")
+                f"S=1..64, B in (1, 8), H={H} D={D} g={QUANT_GROUP}, "
+                f"H=4 D=16 g=16, and the edge rows (tolerance {atol} abs "
+                f"+ {rtol} rel)")
     return worst
 
 
@@ -476,7 +524,8 @@ def time_decode_quant(dev) -> dict:
                      "library_ms": library_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "fp_kernel_ms": fp_ms}
         log(f"[kernel {mode}] decode B={B} S={S} H={H} D={D} live={live} "
-            f"bf16 q: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms "
+            f"bf16 q: kernel {ms:.4f} ms on the device{previous_ms(mode)} "
+            f"({call_ms:.4f} ms "
             f"per call back to back), fp-mode kernel on the same blocks "
             f"{fp_ms:.4f} ms, plain {plain_ms:.4f} ms per call, sdpa on "
             f"the gathered, dequantized view {library_ms:.4f} ms, bound "
@@ -867,7 +916,8 @@ def time_flash(dev) -> dict:
                 f"causal={causal}: max|kernel - plain| {errs[name]:.3e} "
                 f"(tolerance {TOL[dt][0]} abs + {TOL[dt][1]} rel; lse "
                 f"{TOL[torch.float32][0]} abs); "
-                f"kernel {r['ms']:.4f} ms on the device "
+                f"kernel {r['ms']:.4f} ms on the device"
+                f"{previous_ms((name, causal))} "
                 f"({r['call_ms']:.4f} ms per call back to back; "
                 f"{r['tflops']:.2f} TFLOP/s, {r['pct_of_bound']:.2f} % of "
                 f"bound), plain "

@@ -1,4 +1,5 @@
-// Flash attention forward and backward for Hopper (sm_90a): three kernels.
+// Flash attention forward and backward for Hopper (sm_90a): three kernels,
+// each in a float32 (CUDA-core) and a bfloat16 (tensor-core) body.
 //
 // Replaces the TPU kernels of mpi_tensorflow_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel  <- _flash_fwd_kernel  (pl.pallas_call in _flash_forward)
@@ -34,51 +35,75 @@
 // lse) is not 0), so S needs no padding.  dq and dk/dv stay two kernels:
 // no atomics, so dq is deterministic.
 //
-// The forward, and the backward in float32, run on the CUDA cores:
-// tiles staged in shared memory as float32 with an odd row stride; 256
-// threads form a 16 x 16 grid, each computing a 4 x 4 micro-tile of the
-// 64 x 64 score block (rows ty*4.., columns tx + 16 j) and owning 4 rows x
-// D/16 columns of the float32 accumulators; row statistics are reduced
-// across a half-warp with shuffles.  Float32 stays there because tensor
-// cores would mean TF32 (10 mantissa bits).
+// In float32 all three run on the CUDA cores (flash_fwd_kernel,
+// flash_dq_kernel, flash_dkdv_kernel): tiles staged in shared memory as
+// float32 with an odd row stride; 256 threads form a 16 x 16 grid, each
+// computing a 4 x 4 micro-tile of the 64 x 64 score block (rows ty*4..,
+// columns tx + 16 j) and owning 4 rows x D/16 columns of the float32
+// accumulators; row statistics are reduced across a half-warp with
+// shuffles.  Float32 stays there because tensor cores would mean TF32 (10
+// mantissa bits).
 //
-// The backward in bfloat16 runs on the tensor cores (flash_dq_kernel_tc,
-// flash_dkdv_kernel_tc; helpers in hopper_mma.cuh).  One warpgroup of 128
-// threads per 64-row tile; Q, K, V, dO tiles are bf16 in shared memory,
-// 128B-swizzled, the head dim zero-padded to kD = 64 or 128 (zeros add
-// nothing); the streamed tiles are double-buffered cp.async copies
-// (16 bytes a thread, zero-filled past S and D; rows that are not 16-byte
-// aligned, D % 8 != 0, are gathered element-wise) that run under the
-// current tile's products.  Products are wgmma m64nNk16 bf16 -> float32:
+// In bfloat16 all three run on the tensor cores (flash_fwd_kernel_tc,
+// flash_dq_kernel_tc, flash_dkdv_kernel_tc; helpers in hopper_mma.cuh).
+// One warpgroup of 128 threads per 64-row tile (the forward: two of them
+// in a CTA of a 128-row tile, sharing the streamed K and V tiles); Q, K,
+// V, dO tiles are bf16 in shared memory, 128B-swizzled, the head dim
+// zero-padded to kD = 64 or 128 (zeros add nothing); the streamed tiles
+// are cp.async copies (16 bytes a thread, zero-filled past S and D; rows
+// that are not 16-byte aligned, D % 8 != 0, are gathered element-wise),
+// double-buffered in the backward and triple-buffered in the forward, that
+// run under the current tile's products.  Products are wgmma m64nNk16
+// bf16 -> float32:
 //
 //   product                      A (64 rows)            B
 //   s = q k^T, dp = dO v^T       q, dO: smem K-major    k, v: K-major
 //   s^T = k q^T, dp^T = v dO^T   k, v: smem K-major     q, dO: K-major
+//   out += p v                   p: registers           v: MN-major
 //   dq += ds k                   ds hi, lo: registers   k: MN-major
 //   dv += p^T dO, dk += ds^T q   p^T; ds^T hi, lo: reg. dO, q: MN-major
 //
+// The forward keeps the TPU kernel's online softmax in the fragment
+// layout: each thread holds two rows (16 warp + lane / 4, and + 8); their
+// max and sum are reduced over the 4 lanes of a quad.  Per key tile:
+// s = scale q k^T, masked scores set so that p = 0, m_new = max(m,
+// rowmax s), p = exp(s - m_new), l = l corr + sum p over the unrounded
+// float32 p, then -- once the previous tile's p v has completed -- acc *=
+// corr and acc += bf16(p) v.  The key tiles are walked in order in one
+// CTA, so the running max, and with it every bf16 rounding of p, is the
+// TPU kernel's.  With D = 64 the exps and their float32 arithmetic, not
+// the products, are the longer part of a tile, so each score costs one
+// FMUL (scale), one FMAX, one FFMA and one ex2: p = 2^(s log2(e) - m
+// log2(e)), masked scores being -inf (2^-inf = 0; m is finite from the
+// first tile on, whose column 0 every row sees).
+//
 // The register operands are the score accumulators' own fragments
 // converted in place (no shared-memory round trip); lse and delta are
-// indexed through the same fragment layout (rows 16 warp + lane / 4 and
-// + 8).  p = exp(s - lse) uses __expf (ex2.approx, within 2 ulp of
-// float32, far below the bf16 rounding of what follows; the accurate expf
-// costs dq a visible share of its time).  ds stays float32 in its two
-// products: it is split
-// into hi = bf16(ds) and lo = bf16(ds - hi), and both are issued into one
-// float32 accumulator, so the sum is ds k to ~2^-16 relative -- one
-// extra product per kernel (dq: s, dp, 2 x ds k; dk/dv: s^T, dp^T, dv,
-// 2 x ds^T q).  Occupancy at kD = 64: dq fits 4 CTAs an SM (50 KB of
-// shared memory each); dk/dv is held to 3 by __launch_bounds__ (left
-// alone ptxas gives it registers for 2 only, which is slower).
+// indexed through the same fragment layout.  Every exp runs on ex2.approx
+// (within 2 ulp of float32, far below the bf16 rounding of what follows;
+// the accurate expf costs dq a visible share of its time): __expf in the
+// backward's p = exp(s - lse), the FFMA form above in the forward.  ds stays
+// float32 in its two products: it is split into hi = bf16(ds) and lo =
+// bf16(ds - hi), and both are issued into one float32 accumulator, so the
+// sum is ds k to ~2^-16 relative -- one extra product per kernel (dq: s,
+// dp, 2 x ds k; dk/dv: s^T, dp^T, dv, 2 x ds^T q).  Occupancy at kD = 64:
+// the forward fits 2 CTAs of 256 threads an SM (65 KB of shared memory,
+// 121 registers), dq 4 of 128 (50 KB); dk/dv is held to 3 by
+// __launch_bounds__ (left alone ptxas gives it registers for 2 only, which
+// is slower).  Each warpgroup waits on its own products: a forward whose
+// p v stayed in flight under the next tile's q k^T made ptxas serialize
+// the wgmmas (C7515) and measured no faster.
 //
 // What bounds it.  Operations: at S = 4096, D = 64 each product is 2 S^2 D
-// flops per (b, h), far past the H100's ~295 flop/byte ridge.  The forward
-// and float32 backward are held to the CUDA cores' 67 TFLOP/s.  The bf16
-// backward reaches about a quarter of the tensor cores' 989: each CTA
-// waits on its own products (no warp specialisation, no overlap of the
-// softmax with the next tile's wgmma), so latency is hidden only by the 3-4
-// CTAs of an SM.  TMA loads, 128-row tiles of two warpgroups and a
-// producer warp are the next steps.
+// flops per (b, h), far past the H100's ~295 flop/byte ridge.  The float32
+// kernels are held to the CUDA cores' 67 TFLOP/s.  The bf16 kernels reach
+// a fifth to a quarter of the tensor cores' 989: each warpgroup waits on
+// its own products (no warp specialisation, no overlap of the softmax
+// with the next tile's wgmma), so latency is hidden only by the 4
+// warpgroups of an SM.  Next: TMA loads with a producer warp, and the
+// next tile's q k^T issued under this tile's softmax with two score
+// buffers (FlashAttention-3's ping-pong) -- in a form ptxas does not
+// serialize; 128-row tiles for the backward.
 //
 // Plain C interface (no PyTorch headers), built by ops/_build.py with nvcc
 // and loaded with ctypes; ops/flash_attention.py wraps it.
@@ -101,21 +126,15 @@ constexpr int kPStride = kTile + 1;    // odd stride of the p / ds tiles
 constexpr int kMaxD = 128;
 constexpr float kNegBig = -1e30f;      // the TPU kernel's NEG_BIG
 
+// the CUDA-core bodies run in float32 only (bf16 takes the tensor cores),
+// so T's conversions and p.astype(v.dtype) are the identity
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
+template <typename T> __device__ __forceinline__ T from_float(float x) {
+  static_assert(std::is_same_v<T, float>, "CUDA-core bodies are float32");
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// x rounded to T and back: p.astype(v.dtype) of the TPU kernels
 template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
+  return from_float<T>(x);
 }
 
 // reductions over the 16 threads of a half-warp (the threads sharing ty)
@@ -483,7 +502,7 @@ __device__ __forceinline__ void tc_acc_split(float (&acc)[kD / 2],
 template <int kD>
 __device__ __forceinline__ void tc_store(bf16* dst, const float (&acc)[kD / 2],
                                          int row0, int S, int D) {
-  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int w = threadIdx.x % kTcThreads / 32, l = threadIdx.x % 32;
 #pragma unroll
   for (int j = 0; j < kD / 2; ++j) {
     const int row = row0 + hopper::frag_row(w, l, j);
@@ -491,6 +510,154 @@ __device__ __forceinline__ void tc_store(bf16* dst, const float (&acc)[kD / 2],
     if (row < S && col < D)
       dst[(size_t)row * D + col] = __float2bfloat16(acc[j]);
   }
+}
+
+// the two rows' values reduced over the 4 lanes of a quad (the lanes
+// that share a fragment row)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+constexpr float kLog2e = 1.4426950408889634f;
+// 2^x on the SFU (ex2.approx, within 2 ulp: what __expf computes after
+// its own multiply by log2(e))
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The forward's CTA: two warpgroups, each owning 64 query rows of a
+// 128-row tile, share the streamed K and V tiles (three buffers).
+constexpr int kFwdRows = 2 * kTile;
+constexpr int kFwdThreads = 2 * kTcThreads;
+constexpr int kFwdBuffers = 3;
+
+template <int kD>
+__global__ void __launch_bounds__(kFwdThreads, kD == 64 ? 2 : 1)
+flash_fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out,
+                    float* __restrict__ lse, int S, int D, float scale,
+                    int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr size_t kTileB = tc_tile_bytes<kD>();
+  uint8_t* qs = hopper::align_1024(smem_raw);   // a tile a warpgroup
+  uint8_t* ks = qs + 2 * kTileB;                 // kFwdBuffers buffers
+  uint8_t* vs = ks + kFwdBuffers * kTileB;       // kFwdBuffers buffers
+
+  const int bh = blockIdx.y, tid = threadIdx.x;
+  const int wg = tid / kTcThreads, w = (tid % kTcThreads) / 32, l = tid % 32;
+  const int qc = blockIdx.x * kFwdRows, q0 = qc + wg * kTile;
+  const size_t base = (size_t)bh * S * D;
+  const int nk = (S + kTile - 1) / kTile;
+  const int last_k =
+      causal ? min((qc + kFwdRows - 1) / kTile, nk - 1) : nk - 1;
+  using hopper::load_tile;
+  // key tile t into its buffer, one copy group
+  auto load_kv = [&](int t) {
+    if (t <= last_k) {
+      const size_t nb = (t % kFwdBuffers) * kTileB;
+      load_tile<kD, kFwdThreads>(ks + nb, k + base, t * kTile, S, D, tid);
+      load_tile<kD, kFwdThreads>(vs + nb, v + base, t * kTile, S, D, tid);
+    }
+    hopper::cp_async_commit();
+  };
+  load_tile<kD, kFwdThreads>(qs, q + base, qc, S, D, tid);
+  load_tile<kD, kFwdThreads>(qs + kTileB, q + base, qc + kTile, S, D, tid);
+  load_kv(0);
+  load_kv(1);
+  const uint32_t qw = hopper::smem_u32(qs + wg * kTileB);
+
+  // this thread's two rows of the tile and their running max and sum
+  const int r0 = q0 + hopper::frag_row(w, l, 0), r1 = r0 + 8;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[kD / 2], s[32];
+#pragma unroll
+  for (int j = 0; j < kD / 2; ++j) acc[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) s[j] = 0.f;
+
+  for (int kt = 0; kt <= last_k; ++kt) {
+    const int k0 = kt * kTile;
+    const uint32_t kb = hopper::smem_u32(ks + (kt % kFwdBuffers) * kTileB);
+    const uint32_t vb = hopper::smem_u32(vs + (kt % kFwdBuffers) * kTileB);
+    hopper::cp_async_wait<1>();            // tile kt; kt + 1 may fly on
+    hopper::fence_async_shared();
+    __syncthreads();                       // ... and tile kt - 1's are free
+
+    hopper::wgmma_fence();
+    tc_scores<kD>(s, qw, kb);
+    hopper::wgmma_commit();
+    load_kv(kt + 2);                       // issued under q k^T
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+
+    // scale and mask: rows past S stay unmasked (never stored); columns
+    // past S, and under `causal` past the row, score -inf: p = 2^-inf = 0
+    const bool full = k0 + kTile <= S && (!causal || k0 + kTile <= q0 + 1);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const bool second = (j >> 1) & 1;
+      const int col = k0 + hopper::frag_col(l, j);
+      const bool vis =
+          full || (col < S && (!causal || col <= (second ? r1 : r0)));
+      s[j] = vis ? s[j] * scale : -INFINITY;
+      if (second) mx1 = fmaxf(mx1, s[j]);
+      else mx0 = fmaxf(mx0, s[j]);
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    // exp(s - m) as 2^(s log2(e) - m log2(e)): one FFMA and one ex2 a
+    // score; a max that did not move keeps corr = exp(0) = 1 exactly
+    const float b0 = mn0 * kLog2e, b1 = mn1 * kLog2e;
+    const float corr0 = m0 == mn0 ? 1.f : ex2(fmaf(m0, kLog2e, -b0));
+    const float corr1 = m1 == mn1 ? 1.f : ex2(fmaf(m1, kLog2e, -b1));
+    // p in place of s
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const bool second = (j >> 1) & 1;
+      const float p = ex2(fmaf(s[j], kLog2e, second ? -b1 : -b0));
+      s[j] = p;
+      if (second) ps1 += p;
+      else ps0 += p;
+    }
+    l0 = l0 * corr0 + quad_sum(ps0);       // the unrounded float32 p
+    l1 = l1 * corr1 + quad_sum(ps1);
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int j = 0; j < kD / 2; ++j) acc[j] *= (j >> 1) & 1 ? corr1 : corr0;
+
+    // acc += bf16(p) v: p as the register A operand, v read MN-major.
+    // Waiting here keeps ptxas from serializing the wgmmas (C7515): a
+    // p v left in flight under the next tile's q k^T measured no faster.
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::a_fragment(pf[kk], s, kk);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_rs<kD>(acc, pf[kk], hopper::desc_mn_major(vb, kk));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+  }
+
+  const float ls0 = l0 == 0.f ? 1.f : l0, ls1 = l1 == 0.f ? 1.f : l1;
+#pragma unroll
+  for (int j = 0; j < kD / 2; ++j)
+    acc[j] = acc[j] / ((j >> 1) & 1 ? ls1 : ls0);
+  if ((l & 3) == 0) {                      // one lane of each quad
+    if (r0 < S) lse[(size_t)bh * S + r0] = m0 + logf(ls0);
+    if (r1 < S) lse[(size_t)bh * S + r1] = m1 + logf(ls1);
+  }
+  tc_store<kD>(out + base, acc, q0, S, D);
 }
 
 template <int kD>
@@ -713,20 +880,24 @@ bool bad_shape(int BH, int S, int D) {
   return BH < 1 || BH > 65535 || S < 1 || D < 1 || D > kMaxD;
 }
 
-dim3 grid_of(int BH, int S) { return dim3((S + kTile - 1) / kTile, BH); }
-
+// one CTA per (tile of `rows` rows, b*h)
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int threads, size_t smem, int BH, int S,
-                   cudaStream_t st, Args... args) {
+cudaError_t launch(Kernel kernel, int threads, int rows, size_t smem, int BH,
+                   int S, cudaStream_t st, Args... args) {
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<grid_of(BH, S), threads, smem, st>>>(args...);
+  kernel<<<dim3((S + rows - 1) / rows, BH), threads, smem, st>>>(args...);
   return cudaGetLastError();
 }
 
-// the tensor-core kernels' shared memory: six tiles (Q, dO and two
-// buffers each of K and V; or K, V and two each of Q and dO), dk/dv's
-// two buffers of lse and delta, and the slack of the 1024-byte alignment
+// the tensor-core kernels' shared memory: for the forward two Q tiles
+// and three buffers each of K and V, for the backward six tiles (Q, dO
+// and two buffers each of K and V; or K, V and two each of Q and dO),
+// dk/dv's two buffers of lse and delta, and the slack of the 1024-byte
+// alignment
+template <int kD> size_t fwd_tc_smem() {
+  return (2 + 2 * kFwdBuffers) * tc_tile_bytes<kD>() + 1024;
+}
 template <int kD> size_t dq_tc_smem() {
   return 6 * tc_tile_bytes<kD>() + 1024;
 }
@@ -734,24 +905,31 @@ template <int kD> size_t dkdv_tc_smem() {
   return 6 * tc_tile_bytes<kD>() + 4 * kTile * sizeof(float) + 1024;
 }
 
+// float32 runs the CUDA-core bodies (tensor cores would mean TF32),
+// bfloat16 the tensor-core kernels with the head dim padded to 16 kE
 template <typename T, int kE>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 void* lse, int BH, int S, int D, float scale, int causal,
                 cudaStream_t st) {
-  return launch(flash_fwd_kernel<T, kE>, kThreads, fwd_smem(D), BH, S, st,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<T*>(out),
-                static_cast<float*>(lse), S, D, scale, causal);
+  auto run = [&](auto kernel, int threads, int rows, size_t smem) {
+    return launch(kernel, threads, rows, smem, BH, S, st,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<T*>(out),
+                  static_cast<float*>(lse), S, D, scale, causal);
+  };
+  if constexpr (std::is_same_v<T, bf16>)
+    return run(flash_fwd_kernel_tc<16 * kE>, kFwdThreads, kFwdRows,
+               fwd_tc_smem<16 * kE>());
+  else
+    return run(flash_fwd_kernel<T, kE>, kThreads, kTile, fwd_smem(D));
 }
 
-// float32 runs the CUDA-core bodies (tensor cores would mean TF32),
-// bfloat16 the tensor-core kernels with the head dim padded to 16 kE
 template <typename T, int kE>
 cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq_out, int BH,
                int S, int D, float scale, int causal, cudaStream_t st) {
   auto run = [&](auto kernel, int threads, size_t smem) {
-    return launch(kernel, threads, smem, BH, S, st,
+    return launch(kernel, threads, kTile, smem, BH, S, st,
                   static_cast<const T*>(q), static_cast<const T*>(k),
                   static_cast<const T*>(v), static_cast<const T*>(dout),
                   static_cast<const float*>(lse),
@@ -771,7 +949,7 @@ cudaError_t dkdv(const void* q, const void* k, const void* v,
                  void* dk, void* dv, int BH, int S, int D, float scale,
                  int causal, cudaStream_t st) {
   auto run = [&](auto kernel, int threads, size_t smem) {
-    return launch(kernel, threads, smem, BH, S, st,
+    return launch(kernel, threads, kTile, smem, BH, S, st,
                   static_cast<const T*>(q), static_cast<const T*>(k),
                   static_cast<const T*>(v), static_cast<const T*>(dout),
                   static_cast<const float*>(lse),
@@ -788,7 +966,7 @@ cudaError_t dkdv(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; D <= 64 takes the 4-column
-// accumulators (bf16 dq, dk/dv: head dim padded to 64), 64 < D <= 128
+// accumulators (bf16: head dim padded to 64), 64 < D <= 128
 // the 8-column ones (padded to 128).
 #define FLASH_DISPATCH(fn, ...)                                          \
   do {                                                                   \

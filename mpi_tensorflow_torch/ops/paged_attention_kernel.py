@@ -50,9 +50,9 @@ from mpi_tensorflow_torch.ops.paged_attention import (check_quant_args,
                                                       dequantize_kv_int4)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# kernel limits (csrc/paged_attention.cu: registers hold <= 128 lanes of
-# D; shared memory holds a bs x D block of K and of V, <= 156 KB here
-# with the residual lane's k_new tile)
+# kernel limits (csrc/paged_attention.cu: a thread holds at most 4 of a
+# tile's <= 8 x 128 (query, dim) pairs; shared memory holds at least one
+# bs x D block of K and of V, <= 144 KB at float32, D = 128, bs = 128)
 MAX_HEAD_DIM = 128
 MAX_BLOCK_SIZE = 128
 #: pool modes, numbered as the C entry point takes them

@@ -12,6 +12,13 @@
   every case under one compile;
 - ``attend(kernel="gather")`` on quantized pools against the
   reference's ``attend(kernel="xla")``;
+- a plain emulation of the CUDA kernel's block-parallel schedule (every
+  live block scored at once, the running max as a prefix max over the
+  block maxima, p rounded against its block's running max, column
+  groups merged in order) in modes fp32, int8 and int4 + residual: its
+  rounded probabilities equal the sequential walk's bit for bit, and
+  its output agrees with the Pallas kernel (interpreted) and the plain
+  version;
 - ``init_pools`` leaves and geometry checks, ``kv_quant_block`` and the
   harness's ``kv_quant_report`` byte formulas.
 
@@ -308,6 +315,229 @@ def test_attend_refuses_what_the_reference_refuses(bad):
     for kernel in ("gather", "cuda"):
         with pytest.raises(ValueError, match="both|int4"):
             ops.attend(*pos, torch.float32, kernel=kernel, **kw)
+
+
+# ------------------------- (e) the CUDA kernel's block-parallel schedule
+
+def _block(pool, scale, blk, dtype):
+    """Pool block ``blk`` as the kernel reads it: in q's dtype, quantized
+    blocks dequantized (code x scale rounded to q's dtype)."""
+    if scale is None:
+        return pool[blk]
+    if scale.ndim == 4:
+        return ops.dequantize_kv_int4(pool[blk], scale[blk], dtype)
+    return ops.dequantize_kv(pool[blk], scale[blk], dtype)
+
+
+def _block_scores(q, k_pool, k_scale, k_new, block_table, b, j, qpos):
+    """Masked float32 scores (H, S, bs) of row b's live block j, one
+    block at a time, as both schedules take them."""
+    f32 = torch.float32
+    bs = k_pool.shape[2]
+    qb = q[b].to(f32)
+    k = _block(k_pool, k_scale, int(block_table[b, j]), q.dtype).to(f32)
+    s = qb @ k.transpose(1, 2)
+    col = j * bs + torch.arange(bs)[None, :]
+    if k_new is not None:
+        s_self = (qb * k_new[b].to(f32)).sum(-1)[..., None]
+        s = torch.where(col == qpos, s_self, s)
+    neg = torch.finfo(f32).min
+    return torch.where(col <= qpos, s * q.shape[-1] ** -0.5, neg), col
+
+
+def _sequential_p(q, k_pool, v_pool, block_table, lengths, *,
+                  k_scale=None, k_new=None, **_):
+    """The rounded probabilities of the sequential walk (the Pallas
+    kernel's and the plain version's): per live block j, p = exp(s -
+    m_j) in q's dtype, m_j the running max after block j."""
+    B, H, S, _ = q.shape
+    bs, NB = k_pool.shape[2], block_table.shape[1]
+    out = {}
+    for b in range(B):
+        qpos = int(lengths[b]) + torch.arange(S)[:, None]
+        m = torch.full((H, S, 1), torch.finfo(torch.float32).min)
+        for j in range(pk._nlive(int(lengths[b]), S, bs, NB)):
+            s, _ = _block_scores(q, k_pool, k_scale, k_new, block_table,
+                                 b, j, qpos)
+            m = torch.maximum(m, s.amax(-1, keepdim=True))
+            out[b, j] = torch.exp(s - m).to(q.dtype)
+    return out
+
+
+def _block_parallel(q, k_pool, v_pool, block_table, lengths, *,
+                    k_scale=None, v_scale=None, k_new=None, v_new=None,
+                    round_blocks=2, splits=3):
+    """A plain emulation of ``csrc/paged_attention.cu``'s schedule: the
+    live blocks in rounds of ``round_blocks``; per round every block's
+    scores, the blocks' maxima and their prefix max m_j (seeded by the
+    earlier rounds'), p = exp(s - m_j) rounded to q's dtype in block j
+    and weighted by exp(m_j - m_last) in float32, the weights summed
+    against V in ``splits`` column groups (column c in group c %
+    splits), each group's partial rescaled by exp(m_prev - m_last) and
+    the groups merged in order.  Returns the output and the rounded p
+    per (row, block)."""
+    B, H, S, D = q.shape
+    bs, NB = k_pool.shape[2], block_table.shape[1]
+    f32 = torch.float32
+    neg = torch.finfo(f32).min
+    out = torch.empty_like(q)
+    ps = {}
+    for b in range(B):
+        qpos = int(lengths[b]) + torch.arange(S)[:, None]
+        nlive = pk._nlive(int(lengths[b]), S, bs, NB)
+        m_run = torch.full((H, S, 1), neg)
+        l = torch.zeros((H, S, 1))
+        acc = torch.zeros((splits, H, S, D))
+        for j0 in range(0, nlive, round_blocks):
+            js = range(j0, min(j0 + round_blocks, nlive))
+            blocks = [_block_scores(q, k_pool, k_scale, k_new, block_table,
+                                    b, j, qpos) for j in js]
+            bm = torch.cat([s.amax(-1, keepdim=True) for s, _ in blocks], -1)
+            m_j = torch.cummax(torch.cat([m_run, bm], -1), -1).values[..., 1:]
+            m_last = m_j[..., -1:]
+            f = torch.exp(m_j - m_last)
+            g = torch.exp(m_run - m_last)
+            psum = torch.zeros((H, S, 1))
+            pself = torch.zeros((H, S, 1))
+            ws, vs = [], []
+            for i, (j, (s, col)) in enumerate(zip(js, blocks)):
+                p = torch.where(col <= qpos, torch.exp(s - m_j[..., i:i + 1]),
+                                0.0)
+                ps[b, j] = p.to(q.dtype)
+                fi = f[..., i:i + 1]
+                psum = psum + (p * fi).sum(-1, keepdim=True)
+                if k_new is not None:
+                    self_m = col == qpos
+                    pself = pself + torch.where(self_m, p * fi, 0.0).sum(
+                        -1, keepdim=True)
+                    p = torch.where(self_m, 0.0, p)
+                ws.append(p.to(q.dtype).to(f32) * fi)
+                vs.append(_block(v_pool, v_scale, int(block_table[b, j]),
+                                 q.dtype).to(f32))
+            l = l * g + psum
+            w, v = torch.cat(ws, -1), torch.cat(vs, -2)
+            group = torch.arange(w.shape[-1]) % splits
+            for sp in range(splits):
+                acc[sp] = acc[sp] * g + w[..., group == sp] @ v[:, group == sp]
+            if v_new is not None:
+                acc[0] = acc[0] + pself * v_new[b].to(f32)
+            m_run = m_last
+        total = acc[0]
+        for sp in range(1, splits):
+            total = total + acc[sp]
+        out[b] = (total / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
+    return out, ps
+
+
+# lengths per row: decode rows with 3 live blocks (a live length that is
+# not a multiple of bs), one live block, 4 live blocks and a bucket-slack
+# last row; prefill (S = 8) rows whose first queries see none of the
+# tile's later blocks, a first chunk (length 0), and 5 live blocks.
+SCHEDULE_SHAPES = {"decode": dict(B=4, NB=4, bs=4, S=1, lens=(9, 2, 14, 0)),
+                   "prefill_s8": dict(B=3, NB=5, bs=4, S=8, lens=(3, 0, 10))}
+SCHEDULE_CASES = [(mode, shape) for mode in ("fp32", "int8", "int4_res")
+                  for shape in SCHEDULE_SHAPES]
+
+
+def _schedule_case(i):
+    """Pools with poisoned null block and dead lanes (values, or scales,
+    of 1e30) for case ``i`` of ``SCHEDULE_CASES``, as numpy arrays in
+    ``_operands``' order, and the bucket-slack rows."""
+    mode, shape = SCHEDULE_CASES[i]
+    sh = SCHEDULE_SHAPES[shape]
+    B, NB, bs, S = sh["B"], sh["NB"], sh["bs"], sh["S"]
+    H, D = 2, 8
+    rng = np.random.default_rng(100 + i)
+    lens = np.array(sh["lens"], np.int32)
+    dead = [B - 1] if shape == "decode" else []
+    bt = np.zeros((B, NB), np.int32)
+    nxt = 1
+    for b in range(B):
+        if b in dead:
+            continue
+        n = -(-(int(lens[b]) + S) // bs)
+        bt[b, :n] = range(nxt, nxt + n)
+        nxt += n
+    kp, vp = (rng.normal(size=(nxt, H, bs, D)).astype(np.float32)
+              for _ in range(2))
+    live = np.ones((nxt, bs), bool)
+    live[0] = False
+    for b in range(B):
+        for j in range(NB):
+            if bt[b, j]:
+                live[bt[b, j], max(0, int(lens[b]) + S - j * bs):] = False
+    q = rng.normal(size=(B, H, S, D)).astype(np.float32)
+    if mode == "fp32":
+        for pool in (kp, vp):
+            pool[~live[:, None, :, None].repeat(H, 1).repeat(D, 3)] = POISON
+        return (q, kp, vp, bt, lens, None, None, None, None), dead
+    quant = (functools.partial(jax_ops.quantize_kv_int4, group=GROUP)
+             if mode != "int8" else jax_ops.quantize_kv)
+    (kc, ks), (vc, vs) = ((np.array(c), np.array(s)) for c, s in
+                          (quant(jnp.asarray(kp)), quant(jnp.asarray(vp))))
+    for sc in (ks, vs):
+        dead_rows = ~live[:, None, :].repeat(H, 1)
+        sc[dead_rows] = POISON
+    new = ([rng.normal(size=(B, H, S, D)).astype(np.float32)
+            for _ in range(2)] if mode == "int4_res" else [None, None])
+    return (q, kc, vc, bt, lens, ks, vs, *new), dead
+
+
+def _schedule_operands(arrs, to):
+    """``_operands`` for the schedule cases: an fp pool takes q's
+    bfloat16 and no scales."""
+    q, kc, vc, bt, lens, ks, vs, kn, vn = arrs
+    fl = lambda a: None if a is None else to(a, "bfloat16")
+    raw = lambda a: None if a is None else to(a, None)
+    pool = fl if ks is None else raw
+    return ((fl(q), pool(kc), pool(vc), raw(bt), raw(lens)),
+            dict(k_scale=raw(ks), v_scale=raw(vs), k_new=fl(kn),
+                 v_new=fl(vn)))
+
+
+@functools.lru_cache(maxsize=None)
+def _schedule_reference():
+    """The Pallas kernel's output (interpreted) for every schedule case,
+    under one compile, as float32 numpy arrays."""
+    flat = [_schedule_operands(_schedule_case(i)[0], _to_jax)
+            for i in range(len(SCHEDULE_CASES))]
+
+    def run(flat):
+        return [jax_pk.paged_attention_kernel(*pos, interpret=True, **kw)
+                for pos, kw in flat]
+
+    res = jax.jit(run).lower(flat).compile(FAST_COMPILE)(flat)
+    return [np.asarray(r.astype(jnp.float32)) for r in res]
+
+
+@pytest.mark.parametrize("mode,shape", SCHEDULE_CASES,
+                         ids=["-".join(c) for c in SCHEDULE_CASES])
+def test_block_parallel_schedule_keeps_the_rounding_point(mode, shape):
+    """The kernel's schedule, emulated in bfloat16: every rounded p
+    equals the sequential walk's bit for bit (the prefix max over block
+    maxima is the running max), and the output agrees with the Pallas
+    kernel and the plain version within the bfloat16 tolerance.  The
+    int4 prefill case puts each early query's own (residual) column in a
+    block before the tile's last; rounds of 2 blocks and 3 column groups
+    make rounds and groups uneven."""
+    i = SCHEDULE_CASES.index((mode, shape))
+    arrs, dead = _schedule_case(i)
+    pos, kw = _schedule_operands(arrs, _to_torch)
+    got, p_par = _block_parallel(*pos, **kw)
+    p_seq = _sequential_p(*pos, **kw)
+    assert sorted(p_par) == sorted(p_seq)
+    for key in p_seq:
+        assert p_par[key].dtype == torch.bfloat16
+        assert torch.equal(p_par[key].view(torch.int16),
+                           p_seq[key].view(torch.int16)), key
+    if shape == "prefill_s8":
+        # the first query of row 0 (position 3) sees none of blocks 1, 2
+        assert not p_seq[0, 1][:, 0].float().any()
+        assert not p_seq[0, 2][:, 0].float().any()
+    _assert_close(got, _schedule_reference()[i], dead, "bfloat16")
+    plain = pk.paged_attention_reference(*pos, **kw)
+    _assert_close(got, np.asarray(plain.float()), dead, "bfloat16")
+    assert np.all(np.isfinite(_live(got.float(), dead)))
 
 
 # ------------------------------------------- (f) pools and accounting
