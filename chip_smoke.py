@@ -71,12 +71,18 @@ fails:
    dropout 0, three train steps with ``attention="flash"`` and with
    ``"dense"``: loss, gradients and parameters must agree;
 9. fused kernels — ``layer_norm_forward`` and ``online_logsumexp``
-   against their plain versions (N in {1, 7, 4096}, F in {16, 768,
-   1000}, V in {1, 511, 30522}, float32 and bfloat16, logits of +-1e4),
-   ``softmax_cross_entropy``'s gradient against autograd through the
-   plain version, and their device times at (4096, 768) and (4096,
-   30522) beside ``F.layer_norm`` / ``torch.logsumexp`` (yardsticks
-   only) and the bound.  No path runs these two kernels (the JAX
+   against their plain versions: the LayerNorm at N in {1, 7, 4096} on
+   both of its routes, each case's route held and logged — the
+   warp-per-row kernel at F in {16, 768, 1000, 1024} and bf16's 2048
+   (its widest rows), the general CTA-per-row kernel at F = 1001, one
+   16-byte vector past the widest row (and float32's 2048) and a view
+   one element off alignment — plus float32 rows of 64 + randn; the
+   logsumexp at V in {1, 511, 30522} with logits of +-1e4; float32 and
+   bfloat16; ``softmax_cross_entropy``'s gradient against autograd
+   through the plain version; then their device times at (4096, 768)
+   and (16384, 768) bf16 and (4096, 30522) float32 beside ``F.layer_norm``
+   / ``torch.logsumexp`` (yardsticks only), the bound and the
+   LayerNorm's earlier time.  No path runs these two kernels (the JAX
    package's models do not call them either), so their main-path
    launches are 0.
 
@@ -112,14 +118,16 @@ TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-2, 1e-2)}
 
 # The kernels' earlier device ms at the shapes the phases below time,
 # from PERF.md's table (NVIDIA H100 80GB HBM3, 700 W): the paged kernel's
-# sequential walk and the flash forward on the CUDA cores, before their
-# current designs; dq and dk/dv in their current design.
+# sequential walk, the flash forward on the CUDA cores and the LayerNorm's
+# CTA-per-row kernel at (4096, 768) bf16, before their current designs;
+# dq and dk/dv in their current design.
 PREVIOUS_MS = {
     "paged_attention": 0.0468, "int8": 0.0381, "int4": None,
     "int4_res": 0.0439,
     ("flash_fwd", False): 9.774, ("flash_fwd", True): 5.415,
     ("flash_dq", False): 1.4786, ("flash_dq", True): 0.8455,
     ("flash_dkdv", False): 2.2676, ("flash_dkdv", True): 1.3155,
+    "layer_norm": 0.0151, "logsumexp": None,
 }
 
 
@@ -308,8 +316,11 @@ def device_ms(fn, inputs, reps: int, kernels_per_call=None) -> float:
     ``kernels_per_call``: the number of kernels one call launches,
     checked against the kernels recorded.  A recording that holds no
     device time or the wrong number of kernels is taken again, up to
-    three times in all; after the third, the CUDA-event time stands, and
-    the log says so."""
+    three times in all.  After the third, a one-kernel call whose last
+    recording kept some of its launches and lost the rest is timed by
+    the mean of those it kept (each is one whole call); any other call
+    falls back to the CUDA-event time, which holds the host's launch
+    gaps.  The log says which."""
     from mpi_tensorflow_torch.utils.profiling import profiled_kernels
 
     event_ms = wall_ms(fn, inputs, reps)
@@ -333,6 +344,12 @@ def device_ms(fn, inputs, reps: int, kernels_per_call=None) -> float:
             return us / 1e3 / calls
         log(f"[profiler] recording {attempt + 1} of 3 held {len(kernels)} "
             f"kernels ({us} us) for {calls} calls; recording again")
+    if kernels_per_call == 1 and 0 < len(kernels) < calls and us > 0:
+        log(f"[profiler] no full recording: {us / 1e3 / len(kernels):.4f} "
+            f"ms per call, the mean of the {len(kernels)} of {calls} "
+            f"launches the last recording kept (CUDA events: "
+            f"{event_ms:.4f} ms with the launch gaps)")
+        return us / 1e3 / len(kernels)
     log(f"[profiler] no full recording: {event_ms:.4f} ms per call from "
         f"CUDA events instead (device time plus launch gaps)")
     return event_ms
@@ -1055,27 +1072,66 @@ FUSED_REPLACES = {"layer_norm": "mpi_tensorflow_tpu/ops/fused.py:56",
 LSE_TOL = (1e-4, 1e-6)
 
 
+# LayerNorm widths per dtype that take each route (fused.layer_norm_route):
+# the fast path ("rows") takes F in multiples of a 16-byte vector up to
+# 1024 float32 / 2048 bf16 values; 1028 / 2056 are one vector past that,
+# 1001 is no multiple, and they take the general path ("block")
+LN_ROUTE_F = {torch.float32: ((16, 768, 1000, 1024), (1001, 1028, 2048)),
+              torch.bfloat16: ((16, 768, 1000, 1024, 2048), (1001, 2056))}
+
+
+def layer_norm_cases(dtype):
+    """(N, F, kind, route) of the LayerNorm checks in ``dtype``: rows of
+    3 randn + 1 at widths that take each route, a contiguous view one
+    element off 16-byte alignment (``misaligned``), and float32 rows of
+    64 + randn (``offset``), where a one-pass E[x^2] - E[x]^2 would
+    cancel."""
+    fast, general = LN_ROUTE_F[dtype]
+    cases = [(N, F, "randn", route) for N in (1, 7, 4096)
+             for route, widths in (("rows", fast), ("block", general))
+             for F in widths]
+    cases += [(N, 768, "misaligned", "block") for N in (7, 4096)]
+    if dtype == torch.float32:
+        cases += [(4096, F, "offset", "rows") for F in (768, 1000, 1024)]
+        cases += [(4096, 1001, "offset", "block")]
+    return cases
+
+
 def check_fused(dev) -> dict:
     """``layer_norm_forward`` and ``online_logsumexp`` against their plain
     versions, and ``softmax_cross_entropy``'s gradient against autograd
-    through the plain version.  Returns the max absolute error per
-    kernel."""
+    through the plain version.  Each LayerNorm case must take the route
+    it is meant to exercise (``fused.layer_norm_route``).  Returns the
+    max absolute error per kernel and dtype."""
     from mpi_tensorflow_torch.ops import fused
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    worst = {"layer_norm": 0.0, "logsumexp": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        for N, F in itertools.product((1, 7, 4096), (16, 768, 1000)):
-            x = (3 * torch.randn((N, F), generator=gen, device=dev)
-                 + 1).to(dtype)
+    dtypes = (torch.float32, torch.bfloat16)
+    worst = {(k, dt): 0.0 for k in FUSED_REPLACES for dt in dtypes}
+    offset_worst = 0.0
+    routes = {"rows": [], "block": []}
+    for dtype in dtypes:
+        dt = str(dtype)[6:]
+        for N, F, kind, route in layer_norm_cases(dtype):
+            z = torch.randn((N * F + 1,), generator=gen, device=dev)
+            buf = ((64 + z) if kind == "offset" else (3 * z + 1)).to(dtype)
+            x = (buf[1:] if kind == "misaligned" else buf[:-1]).view(N, F)
             scale, bias = (torch.randn((F,), generator=gen, device=dev)
                            for _ in range(2))
+            what = f"layer_norm {dt} N={N} F={F} {kind}"
+            took = fused.layer_norm_route(x, scale, bias)
+            if took != route:
+                raise AssertionError(f"{what} took the {took} route, not "
+                                     f"{route}")
+            routes[route].append(f"{dt} {N}x{F}"
+                                 + ("" if kind == "randn" else f" {kind}"))
             got = fused.layer_norm_forward(x, scale, bias)
             torch.cuda.synchronize(dev)
             want = fused.layer_norm_reference(x, scale, bias)
-            worst["layer_norm"] = max(worst["layer_norm"], check_close(
-                got, want, *TOL[dtype],
-                f"layer_norm {str(dtype)[6:]} N={N} F={F}"))
+            err = check_close(got, want, *TOL[dtype], what)
+            worst["layer_norm", dtype] = max(worst["layer_norm", dtype], err)
+            if kind == "offset":
+                offset_worst = max(offset_worst, err)
         for N, V in itertools.product((1, 7, 4096), (1, 511, 30522)):
             x = 4 * torch.randn((N, V), generator=gen, device=dev)
             x[0] = torch.where(torch.rand((V,), generator=gen, device=dev)
@@ -1086,9 +1142,9 @@ def check_fused(dev) -> dict:
             got = fused.online_logsumexp(x)
             torch.cuda.synchronize(dev)
             want = fused.logsumexp_reference(x)
-            worst["logsumexp"] = max(worst["logsumexp"], check_close(
-                got, want, *LSE_TOL,
-                f"logsumexp {str(dtype)[6:]} N={N} V={V}"))
+            worst["logsumexp", dtype] = max(
+                worst["logsumexp", dtype], check_close(
+                    got, want, *LSE_TOL, f"logsumexp {dt} N={N} V={V}"))
     logits = 4 * torch.randn((64, 30522), generator=gen, device=dev)
     labels = torch.randint(0, 30522, (64,), generator=gen, device=dev)
     g = torch.randn((64,), generator=gen, device=dev)
@@ -1100,10 +1156,16 @@ def check_fused(dev) -> dict:
         grads.append(torch.autograd.grad(ce(lg, labels), lg, g)[0])
     ce_err = check_close(grads[0], grads[1], 1e-5, 0.0,
                          "softmax_cross_entropy gradient")
-    log(f"[fused] max|kernel - plain|: layer_norm "
-        f"{worst['layer_norm']:.3e} (N in 1, 7, 4096; F in 16, 768, 1000; "
-        f"float32 and bfloat16; tolerance as phase 2), logsumexp "
-        f"{worst['logsumexp']:.3e} (V in 1, 511, 30522, rows of +-1e4; "
+    for route, done in routes.items():
+        log(f"[fused] layer_norm route {route} ({len(done)} cases): "
+            + ", ".join(done))
+    log(f"[fused] max|kernel - plain|: layer_norm, both routes, float32 "
+        f"{worst['layer_norm', torch.float32]:.3e} (rows of 64 + randn "
+        f"{offset_worst:.3e}), bfloat16 "
+        f"{worst['layer_norm', torch.bfloat16]:.3e} (tolerance as phase "
+        f"2); logsumexp "
+        f"{max(worst['logsumexp', dt] for dt in dtypes):.3e} (V in 1, 511, "
+        f"30522, rows of +-1e4; "
         f"tolerance {LSE_TOL[0]} abs + {LSE_TOL[1]} rel); "
         f"softmax_cross_entropy gradient vs autograd through the plain "
         f"version, (64, 30522) float32: {ce_err:.3e} (tolerance 1e-5)")
@@ -1112,48 +1174,57 @@ def check_fused(dev) -> dict:
 
 def time_fused(dev) -> dict:
     """Device ms of each fused kernel at the BERT-base shapes — LayerNorm
-    over (4096, 768) bf16 activations, logsumexp over (4096, 30522)
-    float32 logits — beside its plain version, the PyTorch call that
-    computes the same function (yardstick only) and the bound."""
+    over (4096, 768) bf16 activations and over the S = 4096 batch-4
+    step's (16384, 768), logsumexp over (4096, 30522) float32 logits —
+    beside its plain version, the PyTorch call that computes the same
+    function (yardstick only) and the bound.  The (16384, 768) LayerNorm
+    goes under the (4096, 768) one's ``n16384`` key."""
     from mpi_tensorflow_torch.ops import fused
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    N, F, V = 4096, 768, 30522
     dt = torch.bfloat16
-    ln_sets = [((torch.randn((N, F), generator=gen, device=dev)).to(dt),
-                torch.randn((F,), generator=gen, device=dev),
-                torch.randn((F,), generator=gen, device=dev))
-               for _ in range(12)]       # 12 x 6.3 MB > L2
-    lse_sets = [(torch.randn((N, V), generator=gen, device=dev),)
-                for _ in range(2)]       # 500 MB each
-    lib_ln = [(x, s.to(dt), b.to(dt)) for x, s, b in ln_sets]
-    cases = {
-        "layer_norm": (fused.layer_norm_forward, fused.layer_norm_reference,
-                       ln_sets,
-                       lambda x, s, b: torch.nn.functional.layer_norm(
-                           x, (F,), s, b, 1e-12), lib_ln,
-                       2 * N * F * 2 + 2 * F * 4, 8 * N * F),
-        "logsumexp": (fused.online_logsumexp, fused.logsumexp_reference,
-                      lse_sets, lambda x: torch.logsumexp(x, -1), lse_sets,
-                      N * V * 4 + N * 4, 4 * N * V),
-    }
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def layer_norm_case(N, F, count):
+        sets = [(randn(N, F).to(dt), randn(F), randn(F))
+                for _ in range(count)]
+        return ("layer_norm", f"({N}, {F}) bf16", fused.layer_norm_forward,
+                fused.layer_norm_reference, sets, "F.layer_norm",
+                lambda x, s, b: torch.nn.functional.layer_norm(
+                    x, (F,), s, b, 1e-12),
+                [(x, s.to(dt), b.to(dt)) for x, s, b in sets],
+                2 * N * F * 2 + 2 * F * 4, 8 * N * F, 20)
+
+    N, V = 4096, 30522
+    lse_sets = [(randn(N, V),) for _ in range(2)]      # 500 MB each
+    cases = [layer_norm_case(4096, 768, 12),           # 12 x 6.3 MB > L2
+             layer_norm_case(16384, 768, 4),           # 4 x 25 MB
+             ("logsumexp", f"({N}, {V}) float32", fused.online_logsumexp,
+              fused.logsumexp_reference, lse_sets, "torch.logsumexp",
+              lambda x: torch.logsumexp(x, -1), lse_sets,
+              N * V * 4 + N * 4, 4 * N * V, 5)]
     res = {}
-    for name, (kern, plain, sets, lib, lsets, nbytes, ops_n) in \
-            cases.items():
-        reps = 20 if name == "layer_norm" else 5
+    for (name, what, kern, plain, sets, lib_name, lib, lsets, nbytes, ops_n,
+         reps) in cases:
         ms = device_ms(kern, sets, reps=reps, kernels_per_call=1)
         call_ms = wall_ms(kern, sets, reps=reps)
         plain_ms = wall_ms(plain, sets[:1], reps=2)
         library_ms = device_ms(lib, lsets, reps=reps)
         bound_ms, bound_by = bound(nbytes, ops_n, torch.float32)
-        res[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by}
-        what, lib_name = (("(4096, 768) bf16", "F.layer_norm")
-                          if name == "layer_norm" else
-                          ("(4096, 30522) float32", "torch.logsumexp"))
-        log(f"[fused] {name} {what}: kernel {ms:.4f} ms on the device "
-            f"({call_ms:.4f} ms per call back to back), plain "
+        r = {"ms": ms, "pct_of_bound": 100 * bound_ms / ms,
+             "call_ms": call_ms, "plain_ms": plain_ms,
+             "library_ms": library_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by}
+        earlier = previous_ms(name) if name not in res else ""
+        if name in res:
+            res[name]["n16384"] = r
+        else:
+            res[name] = r
+        log(f"[fused] {name} {what}: kernel {ms:.4f} ms on the device"
+            f"{earlier} ({r['pct_of_bound']:.2f} % of bound; "
+            f"{call_ms:.4f} ms per call back to back), plain "
             f"{plain_ms:.4f} ms per call, {lib_name} {library_ms:.4f} ms "
             f"on the device, bound {bound_ms:.5f} ms "
             f"({bound_by}: {nbytes} B, {ops_n} ops)")
@@ -1248,13 +1319,17 @@ def main() -> int:
             "max_abs_err_bf16": flash_worst[name, torch.bfloat16],
             **t[False],                  # the main path is not causal
             "causal": t[True]})
-    for name in ("layer_norm", "logsumexp"):
+    for name in FUSED_REPLACES:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mpi_tensorflow_torch/ops/csrc/fused.cu",
             "replaces": FUSED_REPLACES[name], "on_path": False,
             "launches": fused_launches[name],
-            "max_abs_err": fused_worst[name], **fused_timing[name]})
+            "max_abs_err": max(fused_worst[name, torch.float32],
+                               fused_worst[name, torch.bfloat16]),
+            "max_abs_err_fp32": fused_worst[name, torch.float32],
+            "max_abs_err_bf16": fused_worst[name, torch.bfloat16],
+            **fused_timing[name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

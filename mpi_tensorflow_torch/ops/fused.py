@@ -14,6 +14,10 @@ the port's keep PyTorch's.  Here:
   kernel on the current stream or raises; on a CPU tensor it runs the
   plain version.  Each has a ``launches`` count, raised by one at a
   launch and nowhere else.
+- ``layer_norm_route(x, scale, bias)`` — which of the LayerNorm's two
+  kernels a launch on these operands takes (the C entry point decides by
+  shape and alignment alone): ``"rows"``, one warp per row with the row
+  in registers, or ``"block"``, one CTA per row, the general path.
 - ``layer_norm_reference``, ``logsumexp_reference`` — the plain versions:
   float32 statistics (population variance of the centred row), the
   LayerNorm written back in x's dtype, the logsumexp as float32.
@@ -89,8 +93,10 @@ def _entries():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.layer_norm_fwd.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32,
                                    ctypes.c_float, ptr]
+    lib.layer_norm_rows_vecs.argtypes = [i32, ptr, ptr, ptr, ptr, i32]
     lib.logsumexp_fwd.argtypes = [i32, ptr, ptr, i32, i32, ptr]
-    for fn in (lib.layer_norm_fwd, lib.logsumexp_fwd):
+    for fn in (lib.layer_norm_fwd, lib.layer_norm_rows_vecs,
+               lib.logsumexp_fwd):
         fn.restype = ctypes.c_int
     return lib
 
@@ -122,6 +128,26 @@ def layer_norm_forward(x, scale, bias, eps: float = 1e-12):
                                float(eps)))
     layer_norm_forward.launches += 1
     return out
+
+
+def layer_norm_route(x, scale, bias) -> str:
+    """The kernel ``layer_norm_forward(x, scale, bias)`` launches:
+    ``"rows"`` (one warp per row; F a multiple of 16 bytes of x's dtype,
+    at most 2048 bf16 or 1024 float32 values, x, scale, bias and the
+    output 16-byte aligned) or ``"block"`` (every other call); ``"plain"``
+    for a CPU tensor."""
+    _check(x, scale, bias)
+    if x.device.type == "cpu":
+        return "plain"
+    # the operands as layer_norm_forward passes them: float32 scale and
+    # bias, and a fresh output
+    scale = scale.to(torch.float32).contiguous()
+    bias = bias.to(torch.float32).contiguous()
+    out = torch.empty_like(x)
+    vecs = _entries().layer_norm_rows_vecs(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), x.shape[-1])
+    return "rows" if vecs else "block"
 
 
 def online_logsumexp(x):

@@ -9,6 +9,10 @@ value comes from one compile.  On the port's side the same numpy inputs
 go through the kernel wrappers on CPU tensors (their plain versions) and
 the autograd functions.
 
+The kernel's fast path (one warp per row, ``layer_norm_rows_kernel``)
+is emulated step by step in float32 numpy, its order of the sums
+included, against the same references.
+
 Tolerances: float32 1e-5 absolute (the same sums in other orders), plus
 1e-6 relative for the logsumexp of rows of +-1e4; bfloat16 inputs keep
 float32 statistics on both sides, so the logsumexp keeps the float32
@@ -147,3 +151,85 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fused.layer_norm_forward(x.transpose(0, 1), scale, bias)
     with pytest.raises(ValueError, match="last axis"):
         fused.online_logsumexp(torch.zeros((3, 0)))
+
+
+def _warp_row_layer_norm(x, scale, bias, elems, two_pass=True, eps=1e-12):
+    """``layer_norm_rows_kernel`` of ``csrc/fused.cu`` in float32 numpy,
+    over rows x (N, F) of float32 values: lane l of a row's warp owns the
+    16-byte vectors j * 32 + l (``elems`` values each), sums its values
+    in order, and an xor butterfly over the 32 lanes gives every lane the
+    row's sum; then the mean, the centred squares from the same values
+    and a second butterfly (``two_pass``), or E[x^2] - mu^2 (one pass:
+    the cancellation the kernel avoids); y = xc * rsqrt(var + eps) *
+    scale + bias."""
+    f32 = np.float32
+    n, F = x.shape
+    nvec = F // elems
+    vecs = -(-nvec // 32)
+    xv = np.zeros((n, vecs * 32, elems), f32)
+    xv[:, :nvec] = x.reshape(n, nvec, elems)
+    xv = xv.reshape(n, vecs, 32, elems)
+    lane = np.arange(32)
+
+    def row_sum(term):
+        s = np.zeros((n, 32), f32)
+        for j in range(vecs):
+            live = j * 32 + lane < nvec      # masked lanes add nothing
+            for e in range(elems):
+                s = np.where(live, s + term(xv[:, j, :, e]), s)
+        for o in (16, 8, 4, 2, 1):
+            s = s + s[:, lane ^ o]
+        assert (s == s[:, :1]).all(), "the butterfly gives every lane one sum"
+        return s[:, :1]
+
+    mu = row_sum(lambda v: v) / f32(F)
+    if two_pass:
+        var = row_sum(lambda v: (v - mu) * (v - mu)) / f32(F)
+    else:
+        var = row_sum(lambda v: v * v) / f32(F) - mu * mu
+    inv = f32(1) / np.sqrt(var + f32(eps))
+    return (x - mu) * inv * scale + bias
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_warp_row_schedule_keeps_the_two_pass_statistics(dtype):
+    """The fast path's order of the sums, emulated, against the Pallas
+    kernel at SHAPE_LN (28 of 32 lanes masked in float32) and the plain
+    version at F = 768 (no lane masked) and 1000 (the last vector round
+    part masked); in float32 also on rows of 16 + randn, where the same
+    schedule with one-pass statistics misses the tolerance.  (At 64 +
+    randn two-pass sums in another order miss the file's 1e-5 as well:
+    the mean is itself a float32, and one ulp of 64 is 7.6e-6.)"""
+    tdt = getattr(torch, dtype)
+    elems = 16 // tdt.itemsize
+    tol = (1e-5, 0.0) if dtype == "float32" else (1e-2, 1e-2)
+
+    def emulated(x, scale, bias, two_pass=True):
+        xs = x.to(torch.float32).numpy().reshape(-1, x.shape[-1])
+        y = _warp_row_layer_norm(xs, scale, bias, elems, two_pass)
+        return torch.from_numpy(y.reshape(x.shape)).to(tdt)
+
+    x, scale, bias = _inputs()[:3]
+    _close(emulated(_t(x, dtype), scale, bias), _reference()["ln"][dtype],
+           *tol)
+    rng = np.random.default_rng(1)
+    for F in (768, 1000):
+        scale = (1.0 + 0.1 * rng.normal(size=F)).astype(np.float32)
+        bias = (0.1 * rng.normal(size=F)).astype(np.float32)
+        offsets = (1.0, 16.0) if dtype == "float32" else (1.0,)
+        for offset in offsets:
+            x = _t((3.0 if offset == 1.0 else 1.0) * rng.normal(size=(16, F))
+                   + offset, dtype)
+            want = fused.layer_norm_reference(x, _t(scale), _t(bias))
+            _close(emulated(x, scale, bias), want.float().numpy(), *tol)
+            if offset != 1.0:
+                with pytest.raises(AssertionError):
+                    _close(emulated(x, scale, bias, two_pass=False),
+                           want.float().numpy(), *tol)
+
+
+def test_layer_norm_route_is_the_plain_version_on_the_cpu():
+    x, scale, bias = (_t(a) for a in _inputs()[:3])
+    assert fused.layer_norm_route(x, scale, bias) == "plain"
+    with pytest.raises(ValueError, match="scale and bias"):
+        fused.layer_norm_route(x, scale[:-1], bias)
