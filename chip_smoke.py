@@ -84,7 +84,25 @@ fails:
    / ``torch.logsumexp`` (yardsticks only), the bound and the
    LayerNorm's earlier time.  No path runs these two kernels (the JAX
    package's models do not call them either), so their main-path
-   launches are 0.
+   launches are 0;
+10. the zero-flag CNN trainer (the reference's own job; no hand kernel
+   lies on it) — 10a: ``MnistCnn``, dropout 0, 20 train steps over the
+   first batches of the synthetic train split, float32 and bf16, each
+   step on the card from the CPU's state before it: the loss and the
+   gradient (the median over the steps of the largest relative
+   difference) within ``CNN_TOL`` of the CPU's, and a control at the
+   wrong precision (TF32 on; bf16 against float32) outside it; 10b:
+   ``cli.main(["--data-dir", "build/mnist"])`` as ``python -m
+   mpi_tensorflow_torch`` runs it (synthetic MNIST, 2 epochs of batch 64,
+   1562 steps, 32 trace lines at t = 50, 100, ..., 1550, 1561, the 10 000
+   test rows in 157 windows): the trace in the reference's format, a
+   finite loss, a final test error below 30 % and no higher than the
+   first trace point's, the card named in the result; images/sec, step
+   ms, MFU and the test-error history printed beside the card's name and
+   power limit; then one bf16 epoch the same way; 10c: every hand
+   kernel's launch count (paged, flash, fused) set to 0 before 10b and
+   still 0 after it; then ``python -m mpi_tensorflow_torch.bench --mode
+   train`` at fp32 and bf16, each line printed.
 
 Prints one ``kernels`` JSON line, then the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a card it
@@ -93,9 +111,13 @@ prints no result and exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -1238,6 +1260,304 @@ def fused_counts() -> dict:
             "logsumexp": fused.online_logsumexp.launches}
 
 
+# --------------------------------------------------------------- phase 10
+
+CNN_DATA_DIR = "build/mnist"     # git-ignored; the synthetic set's home
+# 10a: each of CNN_STEPS train steps on the card from the CPU's state
+# before it, against the CPU's step: the loss (the largest difference)
+# and the gradient the step adds to the same velocity (the largest
+# relative difference over the parameters, its median over the steps).
+# One step at a time, and the median, since a difference of one rounding
+# can flip a ReLU or a max-pool choice: the free-running trajectory
+# stays within ~1e-7 on some runs and parts far past 1e-4 on others,
+# and a step with a flip moves a gradient by up to ~5e-4.  float32 with
+# TF32 off on the card: cuDNN and the CPU sum in another order.  bf16 on
+# both: the same rounding points, a sum in another order may round a
+# bf16 value the other way.  The control at the wrong precision must
+# miss each bound: the card's float32 with TF32 on, and its bf16 step
+# against the CPU's float32 one.
+CNN_TOL = {"fp32": {"loss": 1e-5, "grad": 1e-5},
+           "bf16": {"loss": 1e-3, "grad": 1e-3}}
+CNN_STEPS = 20
+TRACE_LINE = re.compile(r"0  process at  (\d+) with test error: "
+                        r"(\d+\.\d)%")
+
+
+class _Tee(io.StringIO):
+    """A copy of what is written, passed on to ``out``."""
+
+    def __init__(self, out):
+        super().__init__()
+        self._out = out
+
+    def write(self, text):
+        self._out.write(text)
+        return super().write(text)
+
+
+def hand_kernel_counts() -> dict:
+    """The launch counts of every hand kernel of the port."""
+    from mpi_tensorflow_torch.ops import paged_attention_kernel as pk
+
+    return {"paged_attention": pk.paged_attention_kernel.launches,
+            **flash_counts(), **fused_counts()}
+
+
+def set_hand_kernel_counts(counts: dict) -> None:
+    from mpi_tensorflow_torch.ops import fused
+    from mpi_tensorflow_torch.ops import paged_attention_kernel as pk
+
+    pk.paged_attention_kernel.launches = counts["paged_attention"]
+    set_flash_counts(counts)
+    fused.layer_norm_forward.launches = counts["layer_norm"]
+    fused.online_logsumexp.launches = counts["logsumexp"]
+
+
+def cnn_model_step(params, velocity, count, batch, dev, dtype,
+                   tf32: bool = False):
+    """One train step of ``MnistCnn`` (dropout 0) in compute dtype
+    ``dtype`` on ``dev`` from parameters ``params``, velocity
+    ``velocity`` and step counter ``count``, TF32 as asked: ``(loss,
+    parameters, velocity)`` after it, on the CPU."""
+    from mpi_tensorflow_torch.config import Config
+    from mpi_tensorflow_torch.models import cnn
+    from mpi_tensorflow_torch.train import optimizer, step
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        model = cnn.MnistCnn(dict(zip(cnn.NAMES, params)), dropout_rate=0.0,
+                             compute_dtype=dtype).to(dev)
+        state = step.init_state(model)
+        state.opt = optimizer.MomentumState(
+            [v.to(dev, copy=True) for v in velocity], count)
+        train_step = step.make_train_step(model, Config(dropout_rate=0.0),
+                                          1, decay_steps=50000)
+        x, y = batch
+        state, m = train_step(state, torch.from_numpy(x).to(dev),
+                              torch.from_numpy(y).to(dev))
+        return (float(m["loss"]),
+                [p.detach().cpu() for p in model.param_tree().values()],
+                [v.cpu() for v in state.opt.velocity])
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def cnn_trajectory(params, batches, dtype, dev=torch.device("cpu")
+                   ) -> list:
+    """``CNN_STEPS`` steps in ``dtype`` on ``dev`` (the CPU unless
+    asked) from ``params``: the state ``(parameters, velocity,
+    counter)`` before each step and ``(loss, parameters, velocity)``
+    after it."""
+    from mpi_tensorflow_torch.models import cnn
+
+    p = [torch.as_tensor(params[k]) for k in cnn.NAMES]
+    v = [torch.zeros_like(t) for t in p]
+    out = []
+    for t, batch in enumerate(batches):
+        before = (p, v, np.float32(t))
+        after = cnn_model_step(p, v, np.float32(t), batch, dev, dtype)
+        out.append((before, after))
+        _, p, v = after
+    return out
+
+
+def cnn_cross_check(dev) -> dict:
+    """10a: ``MnistCnn`` from one set of parameters, dropout 0, over the
+    first ``CNN_STEPS`` batches of the synthetic train split in float32
+    and in bf16: each step on the card from the CPU's state before it,
+    its loss and its gradient (the velocity it leaves; the median over
+    the steps) within ``CNN_TOL`` of the CPU's at the same precision,
+    and each bound missed by its control (TF32 on; the bf16 step
+    against float32)."""
+    from mpi_tensorflow_torch.data import mnist
+    from mpi_tensorflow_torch.models import cnn
+
+    mnist.ensure_data(CNN_DATA_DIR)
+    splits = mnist.load_splits(CNN_DATA_DIR)
+    b = 64
+    batches = [(splits.train_data[i * b:(i + 1) * b],
+                splits.train_labels[i * b:(i + 1) * b])
+               for i in range(CNN_STEPS)]
+    params = cnn.init_params(torch.Generator().manual_seed(3))
+    f32, bf16 = torch.float32, torch.bfloat16
+    cpu = {"fp32": cnn_trajectory(params, batches, f32),
+           "bf16": cnn_trajectory(params, batches, bf16)}
+
+    def apart(ref, dtype, tf32=False):
+        """The card's steps in ``dtype`` from the CPU trajectory
+        ``ref``'s states: the largest loss difference, and the median
+        and the largest over the steps of a step's largest relative
+        velocity difference."""
+        loss_err, grad_err = 0.0, []
+        for (p, v, count), (loss, _, vel) in cpu[ref]:
+            got, _, got_v = cnn_model_step(p, v, count, batches[int(count)],
+                                           dev, dtype, tf32)
+            loss_err = max(loss_err, abs(got - loss))
+            grad_err.append(max(float((a - w).norm() / w.norm())
+                                for a, w in zip(got_v, vel)))
+        return {"loss": loss_err, "grad": float(np.median(grad_err)),
+                "grad_max": max(grad_err)}
+
+    # not gated: the free-running trajectories, card against CPU
+    free = {}
+    for prec, dtype in (("fp32", f32), ("bf16", bf16)):
+        card = cnn_trajectory(params, batches, dtype, dev)
+        free[prec] = max(float((a - w).abs().max()) for a, w in zip(
+            card[-1][1][1], cpu[prec][-1][1][1]))
+    log(f"[cnn cross-check] free-running {CNN_STEPS} steps, card vs CPU "
+        f"(not gated): parameters part by {free['fp32']:.3e} (fp32), "
+        f"{free['bf16']:.3e} (bf16)")
+    out = {"free_running_param_diff": free}
+    for prec, dtype, control, ctl_args in (
+            ("fp32", f32, "card fp32 with TF32 on", ("fp32", f32, True)),
+            ("bf16", bf16, "card bf16 from the CPU's fp32 steps",
+             ("fp32", bf16))):
+        tol = CNN_TOL[prec]
+        got, ctl = apart(prec, dtype), apart(*ctl_args)
+        losses = [after[0] for _, after in cpu[prec]]
+        moved = min(float((a - torch.as_tensor(params[k])).abs().max())
+                    for k, a in zip(cnn.NAMES, cpu[prec][-1][1][1]))
+        log(f"[cnn cross-check] {prec}, {CNN_STEPS} steps of batch {b}, "
+            f"each from the CPU's state: CPU losses {losses[0]:.6f} -> "
+            f"{losses[-1]:.6f}; card vs CPU max loss diff "
+            f"{got['loss']:.3e}, gradient rel. diff median "
+            f"{got['grad']:.3e} (max {got['grad_max']:.3e}) (tolerance "
+            f"{tol}); control, {control}: loss {ctl['loss']:.3e}, "
+            f"gradient median {ctl['grad']:.3e} (max "
+            f"{ctl['grad_max']:.3e})")
+        if not np.isfinite(losses).all() or moved == 0.0 \
+                or any(got[k] > tol[k] for k in tol):
+            raise AssertionError(
+                f"CNN {prec} card vs CPU: {got} (tolerance {tol}); least "
+                f"parameter move {moved}")
+        if any(ctl[k] <= tol[k] for k in tol):
+            raise AssertionError(
+                f"CNN {prec}: the control ({control}) reads {ctl}, inside "
+                f"the tolerance {tol}: the bound does not tell the "
+                f"precisions apart")
+        out[prec] = {"loss_err": got["loss"], "grad_rel_err": got["grad"],
+                     "grad_rel_err_max": got["grad_max"], "tol": tol,
+                     "control": control, "control_loss_err": ctl["loss"],
+                     "control_grad_rel_err": ctl["grad"],
+                     "control_grad_rel_err_max": ctl["grad_max"]}
+    return out
+
+
+def cnn_zero_flag(dev, card: str, argv, want_steps: int,
+                  want_trace: list) -> dict:
+    """10b: ``cli.main(argv)`` as ``python -m mpi_tensorflow_torch`` runs
+    it, on the card: the steps, the trace lines in the reference's
+    format, a finite loss, a final test error below 30 % and no higher
+    than the first trace point's, and the card named in the result.  The
+    result is read from the ``loop.train`` call ``cli.main`` makes."""
+    from mpi_tensorflow_torch import cli
+    from mpi_tensorflow_torch.data import mnist
+    from mpi_tensorflow_torch.train import loop
+    from mpi_tensorflow_torch.utils import flops
+
+    results = []
+    real_train = loop.train
+
+    def recorded_train(*a, **kw):
+        results.append(real_train(*a, **kw))
+        return results[-1]
+
+    out = _Tee(sys.stdout)
+    loop.train = recorded_train
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    finally:
+        loop.train = real_train
+    wall = time.perf_counter() - t0
+    (res,) = results
+    lines = out.getvalue().splitlines()
+    trace = [TRACE_LINE.fullmatch(ln) for ln in lines]
+    trace = [(int(m[1]), float(m[2])) for m in trace if m]
+    test_n = mnist.load_splits(CNN_DATA_DIR).test_labels.shape[0]
+    windows = -(-test_n // 64)      # eval_in_batches: full ones + the tail
+    errs = [e for _, e in res.history]
+    problems = []
+    if rc != 0 or res.device != torch.cuda.get_device_name(dev):
+        problems.append(f"rc {rc}, device {res.device!r}")
+    if res.num_steps != want_steps or [t for t, _ in trace] != want_trace \
+            or [t for t, _ in res.history] != want_trace:
+        problems.append(f"{res.num_steps} steps, trace steps "
+                        f"{[t for t, _ in trace]}")
+    if not lines or not any(ln.startswith("[timing]") for ln in lines):
+        problems.append("no [timing] line")
+    if not np.isfinite(res.final_loss) or not res.final_test_error < 30.0 \
+            or res.final_test_error > errs[0]:
+        problems.append(f"loss {res.final_loss}, errors {errs}")
+    if problems:
+        raise AssertionError(f"zero-flag run {argv}: {problems}")
+    config = cli.config_from_args(cli.build_parser().parse_args(argv))
+    step_flops = flops.image_train_flops(config.model, config.batch_size)
+    summary = {
+        "argv": argv, "card": card, "device": res.device,
+        "precision": config.precision, "steps": res.num_steps,
+        "trace_lines": len(trace), "test_rows": test_n,
+        "eval_windows": windows,
+        "images_per_sec": res.images_per_sec,
+        "step_ms": res.step_time_seconds * 1e3,
+        "mfu_pct": 100.0 * flops.mfu(step_flops, res.step_time_seconds,
+                                     config.precision),
+        "peak_tflops": flops.PEAK_TFLOPS[config.precision],
+        "final_loss": res.final_loss, "history": res.history,
+        "wall_s": wall}
+    log("[cnn] " + json.dumps(summary))
+    return summary
+
+
+def cnn_bench(precision: str) -> dict:
+    """``python -m mpi_tensorflow_torch.bench --mode train`` in its own
+    process; its JSON line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, "-m", "mpi_tensorflow_torch.bench", "--mode",
+         "train", "--precision", precision], cwd=root, check=True,
+        capture_output=True, text=True, timeout=300).stdout
+    line = out.strip().splitlines()[-1]
+    res = json.loads(line)
+    if not (res["images_per_sec"] > 0 and np.isfinite(res["final_loss"])):
+        raise AssertionError(f"bench {precision}: {line}")
+    log(f"[cnn bench] {line}")
+    return res
+
+
+def cnn_phase(dev, card: str) -> dict:
+    """Phase 10: the zero-flag CNN trainer.  10a holds the card's float32
+    training against the CPU's; 10b runs ``python -m
+    mpi_tensorflow_torch``'s zero-flag path (2 epochs, 1562 steps, 32
+    trace lines) and one bf16 epoch; 10c checks that no hand kernel
+    launched on either run; then the bench at fp32 and bf16."""
+    cross = cnn_cross_check(dev)
+    saved = hand_kernel_counts()
+    set_hand_kernel_counts({k: 0 for k in saved})
+    every50 = lambda n: [t for t in range(1, n) if t % 50 == 0] + [n - 1]
+    runs = {
+        "fp32": cnn_zero_flag(dev, card, ["--data-dir", CNN_DATA_DIR],
+                              1562, every50(1562)),
+        "bf16_one_epoch": cnn_zero_flag(
+            dev, card, ["--data-dir", CNN_DATA_DIR, "--precision", "bf16",
+                        "--epochs", "1"], 781, every50(781)),
+    }
+    torch.cuda.synchronize(dev)
+    moved = {k: v for k, v in hand_kernel_counts().items() if v}
+    set_hand_kernel_counts(saved)
+    if moved:
+        raise AssertionError(f"the CNN path launched hand kernels: {moved}")
+    log("[cnn] no hand kernel launched on the CNN path (paged, flash and "
+        "fused counts all 0)")
+    bench = {p: cnn_bench(p) for p in ("fp32", "bf16")}
+    return {"cross_check": cross, "runs": runs, "bench": bench}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda reports no card; nothing was run",
@@ -1277,6 +1597,7 @@ def main() -> int:
 
     fused.layer_norm_forward.launches = fused_launches["layer_norm"]
     fused.online_logsumexp.launches = fused_launches["logsumexp"]
+    cnn_phase(dev, card)
     paged_src = "mpi_tensorflow_torch/ops/csrc/paged_attention.cu"
     paged_replaces = "mpi_tensorflow_tpu/ops/paged_attention_kernel.py:90"
     kernels = [{

@@ -1,0 +1,123 @@
+"""The port's benchmark: ``python -m mpi_tensorflow_torch.bench``.
+
+Counterpart of the one-step arm of ``bench.py --mode train`` (the JAX
+package's bench): the train step of an image model at a per-card batch,
+on random-normal x 0.3 batches with random labels in 4 rotating banks
+(so steps do not alias one input), the LR schedule's ``decay_steps`` at
+50000, dropout on.  ``--warmup`` steps run first and are not timed; the
+card is synchronised before and after the ``--steps`` timed steps.
+Prints one JSON line: images/sec (and per card), step ms, model-FLOP
+utilisation against the card's peak for the precision
+(``utils/flops.py``), and the card's name and power limit.
+
+    python -m mpi_tensorflow_torch.bench --mode train
+    python -m mpi_tensorflow_torch.bench --mode train --precision bf16
+    python -m mpi_tensorflow_torch.bench --mode train --device cpu \\
+        --steps 20 --warmup 2
+
+The reference's scanned arm (K steps per dispatch), and the
+``allreduce`` and ``serving`` modes, are not ported yet (ROADMAP Queue 1
+items 7-10 slice B and 6).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from mpi_tensorflow_torch.config import Config
+from mpi_tensorflow_torch.train import loop, step as step_lib
+from mpi_tensorflow_torch.train.gspmd import step_generator
+from mpi_tensorflow_torch.utils import flops
+from mpi_tensorflow_torch.utils.device import (card_line, device_name,
+                                               resolve_device)
+
+N_BANKS = 4
+
+
+def measure_train(model_name: str = "mnist_cnn", batch_size: int = 64,
+                  precision: str = "fp32", steps: int = 1000,
+                  warmup: int = 50, device="cuda") -> dict:
+    """Mean time of one train step after ``warmup`` untimed ones."""
+    cfg = Config(model=model_name, batch_size=batch_size,
+                 precision=precision)
+    model = loop.build_model(cfg)
+    dev = resolve_device(device)
+    model = model.to(dev)
+    state = step_lib.init_state(model)
+    train_step = step_lib.make_train_step(model, cfg, 1, decay_steps=50000)
+    rng = np.random.default_rng(0)
+    shape = (batch_size, cfg.image_size, cfg.image_size, cfg.num_channels)
+    batches = [torch.from_numpy(
+        (rng.normal(size=shape) * 0.3).astype(np.float32)).to(dev)
+        for _ in range(N_BANKS)]
+    labels = [torch.from_numpy(rng.integers(
+        0, cfg.num_classes, size=batch_size).astype(np.int64)).to(dev)
+        for _ in range(N_BANKS)]
+
+    def run(i):
+        return train_step(state, batches[i % N_BANKS], labels[i % N_BANKS],
+                          step_generator(cfg.seed + 1, i, dev))[1]["loss"]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for i in range(warmup):
+        run(i)
+    sync()
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + steps):
+        loss = run(i)
+    sync()
+    sec = (time.perf_counter() - t0) / steps
+    step_flops = flops.image_train_flops(model_name, batch_size)
+    mfu = (flops.mfu(step_flops, sec, precision)
+           if step_flops and dev.type == "cuda" else None)
+    return {
+        "mode": "train", "model": model_name,
+        "images_per_sec": batch_size / sec,
+        "images_per_sec_per_chip": batch_size / sec,
+        "step_time_ms": sec * 1e3,
+        "model_flops_per_step": step_flops,
+        "mfu_pct": None if mfu is None else 100.0 * mfu,
+        "num_devices": 1, "batch_size_per_chip": batch_size,
+        "precision": precision, "steps": steps, "warmup": warmup,
+        "final_loss": float(loss), "device": device_name(dev),
+        "card": card_line(dev),
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="mpi_tensorflow_torch.bench")
+    ap.add_argument("--mode", choices=["train", "allreduce", "serving"],
+                    default="train")
+    ap.add_argument("--model", default="mnist_cnn",
+                    choices=["mnist_cnn", "resnet20", "resnet50", "vit"])
+    ap.add_argument("--batch-size", type=int, default=64,
+                    help="per-card batch")
+    ap.add_argument("--precision", choices=["fp32", "bf16"], default="fp32")
+    ap.add_argument("--steps", type=int, default=1000,
+                    help="timed train steps")
+    ap.add_argument("--warmup", type=int, default=50,
+                    help="untimed steps before the timed ones")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; cuda without a card fails")
+    args = ap.parse_args(argv)
+    if args.mode != "train":
+        item = "7-10, slice B" if args.mode == "allreduce" else "6"
+        raise NotImplementedError(f"--mode {args.mode} is not ported yet: "
+                                  f"ROADMAP Queue 1 item {item}")
+    print(json.dumps(measure_train(args.model, args.batch_size,
+                                   args.precision, args.steps, args.warmup,
+                                   args.device)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

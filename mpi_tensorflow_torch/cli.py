@@ -1,11 +1,16 @@
 """Command-line entry point of the trainer: ``python -m mpi_tensorflow_torch``.
 
 Counterpart of ``mpi_tensorflow_tpu/cli.py`` with the flags the ported
-training path reads, the reference's defaults, plus ``--device``.  The
-zero-flag default model is the reference's ``mnist_cnn``, whose path is
-not ported yet and raises; the transformer path runs with
-``--model bert_base --dataset mlm_synthetic``:
+training paths read, the reference's defaults, plus ``--device``.  With
+no flags it trains the reference CNN (``mnist_cnn``) for 2 epochs at
+batch 64 on MNIST from ``--data-dir`` (the synthetic set when the
+directory holds no MNIST files), sync ``psum``, on the card, through
+``train.loop.train``; the transformer path runs with ``--model bert_base
+--dataset mlm_synthetic``:
 
+    python -m mpi_tensorflow_torch                     # on the card
+    python -m mpi_tensorflow_torch --device cpu --epochs 1 \\
+        --data-dir /tmp/mnist
     python -m mpi_tensorflow_torch --model bert_base \\
         --dataset mlm_synthetic --precision bf16 --seq-len 4096 \\
         --batch-size 4                                 # on the card
@@ -13,11 +18,14 @@ not ported yet and raises; the transformer path runs with
         --dataset mlm_synthetic --device cpu --tiny --epochs 1 \\
         --batch-size 4 --seq-len 32 --train-n 64 --test-n 16 --log-every 4
 
-``--tiny``, ``--seq-len``, ``--train-n`` and ``--test-n`` have no
-counterpart in the reference's CLI: they size a run (BERT_TINY geometry,
-``train_mlm``'s sequence length and split sizes).  A ``--seq-len`` past
-the geometry's 512 positions raises ``max_positions`` to it; at
-``flash_min_seq`` (4096) and above, the card runs the flash kernels.
+``--fused-steps`` defaults to ``--log-every`` under psum, as in the
+reference.  ``--tiny``, ``--seq-len``, ``--train-n`` and ``--test-n``
+have no counterpart in the reference's CLI: they size a transformer run
+(BERT_TINY geometry, ``train_mlm``'s sequence length and split sizes).
+A ``--seq-len`` past the geometry's 512 positions raises
+``max_positions`` to it; at ``flash_min_seq`` (4096) and above, the card
+runs the flash kernels.  Values whose path is not ported yet raise
+through ``Config``, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -39,8 +47,42 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the reference's `iteration` (mpipy.py:18)")
     p.add_argument("--batch-size", type=int, default=d.batch_size,
                    help="per-device batch size (mpipy.py:20)")
+    p.add_argument("--image-size", type=int, default=d.image_size)
+    p.add_argument("--num-classes", type=int, default=d.num_classes,
+                   help="the reference's `num_channel` (mpipy.py:21)")
+    p.add_argument("--base-lr", type=float, default=d.base_lr)
+    p.add_argument("--lr-decay", type=float, default=d.lr_decay)
+    p.add_argument("--momentum", type=float, default=d.momentum)
+    p.add_argument("--weight-decay", type=float, default=d.weight_decay)
     p.add_argument("--log-every", type=int, default=d.log_every)
+    p.add_argument("--early-stop-patience", type=int,
+                   default=d.early_stop_patience,
+                   help="stop when the validation error has not improved "
+                        "for N trace points (0 = off)")
+    p.add_argument("--sync", choices=["psum", "avg50"], default=d.sync,
+                   help="psum: per-step gradient mean (avg50: not ported "
+                        "yet)")
     p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--data-dir", default=d.data_dir,
+                   help="the four MNIST IDX files; written synthetic when "
+                        "absent")
+    p.add_argument("--mesh", default=None,
+                   help="mesh spec, e.g. 'data=1'; a data axis over "
+                        "processes is not ported yet")
+    p.add_argument("--fused-steps", type=int, default=None,
+                   help="train steps per window (one upload each). "
+                        "Default: --log-every for psum, 1 for avg50")
+    p.add_argument("--prefetch", choices=["auto", "native", "thread", "off"],
+                   default=d.prefetch,
+                   help="accepted for the reference's CLI; the port "
+                        "assembles each window inline (native: not "
+                        "ported yet)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="not ported yet (ROADMAP Queue 1 item 15)")
+    p.add_argument("--resume", action="store_true",
+                   help="not ported yet (ROADMAP Queue 1 item 15)")
+    p.add_argument("--metrics-dir", default=None,
+                   help="not ported yet (ROADMAP Queue 1 item 15)")
     p.add_argument("--model", default=d.model,
                    choices=["mnist_cnn", "resnet20", "resnet50", "vit",
                             *TRANSFORMER_MODELS])
@@ -68,21 +110,42 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def parse_mesh(spec: str | None):
+    """``"data=4,model=2"`` -> ``{"data": 4, "model": 2}``."""
+    if spec is None:
+        return None
+    out = {}
+    for part in spec.split(","):
+        k, v = part.split("=")
+        out[k.strip()] = int(v)
+    return out
+
+
 def config_from_args(args) -> Config:
-    return Config(epochs=args.epochs, batch_size=args.batch_size,
-                  log_every=args.log_every, seed=args.seed,
-                  model=args.model, dataset=args.dataset,
-                  precision=args.precision, optimizer=args.optimizer)
+    return Config(
+        epochs=args.epochs, image_size=args.image_size,
+        batch_size=args.batch_size, num_classes=args.num_classes,
+        base_lr=args.base_lr, lr_decay=args.lr_decay,
+        momentum=args.momentum, weight_decay=args.weight_decay,
+        log_every=args.log_every,
+        early_stop_patience=args.early_stop_patience, sync=args.sync,
+        seed=args.seed, data_dir=args.data_dir, model=args.model,
+        dataset=args.dataset, mesh_shape=parse_mesh(args.mesh),
+        checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+        metrics_dir=args.metrics_dir, precision=args.precision,
+        optimizer=args.optimizer, prefetch=args.prefetch,
+        fused_steps=(args.fused_steps if args.fused_steps is not None
+                     else (args.log_every if args.sync == "psum" else 1)))
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     config = config_from_args(args)
     if config.model not in TRANSFORMER_MODELS:
-        raise NotImplementedError(
-            f"model {config.model!r} is not ported yet (ROADMAP Queue 1 "
-            f"items 7-10 for mnist_cnn, item 14 for the other image "
-            f"families); the port trains --model bert_base")
+        from mpi_tensorflow_torch.train import loop
+
+        loop.train(config, device=args.device)
+        return 0
     from mpi_tensorflow_torch.models import bert
     from mpi_tensorflow_torch.train import mlm_loop
 

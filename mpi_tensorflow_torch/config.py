@@ -1,9 +1,12 @@
 """Run configuration — the fields the ported paths read.
 
-Counterpart of ``mpi_tensorflow_tpu/config.py``: the training fields
-``train.mlm_loop.train_mlm`` and ``cli`` read, the precision knob and its
-compute dtype, and the ``serve_*`` pool, kernel and fault-policy knobs
-``serving.engine.ServeConfig.from_config`` bridges to the engine.
+Counterpart of ``mpi_tensorflow_tpu/config.py``: the reference MPI
+script's knobs and the image-family fields ``train.loop.train`` reads
+(the CNN, its momentum optimizer and staircase decay, the trace and
+early-stop cadence, the windowed loop), the training fields
+``train.mlm_loop.train_mlm`` and ``cli`` read, the precision knob and
+its compute dtype, and the ``serve_*`` pool, kernel and fault-policy
+knobs ``serving.engine.ServeConfig.from_config`` bridges to the engine.
 Defaults equal the reference's.  A value whose path is not ported yet
 raises at construction and names its ROADMAP item.
 """
@@ -20,11 +23,39 @@ import torch
 class Config:
     # --- training (the reference's defaults, mpipy.py:18-21) ---
     epochs: int = 2               # ``iteration`` at mpipy.py:18
-    batch_size: int = 64          # per-device batch (one card: global)
+    image_size: int = 28
+    batch_size: int = 64          # per-shard batch; the global batch is
+                                  # batch_size x shards
+    num_classes: int = 10         # the reference's misnamed ``num_channel``
     log_every: int = 50           # trace and held-out eval cadence
     seed: int = 1                 # the reference seeds everything with 1
     model: str = "mnist_cnn"      # the trainer's model family
     dataset: str = "mnist"
+    data_dir: str = "./data"      # the four MNIST IDX files (or, when
+                                  # absent, the synthetic set written there)
+
+    # --- image family: optimizer, schedule, loop ---
+    base_lr: float = 0.01         # staircase exponential decay of the LR,
+    lr_decay: float = 0.95        # once per local epoch
+    momentum: float = 0.9         # TF MomentumOptimizer
+    weight_decay: float = 5e-4    # L2 on the fc weights and biases
+    dropout_rate: float = 0.5     # after fc1, in training only
+    early_stop_patience: int = 0  # >0: stop when the validation error has
+                                  # not improved for N trace points
+    sync: str = "psum"            # per-step gradient mean over the shards;
+                                  # "avg50" (periodic parameter averaging)
+                                  # is not ported yet
+    fused_steps: int = 1          # steps per window of the loop (batches
+                                  # uploaded once per window); the CLI
+                                  # defaults it to --log-every for psum
+    prefetch: str = "auto"        # the reference's window assembly knob;
+                                  # the port assembles inline whatever
+                                  # it says ("native" is not ported yet)
+    mesh_shape: Optional[dict] = None  # {"data": n}; one process runs
+                                       # data=1 only
+    checkpoint_dir: Optional[str] = None  # not ported yet (item 15)
+    resume: bool = False
+    metrics_dir: Optional[str] = None
     optimizer: str = "adamw"      # transformer-family optimizer
     remat: bool = False           # recompute layer activations in backward
     grad_accum: int = 1           # microbatches per optimizer step
@@ -70,6 +101,22 @@ class Config:
              "12 (zero1/fsdp over NCCL)"),
             (self.text_file is not None, "text_file",
              "13 (corpus data)"),
+            (self.sync == "avg50", "sync='avg50'",
+             "7-10, slice B (periodic parameter averaging)"),
+            (self._mesh_axis("data") > 1,
+             f"mesh_shape={self.mesh_shape} (a data axis in one process)",
+             "7-10, slice B (the data axis over torch.distributed)"),
+            (any(v > 1 for k, v in (self.mesh_shape or {}).items()
+                 if k != "data"),
+             f"mesh_shape={self.mesh_shape}", "14 (model parallelism)"),
+            (self.checkpoint_dir is not None or self.resume,
+             "checkpoint_dir/resume", "15 (checkpointing)"),
+            (self.metrics_dir is not None, "metrics_dir",
+             "15 (the metrics sink)"),
+            (self.prefetch == "native", "prefetch='native'",
+             "15 (the C++ window worker)"),
+            (self.dataset in ("cifar10", "imagenet_synthetic"),
+             f"dataset={self.dataset!r}", "14a (the ResNet datasets)"),
         )
         for bad, what, item in not_ported:
             if bad:
@@ -77,6 +124,18 @@ class Config:
                     f"{what} is not ported yet: ROADMAP Queue 1 item {item}")
         if self.optimizer not in ("adamw", "lamb"):
             raise ValueError(f"unknown optimizer {self.optimizer!r}")
+        if self.sync not in ("psum", "avg50"):
+            raise ValueError(f"unknown sync mode {self.sync!r}")
+        if self.prefetch not in ("auto", "native", "thread", "off"):
+            raise ValueError(f"unknown prefetch mode {self.prefetch!r}")
+
+    def _mesh_axis(self, name: str) -> int:
+        return int((self.mesh_shape or {}).get(name, 1))
+
+    @property
+    def num_channels(self) -> int:
+        """Input channels (1 for MNIST)."""
+        return 1
 
     @property
     def compute_dtype(self) -> torch.dtype:

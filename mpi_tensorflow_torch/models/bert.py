@@ -2,7 +2,7 @@
 
 Counterpart of ``mpi_tensorflow_tpu/models/bert.py``: ``BertConfig``
 with its ``BERT_BASE`` and ``BERT_TINY`` presets, ``ce_capacity``,
-``dropout_mask``, the seeded parameter init, the layer math
+the seeded parameter init, the layer math
 (``qkv_proj``, ``attn_out_proj``, ``gelu_mlp``, the LayerNorm, ``rope``
 and the LM head's ``head_hidden``) as ``nn.Module``s, and ``BertMlm``
 with ``encode``, ``head_hidden``, ``apply`` and ``loss`` for training.
@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mpi_tensorflow_torch.models.base import dropout_mask
 from mpi_tensorflow_torch.ops import mlm_head
 from mpi_tensorflow_torch.ops.flash_attention import flash_attention
 from mpi_tensorflow_torch.parallel.ring import dense_attention
@@ -137,16 +138,6 @@ def ce_capacity(cfg: BertConfig, S: int) -> int:
     """Packed-buffer width for the masked-position head: ``ce_capacity_frac
     * S`` rounded up to a multiple of 8, floored at 8, capped at S."""
     return min(S, max(8, -(-int(cfg.ce_capacity_frac * S) // 8) * 8))
-
-
-def dropout_mask(x, rate: float, generator: torch.Generator):
-    """Inverted dropout: zero with probability ``rate``, scale survivors
-    by 1/keep.  The mask is drawn from ``generator`` (on x's device):
-    torch cannot reproduce the reference's keyed ``jax.random`` masks, so
-    the two agree in distribution, not bit for bit."""
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, 0.0)
 
 
 def _param(t, dtype: torch.dtype, trainable: bool = False) -> nn.Parameter:

@@ -10,7 +10,10 @@ dicts, ``layers`` stays a list.
   params)``) -> float32 CPU tensors, which ``models.gpt.CausalLm(cfg,
   tree)`` and ``models.bert.BertMlm(cfg, tree)`` consume;
 - ``params_to_numpy``: a port tree (``BertMlm.param_tree()``) -> float32
-  numpy leaves, to compare with a JAX model's parameters.
+  numpy leaves, to compare with a JAX model's parameters;
+- ``cnn_params_from_jax`` / ``cnn_params_to_numpy``: the same for the
+  MNIST CNN, whose conv weights are the one layout that changes (the
+  reference's HWIO is the port's OIHW).
 """
 
 from __future__ import annotations
@@ -38,3 +41,32 @@ def params_to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
     return tree.detach().to("cpu", torch.float32).numpy().copy()
+
+
+# the CNN's conv weights: the reference's HWIO <-> the port's OIHW
+_HWIO_TO_OIHW = (3, 2, 0, 1)
+_OIHW_TO_HWIO = (2, 3, 1, 0)
+
+
+def cnn_params_from_jax(tree: dict) -> dict:
+    """The reference ``MnistCnn``'s numpy leaves -> the port's float32
+    tensors: ``conv*_w`` HWIO -> OIHW, every other leaf as it is."""
+    out = {}
+    for k, v in tree.items():
+        arr = np.asarray(v, dtype=np.float32)
+        if k.startswith("conv") and k.endswith("_w"):
+            arr = arr.transpose(_HWIO_TO_OIHW)
+        out[k] = torch.from_numpy(np.ascontiguousarray(arr).copy())
+    return out
+
+
+def cnn_params_to_numpy(tree: dict) -> dict:
+    """The inverse of ``cnn_params_from_jax``: port tensors (on any
+    device) -> the reference's float32 numpy layout (conv weights
+    HWIO)."""
+    out = {}
+    for k, v in params_to_numpy(tree).items():
+        if k.startswith("conv") and k.endswith("_w"):
+            v = np.ascontiguousarray(v.transpose(_OIHW_TO_HWIO))
+        out[k] = v
+    return out

@@ -1,0 +1,225 @@
+"""The image-family host loop: ``python -m mpi_tensorflow_torch``'s
+zero-flag path (the reference MPI script's ``Cnn.run_process``).
+
+Counterpart of ``mpi_tensorflow_tpu/train/loop.py`` in ``psum`` mode,
+with ``num_shards`` shards in one process in place of the JAX mesh's
+``data`` axis:
+
+- per-shard contiguous layout (shard i owns train rows ``[i*local_n,
+  (i+1)*local_n)``), ``num_steps = epochs * local_n // batch_size``,
+  and one decay of the LR per local epoch;
+- sequential wraparound batching per shard, no shuffling: the global
+  batch of each step is every shard's window concatenated
+  (``data/prefetch.assemble_window``);
+- a trace point at ``(t > 0 and t % log_every == 0) or t ==
+  num_steps - 1``: the test set is evaluated (off the timed span) and
+  one line per shard printed in the reference's format;
+- windows of K = ``fused_steps + 1`` steps (1 when ``fused_steps`` is
+  1) ending on the trace cadence (``window_schedule``), assembled
+  inline, uploaded once and stepped through one step after another.
+  The reference runs each window as one scanned dispatch; a CUDA graph
+  per window would be the counterpart and is not built yet (nor is the
+  reference's background assembly: ``prefetch`` is accepted and has no
+  effect until a window costs the host little enough to hide it);
+- early stopping on the validation split when ``early_stop_patience >
+  0``.
+
+Timing: ``StepTimer(warmup_steps=1)`` with the card synchronised at
+every trace point, so each span is the device work it queued; the first
+span (the first window) is skipped.  Batches go to
+the device named by ``device`` (``cuda`` unless the caller asks for the
+CPU); nothing falls back.  Checkpoints, preemption and the metrics sink
+are ROADMAP Queue 1 item 15.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from mpi_tensorflow_torch.config import Config
+from mpi_tensorflow_torch.data import mnist, prefetch, sharding
+from mpi_tensorflow_torch.data.idx import error_rate
+from mpi_tensorflow_torch.models import cnn
+from mpi_tensorflow_torch.train import evaluation, step as step_lib
+from mpi_tensorflow_torch.train.gspmd import step_generator
+from mpi_tensorflow_torch.utils import logging as logs
+from mpi_tensorflow_torch.utils.device import device_name, resolve_device
+from mpi_tensorflow_torch.utils.profiling import StepTimer
+
+
+@dataclasses.dataclass
+class TrainResult:
+    state: Any
+    history: list          # [(step, global test error %), ...]
+    final_test_error: float
+    images_per_sec: float
+    step_time_seconds: float
+    num_devices: int       # shards
+    num_steps: int
+    final_loss: float      # the last step's training loss
+    device: str            # the card's name, or "cpu"
+
+
+def build_model(config: Config):
+    """The model of ``config.model``, random weights from
+    ``config.seed``."""
+    if config.model == "mnist_cnn":
+        return cnn.MnistCnn.from_seed(
+            config.seed, image_size=config.image_size,
+            num_channels=config.num_channels,
+            num_classes=config.num_classes,
+            dropout_rate=config.dropout_rate,
+            compute_dtype=config.compute_dtype)
+    if config.model in ("resnet20", "resnet50", "vit"):
+        item = "14" if config.model == "vit" else "14a"
+        raise NotImplementedError(
+            f"model {config.model!r} is not ported yet: ROADMAP Queue 1 "
+            f"item {item}")
+    raise ValueError(f"unknown image model {config.model!r}")
+
+
+def load_dataset(config: Config, num_shards: int,
+                 verbose: bool = True) -> mnist.Splits:
+    if config.dataset == "mnist":
+        mnist.ensure_data(config.data_dir, verbose=verbose)
+        return mnist.load_splits(config.data_dir, num_shards=num_shards)
+    raise ValueError(f"unknown dataset {config.dataset!r} for the image "
+                     f"loop")
+
+
+def is_trace_step(t: int, log_every: int, num_steps: int) -> bool:
+    return (t > 0 and t % log_every == 0) or t == num_steps - 1
+
+
+def window_schedule(num_steps: int, log_every: int, window_k: int,
+                    start_step: int = 0):
+    """``(starts, widths)``: windows of at most ``window_k`` steps, each
+    ending at the latest on the next trace step, so the trace (and eval
+    and early-stop) schedule is the per-step loop's."""
+    L = log_every
+    starts, widths = [], []
+    t = start_step
+    while t < num_steps:
+        T = min(((max(t, 1) + L - 1) // L) * L, num_steps - 1)
+        w = min(T - t + 1, window_k)
+        starts.append(t)
+        widths.append(w)
+        t += w
+    return starts, widths
+
+
+def train(config: Config, model=None, splits: Optional[mnist.Splits] = None,
+          num_shards: Optional[int] = None, verbose: bool = True,
+          device="cuda") -> TrainResult:
+    """Data-parallel training of ``model`` (default: ``build_model``)
+    over ``num_shards`` shards in one process (default: the config's
+    data axis, 1) on ``device``."""
+    model = model if model is not None else build_model(config)
+    dev = resolve_device(device)
+    model = model.to(dev)
+    ndev = num_shards if num_shards is not None else int(
+        (config.mesh_shape or {}).get("data", 1))
+    if splits is None:
+        splits = load_dataset(config, ndev, verbose=verbose)
+    b = config.batch_size
+
+    local_n = splits.train_labels.shape[0] // ndev
+    if local_n <= b:
+        raise ValueError(f"local train size {local_n} must exceed batch {b}")
+    tr_d = splits.train_data[:local_n * ndev].reshape(
+        ndev, local_n, *splits.train_data.shape[1:])
+    tr_l = splits.train_labels[:local_n * ndev].reshape(ndev, local_n)
+    num_steps = sharding.steps_per_run(local_n, b, config.epochs)
+    global_b = b * ndev
+
+    state = step_lib.init_state(model)
+    train_step = step_lib.make_train_step(model, config, ndev,
+                                          decay_steps=local_n)
+    eval_step = step_lib.make_eval_step(model, config)
+    fused = max(1, int(config.fused_steps or 1))
+    window_k = fused + 1 if fused > 1 else 1
+    dropout = getattr(model, "dropout_rate", 0.0) > 0.0
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def generator(t):
+        return step_generator(config.seed + 1, t, dev) if dropout else None
+
+    def run_eval(data):
+        return evaluation.eval_in_batches(
+            lambda x: eval_step(state, put(x)).cpu().numpy(), data,
+            global_b)
+
+    es_patience = int(config.early_stop_patience or 0)
+    es_usable = es_patience > 0 and splits.val_labels.shape[0] >= global_b
+    if es_patience > 0 and not es_usable and verbose:
+        print(f"[early-stop] DISABLED: validation split "
+              f"({splits.val_labels.shape[0]} rows) is smaller than the "
+              f"global batch ({global_b}) — --early-stop-patience ignored")
+    es_best, es_bad = float("inf"), 0
+
+    def check_early_stop() -> bool:
+        nonlocal es_best, es_bad
+        if not es_usable:
+            return False
+        val_err = error_rate(run_eval(splits.val_data), splits.val_labels)
+        if verbose:
+            logs.val_trace(0, val_err)
+        if val_err < es_best - 1e-12:
+            es_best, es_bad = val_err, 0
+            return False
+        es_bad += 1
+        if es_bad >= es_patience:
+            if verbose:
+                print(f"[early-stop] validation error has not improved for "
+                      f"{es_patience} trace points (best {es_best:.2f}%)")
+            return True
+        return False
+
+    timer = StepTimer(warmup_steps=1, device=dev)
+    history = []
+    metrics = {}
+    pending = 0                 # steps queued since the span started
+
+    if verbose:
+        logs.session_start(0)
+    timer.start()
+    for t0, w in zip(*window_schedule(num_steps, config.log_every,
+                                      window_k)):
+        bs, ls = prefetch.assemble_window(tr_d, tr_l, t0, w, window_k, b)
+        bdev, ldev = put(bs[:w]), put(ls[:w])
+        for j in range(w):
+            state, metrics = train_step(state, bdev[j], ldev[j],
+                                        generator(t0 + j))
+        pending += w
+        t = t0 + w - 1
+        if not is_trace_step(t, config.log_every, num_steps):
+            continue
+        # close the timed span, evaluate off it, trace
+        timer.stop(pending)
+        pending = 0
+        preds = run_eval(splits.test_data)
+        history.append((t, error_rate(preds, splits.test_labels)))
+        if verbose:
+            for r, e in enumerate(evaluation.shard_error_rates(
+                    preds, splits.test_labels, ndev)):
+                logs.step_trace(r, t, e)
+        if t != num_steps - 1 and check_early_stop():
+            break
+        timer.start()
+
+    final_err = history[-1][1] if history else float("nan")
+    ips = timer.images_per_sec(global_b)
+    if verbose:
+        logs.timing_summary(ips, timer.mean_step_seconds * 1e3, ndev)
+    return TrainResult(
+        state=state, history=history, final_test_error=final_err,
+        images_per_sec=ips, step_time_seconds=timer.mean_step_seconds,
+        num_devices=ndev, num_steps=num_steps,
+        final_loss=float(metrics["loss"]) if metrics else float("nan"),
+        device=device_name(dev))

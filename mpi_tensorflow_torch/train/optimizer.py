@@ -1,10 +1,28 @@
-"""The transformer-family optimizer: adamw under a warmup schedule with
-global-norm clipping.
+"""The port's optimizers: TF momentum under the reference's staircase
+decay (the image families), and adamw under a warmup schedule with
+global-norm clipping (the transformer family).
 
-Counterpart of ``warmup_linear``, ``decay_mask`` and ``transformer_tx``
-in ``mpi_tensorflow_tpu/train/optimizer.py``, written out to match optax
-rather than ``torch.optim.AdamW`` — the two differ in where the
-schedule is read and in how clipping scales:
+Counterpart of ``mpi_tensorflow_tpu/train/optimizer.py``.
+
+The image families (``exponential_decay``, ``reference_schedule``,
+``momentum_apply``) follow the reference MPI script's TF v1 graph:
+
+- the step counter is a float32 (``MomentumState.step``), advanced by
+  one per update;
+- LR = ``base_lr * rate ** floor(step * batch_size / decay_steps)``,
+  every operation in float32 as the JAX package computes it in-graph.
+  The power is taken in float64 and rounded to float32: that equals
+  XLA's float32 power on the CPU at every exponent below 58 at rate
+  0.95 (58 decays: epoch 58 of a run), and differs by an ulp at some
+  exponents past it;
+- ``tf.train.MomentumOptimizer``: ``v = m*v + g; p -= lr*v``, the LR
+  applied at update time.  ``torch.optim.SGD`` folds its LR and
+  dampening differently, so the update is written out.
+
+The transformer family (``warmup_linear``, ``decay_mask``,
+``transformer_tx``) is written out to match optax rather than
+``torch.optim.AdamW`` — the two differ in where the schedule is read
+and in how clipping scales:
 
 - ``clip_by_global_norm(1.0)``: gradients are scaled by ``max / |g|``
   only when ``|g| >= max`` (not ``clip_grad_norm_``'s ``max / (|g| +
@@ -15,9 +33,9 @@ schedule is read and in how clipping scales:
 - the learning rate is read at ``count`` BEFORE the increment, so step 0
   runs at LR 0 under warmup-linear.
 
-The update runs in place on the parameter tensors (optax returns new
+Both update in place on the parameter tensors (optax returns new
 arrays; here the parameters live in an ``nn.Module``), with ``torch``'s
-multi-tensor ops, and reads nothing back to the host.  LAMB is not
+multi-tensor ops, and read nothing back to the host.  LAMB is not
 ported yet (ROADMAP Queue 1 item 13).
 """
 
@@ -55,6 +73,51 @@ def warmup_linear(base_lr: float, warmup_steps: int, total_steps: int,
             * np.clip(frac, _F32(0.0), _F32(1.0))
         return _F32(base_lr) * (warm if step < warmup_steps else decay)
     return schedule
+
+
+def exponential_decay(base_lr, step, batch_size, decay_steps, rate,
+                      staircase=True):
+    """``tf.train.exponential_decay(base_lr, step * batch_size,
+    decay_steps, rate, staircase)`` in float32 (see the module note on
+    the power)."""
+    progress = _F32(step) * _F32(batch_size) / _F32(decay_steps)
+    if staircase:
+        progress = np.floor(progress)
+    power = np.power(np.float64(_F32(rate)), np.float64(progress))
+    return _F32(base_lr) * _F32(power)
+
+
+def reference_schedule(config, local_train_size: int):
+    """The reference's LR schedule, ``step -> float32 LR``, over a run's
+    local train size (one decay per local epoch)."""
+    def schedule(step):
+        return exponential_decay(config.base_lr, step, config.batch_size,
+                                 local_train_size, config.lr_decay,
+                                 staircase=True)
+    return schedule
+
+
+@dataclasses.dataclass
+class MomentumState:
+    velocity: list                # one per parameter, in parameter order
+    step: np.float32 = _F32(0.0)  # the reference's float32 ``iter_``
+
+
+def momentum_init(params: list) -> MomentumState:
+    return MomentumState([torch.zeros_like(p) for p in params], _F32(0.0))
+
+
+@torch.no_grad()
+def momentum_apply(params: list, grads: list, state: MomentumState, lr,
+                   momentum: float = 0.9) -> None:
+    """One TF ``MomentumOptimizer`` update in place: ``v = m*v + g; p -=
+    lr*v`` (each product rounded before its sum, as in the reference),
+    then ``state.step += 1``."""
+    torch._foreach_mul_(state.velocity, momentum)
+    torch._foreach_add_(state.velocity, grads)
+    torch._foreach_sub_(params, torch._foreach_mul(state.velocity,
+                                                   float(lr)))
+    state.step = _F32(state.step + _F32(1.0))
 
 
 def named_leaves(tree, name=""):

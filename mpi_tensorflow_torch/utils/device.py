@@ -37,3 +37,20 @@ def device_name(device: torch.device) -> str:
     if device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return "cpu"
+
+
+def card_line(device: torch.device):
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them, for
+    a CUDA device; None for the CPU.  A card may be capped below its
+    maximum power and then runs slower under load, so every time measured
+    on it is reported beside this line."""
+    if device.type != "cuda":
+        return None
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", str(device.index or 0)],
+        check=True, capture_output=True, text=True).stdout
+    return out.strip().splitlines()[0]

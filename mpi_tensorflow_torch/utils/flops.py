@@ -1,10 +1,12 @@
-"""Analytic model FLOPs of a transformer train step, and the card's peak.
+"""Analytic model FLOPs of a train step, and the card's peak.
 
-The port's own copy of ``transformer_train_flops`` from
-``mpi_tensorflow_tpu/utils/flops.py`` (PaLM-appendix accounting: 6 N
-flops per token for a matmul of N parameters with its backward,
-12 B S^2 E per layer for attention scores and values, the tied decoder
-counted at the positions that reach the head).  The peak is the H100
+The port's own copy of ``transformer_train_flops`` and
+``image_train_flops`` from ``mpi_tensorflow_tpu/utils/flops.py``
+(transformers: PaLM-appendix accounting, 6 N flops per token for a
+matmul of N parameters with its backward, 12 B S^2 E per layer for
+attention scores and values, the tied decoder counted at the positions
+that reach the head; image models: the forward GFLOPs per image at the
+input geometry, times 3 for forward and backward).  The peak is the H100
 SXM's (NVIDIA data sheet, dense): 989 TFLOP/s in bf16 on the tensor
 cores, 67 TFLOP/s in float32 outside them.
 """
@@ -12,6 +14,10 @@ cores, 67 TFLOP/s in float32 outside them.
 from __future__ import annotations
 
 PEAK_TFLOPS = {"bf16": 989.0, "fp32": 67.0}
+
+# forward GFLOPs per image (2 x MACs): the CNN's two convs and two fc
+# layers at 28x28
+_IMAGE_FWD_GFLOPS = {"mnist_cnn": 0.024}
 
 
 def transformer_train_flops(cfg, batch: int, seq_len: int,
@@ -35,6 +41,15 @@ def transformer_train_flops(cfg, batch: int, seq_len: int,
     P = B * head_positions
     head = 6 * P * (E * E + V * E)          # transform + tied decoder
     return float(enc + attn + head)
+
+
+def image_train_flops(model_name: str, batch: int) -> float | None:
+    """Model flops of one forward+backward step of an image family at
+    ``batch`` images, or None for a model with no number recorded."""
+    g = _IMAGE_FWD_GFLOPS.get(model_name)
+    if g is None:
+        return None
+    return 3.0 * g * 1e9 * batch
 
 
 def mfu(flops_per_step: float, step_seconds: float, precision: str) -> float:

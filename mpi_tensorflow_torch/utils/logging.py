@@ -2,7 +2,8 @@
 
 Counterpart of ``mpi_tensorflow_tpu/utils/logging.py`` (itself the MPI
 script's ``Process ID: <rank>  training session starts!`` and ``<rank>
-process at <step> with test error: <e>%`` lines, plus the timing
+process at <step> with test error: <e>%`` lines — one per shard at each
+trace point — plus the validation line of early stopping and the timing
 summary), so a port trace and a reference trace diff line by line.
 """
 
@@ -18,6 +19,12 @@ def session_start(rank: int) -> None:
 
 def step_trace(rank: int, step: int, test_error: float) -> None:
     print(rank, " process at ", step, "with test error: %.1f%%" % test_error)
+    sys.stdout.flush()
+
+
+def val_trace(rank: int, val_error: float) -> None:
+    """The validation error at a trace point (early stopping only)."""
+    print(f"{rank}  validation error: {val_error:.1f}%")
     sys.stdout.flush()
 
 

@@ -58,12 +58,20 @@ class StepTimer:
     def mean_step_seconds(self) -> float:
         return self._total / self._steps if self._steps else float("nan")
 
+    def images_per_sec(self, batch_size: int) -> float:
+        s = self.mean_step_seconds
+        return batch_size / s if s == s and s > 0 else float("nan")
+
 
 KERNEL_CATEGORIES = (                # first match wins, on the lower name
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("flash_dq", ("flash_dq_kernel",)),
     ("flash_dkdv", ("flash_dkdv_kernel",)),
     ("paged_attention", ("paged_attention",)),
+    # cuDNN's convolution kernels alone (fprop, dgrad, wgrad; its
+    # CUTLASS implicit-GEMM ones), not every kernel cuDNN names
+    ("conv", ("wgrad", "dgrad", "fprop_implicit_gemm",
+              "implicitgemmconvolution")),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet", "matmul",
                 "gemv")),
     ("index/gather/scatter", ("index", "gather", "scatter", "embedding")),

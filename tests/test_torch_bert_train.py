@@ -214,8 +214,8 @@ def test_config_defaults_and_unported_values():
                      ({"text_file": "x.txt"}, "13")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             Config(**kw)
-    with pytest.raises(NotImplementedError, match="items 7-10"):
-        cli.main(["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 14a"):
+        cli.main(["--device", "cpu", "--model", "resnet20"])
 
 
 # ------------------------------------------------------- float parity
