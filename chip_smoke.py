@@ -102,7 +102,30 @@ fails:
    power limit; then one bf16 epoch the same way; 10c: every hand
    kernel's launch count (paged, flash, fused) set to 0 before 10b and
    still 0 after it; then ``python -m mpi_tensorflow_torch.bench --mode
-   train`` at fp32 and bf16, each line printed.
+   train`` at fp32 and bf16, each line printed;
+11. the data axis over ``torch.distributed`` (no hand kernel lies on it;
+   each case runs in processes of its own, through ``torchrun`` or the
+   bench, with this file as the worker: ``chip_smoke.py --worker NAME
+   BACKEND``) — 11a: NCCL at world size 1 (the machine has one card):
+   ``torchrun --nproc_per_node 1 -m mpi_tensorflow_torch --epochs 1``,
+   781 steps, 16 trace lines in phase 10's format and cadence, final
+   error < 30 % and <= the first, images/sec and step ms beside 10b's
+   and beside the same run without torchrun, with and without its
+   ``OMP_NUM_THREADS=1``; then 20 psum steps of ``MnistCnn`` (dropout 0,
+   float32, cuDNN's deterministic algorithms), each from a common state,
+   across the ranks against the plain step: loss and gradient within
+   ``CNN_TOL``, bit-equality printed beside the plain step's own
+   repeatability, and a profiled step of each (kernels, device ms, the
+   collective's ms); 11b: two ranks on ``cuda:0`` over gloo (a
+   check-only world: NCCL refuses two ranks on one card) — the same 20
+   psum steps against the in-process two-shard step, within ``CNN_TOL``;
+   then ``--sync avg50 --epochs 1`` through ``cli.main`` in both ranks,
+   390 steps, 8 trace points of 2 lines, every average watched: the
+   replicas apart before it, bit-identical after it, and within 1 ulp of
+   the mean of the gathered replicas; final error < 30 % and <= the
+   first; 11c: ``python -m mpi_tensorflow_torch.bench --mode allreduce``
+   (a world of one over NCCL: a launch and a copy on the card, not a
+   link), its line printed.
 
 Prints one ``kernels`` JSON line, then the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a card it
@@ -1558,6 +1581,388 @@ def cnn_phase(dev, card: str) -> dict:
     return {"cross_check": cross, "runs": runs, "bench": bench}
 
 
+# --------------------------------------------------------------- phase 11
+
+# each distributed case runs in processes of its own (torchrun, or the
+# bench), so this process's CUDA context is untouched; rank 0 of a
+# worker prints its result as one line after this tag
+DP_RESULT = "[dp-result] "
+
+
+def run_sub(cmd, timeout: float, env=None) -> str:
+    """``cmd``'s standard output (in ``env``, default this process's);
+    its whole process group is killed at ``timeout``, and a nonzero exit
+    raises with the end of its output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True, env=env)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"{cmd} exited {proc.returncode}:\n"
+                             f"{out[-6000:]}")
+    return out
+
+
+def torchrun(nproc: int, args, timeout: float) -> str:
+    """``args`` under ``torchrun --nproc_per_node nproc`` on a free
+    localhost port."""
+    from mpi_tensorflow_torch.parallel import mesh
+
+    return run_sub([sys.executable, "-m", "torch.distributed.run",
+                    f"--nproc_per_node={nproc}", "--master_addr=127.0.0.1",
+                    f"--master_port={mesh.free_port()}", *args], timeout)
+
+
+def dp_result(out: str) -> dict:
+    (line,) = [ln for ln in out.splitlines() if ln.startswith(DP_RESULT)]
+    return json.loads(line[len(DP_RESULT):])
+
+
+def join_world(backend: str):
+    """A worker's rank device and world: ``nccl`` is the CLI's own choice
+    (the rank's card, ``cpu:gloo,cuda:nccl``); ``gloo`` is the check-only
+    world of several ranks on ``cuda:0``, the card this machine has
+    (NCCL refuses two ranks on one card)."""
+    from mpi_tensorflow_torch.parallel import mesh
+    from mpi_tensorflow_torch.utils.device import resolve_device
+
+    if backend == "nccl":
+        dev = mesh.rank_device("cuda")
+        mesh.initialize_distributed(dev)
+    else:
+        dev = torch.device("cuda", 0)
+        mesh.initialize_distributed(dev, backend="gloo")
+    return resolve_device(dev), mesh.process_index(), mesh.process_count()
+
+
+def worker_psum_steps(backend: str) -> None:
+    """11a / 11b: ``CNN_STEPS`` psum steps of ``MnistCnn`` (dropout 0,
+    float32), each from the common state of a reference trajectory: the
+    step across the ranks (one shard of 64 rows each, the all-reduce)
+    against the in-process step over the world's shards concatenated."""
+    from mpi_tensorflow_torch.config import Config
+    from mpi_tensorflow_torch.data import mnist, prefetch
+    from mpi_tensorflow_torch.models import cnn
+    from mpi_tensorflow_torch.parallel import collectives, mesh
+    from mpi_tensorflow_torch.train import optimizer, step
+
+    dev, rank, world = join_world(backend)
+    # cuDNN's default algorithms are not bit-repeatable (the plain step
+    # differs from itself): deterministic ones, in both arms, let the
+    # bit-equality of the one-rank all-reduce show
+    torch.backends.cudnn.deterministic = True
+    mnist.ensure_data(CNN_DATA_DIR, verbose=False)
+    splits = mnist.load_splits(CNN_DATA_DIR, num_shards=world)
+    local_n = splits.train_labels.shape[0] // world
+    tr_d = splits.train_data[:local_n * world].reshape(
+        world, local_n, *splits.train_data.shape[1:])
+    tr_l = splits.train_labels[:local_n * world].reshape(world, local_n)
+    b = 64
+    bs, ls = prefetch.assemble_window(tr_d, tr_l, 0, CNN_STEPS, CNN_STEPS, b)
+    cfg = Config(dropout_rate=0.0)
+    params = [t.to(dev) for t in cnn.init_params(
+        torch.Generator().manual_seed(3)).values()]
+    vel = [torch.zeros_like(t) for t in params]
+
+    def same(a, b):
+        (la, pa, va), (lb, pb, vb) = a, b
+        return bool(torch.equal(la, lb)) and all(
+            torch.equal(x, y) for x, y in zip(pa + va, pb + vb))
+
+    def one_step(p, v, count, x, y, shards, across):
+        model = cnn.MnistCnn(dict(zip(cnn.NAMES, p)), dropout_rate=0.0).to(
+            dev)
+        state = step.init_state(model)
+        state.opt = optimizer.MomentumState([t.clone() for t in v], count)
+        train_step = step.make_train_step(model, cfg, shards, local_n,
+                                          across_ranks=across)
+        state, m = train_step(state, torch.from_numpy(x).to(dev),
+                              torch.from_numpy(y).to(dev))
+        return (m["loss"], [t.detach() for t in model.param_tree().values()],
+                state.opt.velocity)
+
+    loss_err, grad_err, losses = 0.0, [], []
+    bit_equal = repeatable = True
+    mine = slice(rank * b, (rank + 1) * b)
+    for t in range(CNN_STEPS):
+        for x in params + vel:              # one common state
+            collectives.pbroadcast(x)
+        count = np.float32(t)
+        want_loss, want_p, want_v = one_step(params, vel, count, bs[t],
+                                             ls[t], world, False)
+        loss, got_p, got_v = one_step(params, vel, count, bs[t][mine],
+                                      ls[t][mine], 1, True)
+        loss_err = max(loss_err, abs(float(loss) - float(want_loss)))
+        grad_err.append(max(float((a - w).norm() / w.norm())
+                            for a, w in zip(got_v, want_v)))
+        bit_equal = bit_equal and same((loss, got_p, got_v),
+                                       (want_loss, want_p, want_v))
+        # the control: the in-process step again, from the same state
+        repeatable = repeatable and same(one_step(
+            params, vel, count, bs[t], ls[t], world, False),
+            (want_loss, want_p, want_v))
+        losses.append(float(want_loss))
+        params, vel = want_p, want_v
+    # launches and device time a step, plain and across the ranks
+    profile = {"plain": profile_psum_step(dev, params, bs[0][mine],
+                                          ls[0][mine], local_n, False),
+               "across_ranks": profile_psum_step(
+                   dev, params, bs[0][mine], ls[0][mine], local_n, True)}
+    if rank == 0:
+        print(DP_RESULT + json.dumps({
+            "case": "psum_steps", "backend": backend, "world": world,
+            "profile": profile,
+            "device": str(dev), "steps": CNN_STEPS, "loss_err": loss_err,
+            "grad_rel_err": float(np.median(grad_err)),
+            "grad_rel_err_max": max(grad_err), "bit_equal": bit_equal,
+            "reference_repeatable": repeatable,
+            "losses": [losses[0], losses[-1]]}), flush=True)
+    mesh.shutdown()
+
+
+PROFILED_STEPS = 20
+
+
+def profile_psum_step(dev, params, x, y, decay_steps: int,
+                      across: bool) -> dict:
+    """One rank's psum step of 64 rows (float32, dropout 0), plain or
+    across the ranks, under ``torch.profiler`` for ``PROFILED_STEPS``
+    steps: kernels (memory copies included) and device busy ms a step,
+    and the collective's share: NCCL's kernels and gloo's copies."""
+    from mpi_tensorflow_torch.config import Config
+    from mpi_tensorflow_torch.models import cnn
+    from mpi_tensorflow_torch.train import step
+    from mpi_tensorflow_torch.utils import profiling
+
+    model = cnn.MnistCnn(dict(zip(cnn.NAMES, params)), dropout_rate=0.0).to(
+        dev)
+    state = step.init_state(model)
+    train_step = step.make_train_step(model, Config(dropout_rate=0.0), 1,
+                                      decay_steps, across_ranks=across)
+    x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+    def run():
+        for _ in range(PROFILED_STEPS):
+            train_step(state, x, y)
+
+    kernels = profiling.profiled_kernels(run, run)
+    summary = profiling.device_summary(kernels)
+    comm = [e for e in kernels if any(k in e.name.lower()
+                                      for k in ("nccl", "memcpy"))]
+    return {
+        "kernels_a_step": len(kernels) / PROFILED_STEPS,
+        "device_busy_ms_a_step": summary["device_busy_ms"] / PROFILED_STEPS,
+        "collective_ms_a_step": sum(
+            e.time_range.end - e.time_range.start for e in comm)
+        / 1e3 / PROFILED_STEPS,
+        "collective_kernels": sorted({e.name[:60] for e in comm})}
+
+
+def worker_avg50_epoch(backend: str) -> None:
+    """11b: ``python -m mpi_tensorflow_torch --sync avg50 --epochs 1``'s
+    path (``cli.main`` in this rank, in the world joined here), every
+    average step watched: the replicas gathered before it (they must
+    differ) and after it (bit-identical), and the average against the
+    mean of the gathered replicas, in ulps."""
+    from mpi_tensorflow_torch import cli
+    from mpi_tensorflow_torch.parallel import collectives, mesh
+    from mpi_tensorflow_torch.train import loop, step
+
+    dev, rank, world = join_world(backend)
+    checks = []
+    make_average = step.make_average_step
+
+    def flat(state):
+        return torch.cat([t.detach().reshape(-1) for t in
+                          list(state.model.param_tree().values())
+                          + state.opt.velocity]).cpu().numpy()
+
+    def watched_average(state):
+        average = make_average(state)
+
+        def call(state):
+            before = collectives.host_allgather(flat(state))
+            state = average(state)
+            after = collectives.host_allgather(flat(state))
+            mean = (before[0] + before[1]) / np.float32(2) if world == 2 \
+                else before.mean(0, dtype=np.float32)
+            checks.append({
+                "differ_before": not np.array_equal(before[0], before[1]),
+                "identical_after": all(np.array_equal(after[0], a)
+                                       for a in after),
+                "max_ulp": float((np.abs(after[rank] - mean)
+                                  / np.spacing(np.abs(mean))).max())})
+            return state
+        return call
+
+    results = []
+    real_train = loop.train
+
+    def recorded_train(*a, **kw):
+        results.append(real_train(*a, **kw))
+        return results[-1]
+
+    step.make_average_step, loop.train = watched_average, recorded_train
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(["--data-dir", CNN_DATA_DIR, "--epochs", "1", "--sync",
+                      "avg50", "--device", str(dev)])
+    finally:
+        step.make_average_step, loop.train = make_average, real_train
+    (res,) = results
+    if rank == 0:
+        print(out.getvalue(), end="")
+        print(DP_RESULT + json.dumps({
+            "case": "avg50_epoch", "backend": backend, "world": world,
+            "device": str(dev), "steps": res.num_steps,
+            "history": res.history, "final_test_error": res.final_test_error,
+            "final_loss": res.final_loss,
+            "images_per_sec": res.images_per_sec,
+            "step_ms": res.step_time_seconds * 1e3, "averages": checks,
+            "lines": out.getvalue().splitlines()}), flush=True)
+    mesh.shutdown()
+
+
+WORKERS = {"psum_steps": worker_psum_steps,
+           "avg50_epoch": worker_avg50_epoch}
+
+
+def check_psum_steps(res: dict) -> None:
+    """The psum steps across the ranks within ``CNN_TOL`` (float32) of
+    the in-process step; bit-equality is printed beside the in-process
+    step's own repeatability (cuDNN may pick a non-deterministic
+    algorithm unless asked for a deterministic one), not held."""
+    tol = CNN_TOL["fp32"]
+    log(f"[dp] psum, {res['world']} rank(s) over {res['backend']} on "
+        f"{res['device']}: {res['steps']} steps, each from a common state, "
+        f"against the in-process step over {res['world']} shard(s): loss "
+        f"diff {res['loss_err']:.3e}, gradient rel. diff median "
+        f"{res['grad_rel_err']:.3e} (max {res['grad_rel_err_max']:.3e}) "
+        f"(tolerance {tol}); bit-equal: {res['bit_equal']} (the "
+        f"in-process step bit-equal to itself: "
+        f"{res['reference_repeatable']}); losses "
+        f"{res['losses'][0]:.6f} -> {res['losses'][1]:.6f}; a step of 64 "
+        f"rows on rank 0, plain / across the ranks: "
+        f"{json.dumps(res['profile'])}")
+    if res["loss_err"] > tol["loss"] or res["grad_rel_err"] > tol["grad"]:
+        raise AssertionError(f"distributed psum step: {res}")
+
+
+def trainer_timing(lines) -> dict:
+    """images/sec and step ms of a ``[timing]`` line."""
+    (ln,) = [ln for ln in lines if ln.startswith("[timing]")]
+    m = re.match(r"\[timing\] ([\d,.]+) images/sec .*\| step ([\d.]+) ms",
+                 ln)
+    return {"images_per_sec": float(m[1].replace(",", "")),
+            "step_ms": float(m[2])}
+
+
+def check_trace(lines, world: int, want_steps: list, what: str) -> list:
+    """The trace lines: ``world`` lines a trace point in rank order, at
+    the steps ``want_steps``; ``[(step, rank 0's error)]``."""
+    pat = re.compile(r"(\d+)  process at  (\d+) with test error: "
+                     r"(\d+\.\d)%")
+    trace = [pat.fullmatch(ln) for ln in lines]
+    trace = [(int(m[1]), int(m[2]), float(m[3])) for m in trace if m]
+    want = [(r, t) for t in want_steps for r in range(world)]
+    if [(r, t) for r, t, _ in trace] != want \
+            or lines.count("Process ID: 0  training session starts!") != 1:
+        raise AssertionError(f"{what}: trace {[(r, t) for r, t, _ in trace]}"
+                             f", want {want}")
+    return [(t, e) for r, t, e in trace if r == 0]
+
+
+def dp_phase(card: str, cnn: dict) -> dict:
+    """Phase 11: the data axis over ``torch.distributed``.  11a: NCCL at
+    world size 1 — the zero-flag trainer for one epoch through torchrun,
+    and the psum step across the ranks against the plain one; 11b: two
+    ranks on ``cuda:0`` over gloo — psum steps against the in-process
+    two-shard step, and one avg50 epoch with every average watched;
+    11c: the allreduce bench at world size 1 over NCCL."""
+    every50 = lambda n: [t for t in range(1, n) if t % 50 == 0] + [n - 1]
+    me = os.path.abspath(__file__)
+    # 11a
+    t0 = time.perf_counter()
+    out = torchrun(1, ["-m", "mpi_tensorflow_torch", "--data-dir",
+                       CNN_DATA_DIR, "--epochs", "1"], 600)
+    wall = time.perf_counter() - t0
+    lines = out.splitlines()
+    trace = check_trace(lines, 1, every50(781), "torchrun, 1 rank")
+    if not trace[-1][1] < 30.0 or trace[-1][1] > trace[0][1]:
+        raise AssertionError(f"torchrun, 1 rank: errors {trace}")
+    one = trainer_timing(lines)
+    ref = cnn["runs"]["fp32"]
+    log(f"[dp] torchrun --nproc_per_node 1 -m mpi_tensorflow_torch --epochs"
+        f" 1 (NCCL, world 1): 781 steps, {len(trace)} trace points, "
+        f"errors {trace[0][1]} -> {trace[-1][1]} %; "
+        f"{one['images_per_sec']} images/s, step {one['step_ms']} ms beside"
+        f" phase 10b's {ref['images_per_sec']:.1f} images/s, "
+        f"{ref['step_ms']:.3f} ms (no process group); wall {wall:.1f} s; "
+        f"{card}")
+    # controls for the torchrun process: the same run without a process
+    # group, with and without torchrun's OMP_NUM_THREADS=1
+    plain_env = {k: v for k, v in os.environ.items()
+                 if k != "OMP_NUM_THREADS"}
+    controls = {}
+    for name, env in (("no group", plain_env),
+                      ("no group, OMP_NUM_THREADS=1",
+                       {**plain_env, "OMP_NUM_THREADS": "1"})):
+        controls[name] = trainer_timing(run_sub(
+            [sys.executable, "-m", "mpi_tensorflow_torch", "--data-dir",
+             CNN_DATA_DIR, "--epochs", "1"], 600, env).splitlines())
+    log(f"[dp] one epoch each, the same run without torchrun: "
+        f"{json.dumps(controls)}; {card}")
+    nccl_steps = dp_result(torchrun(1, [me, "--worker", "psum_steps",
+                                        "nccl"], 300))
+    check_psum_steps(nccl_steps)
+    # 11b
+    gloo_steps = dp_result(torchrun(2, [me, "--worker", "psum_steps",
+                                        "gloo"], 300))
+    check_psum_steps(gloo_steps)
+    out = torchrun(2, [me, "--worker", "avg50_epoch", "gloo"], 600)
+    avg = dp_result(out)
+    trace = check_trace(avg["lines"], 2, every50(390), "avg50, 2 ranks")
+    errs = [e for _, e in avg["history"]]
+    checks = avg["averages"]
+    problems = []
+    if [t for t, _ in avg["history"]] != every50(390) \
+            or len(checks) != len(every50(390)) - 1:
+        problems.append(f"history {avg['history']}, {len(checks)} averages")
+    if not all(c["differ_before"] and c["identical_after"]
+               and c["max_ulp"] <= 1.0 for c in checks):
+        problems.append(f"averages {checks}")
+    if not avg["final_test_error"] < 30.0 or errs[-1] > errs[0]:
+        problems.append(f"errors {errs}")
+    if problems:
+        raise AssertionError(f"avg50, 2 ranks over gloo: {problems}")
+    log(f"[dp] avg50, 2 ranks on cuda:0 over gloo, one epoch: "
+        f"{avg['steps']} steps, {len(trace)} trace points x 2 lines, "
+        f"{len(checks)} averages: replicas apart before each and "
+        f"bit-identical after each, the average within "
+        f"{max(c['max_ulp'] for c in checks)} ulp of the gathered mean; "
+        f"test error {errs[0]} -> {errs[-1]} %; rank 0: "
+        f"{avg['images_per_sec']:.1f} images/s, step {avg['step_ms']:.3f} "
+        f"ms (two ranks share the card); {card}")
+    # 11c
+    out = run_sub([sys.executable, "-m", "mpi_tensorflow_torch.bench",
+                   "--mode", "allreduce"], 300)
+    bench = json.loads(out.strip().splitlines()[-1])
+    if not (bench["num_devices"] == 1 and bench["allreduce_ms"] > 0
+            and "nccl" in bench["backend"]):
+        raise AssertionError(f"allreduce bench: {bench}")
+    log(f"[dp bench] {json.dumps(bench)}")
+    return {"nccl_world1": one, "controls": controls,
+            "nccl_steps": nccl_steps,
+            "gloo_steps": gloo_steps, "avg50": avg, "bench": bench}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda reports no card; nothing was run",
@@ -1597,7 +2002,8 @@ def main() -> int:
 
     fused.layer_norm_forward.launches = fused_launches["layer_norm"]
     fused.online_logsumexp.launches = fused_launches["logsumexp"]
-    cnn_phase(dev, card)
+    cnn = cnn_phase(dev, card)
+    dp_phase(card, cnn)
     paged_src = "mpi_tensorflow_torch/ops/csrc/paged_attention.cu"
     paged_replaces = "mpi_tensorflow_tpu/ops/paged_attention_kernel.py:90"
     kernels = [{
@@ -1660,4 +2066,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:     # a rank of phase 11
+        WORKERS[sys.argv[2]](sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

@@ -1,23 +1,38 @@
 """The port's benchmark: ``python -m mpi_tensorflow_torch.bench``.
 
-Counterpart of the one-step arm of ``bench.py --mode train`` (the JAX
-package's bench): the train step of an image model at a per-card batch,
-on random-normal x 0.3 batches with random labels in 4 rotating banks
-(so steps do not alias one input), the LR schedule's ``decay_steps`` at
-50000, dropout on.  ``--warmup`` steps run first and are not timed; the
-card is synchronised before and after the ``--steps`` timed steps.
-Prints one JSON line: images/sec (and per card), step ms, model-FLOP
-utilisation against the card's peak for the precision
-(``utils/flops.py``), and the card's name and power limit.
+``--mode train``: the counterpart of the one-step arm of ``bench.py
+--mode train`` (the JAX package's bench): the train step of an image
+model at a per-card batch, on random-normal x 0.3 batches with random
+labels in 4 rotating banks (so steps do not alias one input), the LR
+schedule's ``decay_steps`` at 50000, dropout on.  ``--warmup`` steps run
+first and are not timed; the card is synchronised before and after the
+``--steps`` timed steps.  Prints one JSON line: images/sec (and per
+card), step ms, model-FLOP utilisation against the card's peak for the
+precision (``utils/flops.py``), and the card's name and power limit.
 
     python -m mpi_tensorflow_torch.bench --mode train
     python -m mpi_tensorflow_torch.bench --mode train --precision bf16
     python -m mpi_tensorflow_torch.bench --mode train --device cpu \\
         --steps 20 --warmup 2
 
-The reference's scanned arm (K steps per dispatch), and the
-``allreduce`` and ``serving`` modes, are not ported yet (ROADMAP Queue 1
-items 7-10 slice B and 6).
+``--mode allreduce``: the counterpart of ``bench.py --mode allreduce``,
+BASELINE's "allreduce step-time": a float32 payload of ``--payload-mb``
+MB (default 25.4) on each rank, ``chain`` = 32 data-dependent
+``all_reduce(SUM)`` calls, each followed by a rescale by 1/W, timed
+between two synchronisations of the card; the median over ``dispatches``
+= 7 chains, divided by the chain.  Under ``torchrun`` it runs over the
+launched world (one rank per card); without a launcher it makes a world
+of one on a free localhost port, where NCCL times its launch and a copy
+on the card, not a link.  Prints one JSON line (``allreduce_ms``,
+``algbw_gbps`` = payload / time, the world size, the backend and the
+card's line):
+
+    python -m mpi_tensorflow_torch.bench --mode allreduce
+    torchrun --nproc_per_node 4 -m mpi_tensorflow_torch.bench \\
+        --mode allreduce
+
+The reference's scanned arm (K steps per dispatch) and the ``serving``
+mode are not ported yet (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -29,8 +44,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mpi_tensorflow_torch.config import Config
+from mpi_tensorflow_torch.parallel import collectives, mesh as meshlib
 from mpi_tensorflow_torch.train import loop, step as step_lib
 from mpi_tensorflow_torch.train.gspmd import step_generator
 from mpi_tensorflow_torch.utils import flops
@@ -93,6 +110,48 @@ def measure_train(model_name: str = "mnist_cnn", batch_size: int = 64,
     }
 
 
+def measure_allreduce(payload_mb: float = 25.4, chain: int = 32,
+                      dispatches: int = 7, device="cuda") -> dict:
+    """The median time of one all-reduce of ``payload_mb`` MB of float32
+    on each rank over the process group that is up (without one, every
+    all-reduce is the identity and nothing is launched)."""
+    dev = resolve_device(device)
+    world = meshlib.process_count()
+    n = int(payload_mb * 1e6 / 4)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=n).astype(
+        np.float32) * 1e-3).to(dev)
+    scale = 1.0 / world
+
+    def run_chain():
+        for _ in range(chain):
+            # sum then rescale: the magnitudes stay put, and every call
+            # depends on the one before it
+            collectives.allreduce_sum(x).mul_(scale)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    run_chain()                     # warm-up: the communicator, buffers
+    sync()
+    times = []
+    for _ in range(dispatches):
+        t0 = time.perf_counter()
+        run_chain()
+        sync()
+        times.append(time.perf_counter() - t0)
+    if not torch.isfinite(x).all():
+        raise AssertionError("the chained all-reduce went non-finite")
+    sec = sorted(times)[len(times) // 2] / chain
+    return {
+        "mode": "allreduce", "allreduce_ms": sec * 1e3,
+        "payload_mb": payload_mb, "algbw_gbps": (payload_mb / 1e3) / sec,
+        "chain": chain, "dispatches": dispatches, "num_devices": world,
+        "backend": str(dist.get_backend()) if meshlib.active() else None,
+        "device": device_name(dev), "card": card_line(dev),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="mpi_tensorflow_torch.bench")
     ap.add_argument("--mode", choices=["train", "allreduce", "serving"],
@@ -106,16 +165,34 @@ def main(argv=None) -> int:
                     help="timed train steps")
     ap.add_argument("--warmup", type=int, default=50,
                     help="untimed steps before the timed ones")
+    ap.add_argument("--payload-mb", type=float, default=25.4,
+                    help="allreduce: float32 MB on each rank")
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu; cuda without a card fails")
+                    help="cuda (default; the rank's own card under "
+                         "torchrun) or cpu; cuda without a card fails")
     args = ap.parse_args(argv)
-    if args.mode != "train":
-        item = "7-10, slice B" if args.mode == "allreduce" else "6"
-        raise NotImplementedError(f"--mode {args.mode} is not ported yet: "
-                                  f"ROADMAP Queue 1 item {item}")
-    print(json.dumps(measure_train(args.model, args.batch_size,
-                                   args.precision, args.steps, args.warmup,
-                                   args.device)), flush=True)
+    if args.mode == "serving":
+        raise NotImplementedError("--mode serving is not ported yet: "
+                                  "ROADMAP Queue 1 item 6")
+    if args.mode == "train":
+        print(json.dumps(measure_train(args.model, args.batch_size,
+                                       args.precision, args.steps,
+                                       args.warmup, args.device)),
+              flush=True)
+        return 0
+    dev = meshlib.rank_device(args.device)
+    # the launcher's world, else a world of one made here
+    joined = meshlib.initialize_distributed(dev) or \
+        meshlib.initialize_distributed(
+            dev, init_method=f"tcp://127.0.0.1:{meshlib.free_port()}",
+            rank=0, world_size=1)
+    try:
+        res = measure_allreduce(args.payload_mb, device=dev)
+        if meshlib.process_index() == 0:
+            print(json.dumps(res), flush=True)
+    finally:
+        if joined:
+            meshlib.shutdown()
     return 0
 
 

@@ -18,10 +18,21 @@ directory holds no MNIST files), sync ``psum``, on the card, through
         --dataset mlm_synthetic --device cpu --tiny --epochs 1 \\
         --batch-size 4 --seq-len 32 --train-n 64 --test-n 16 --log-every 4
 
-``--fused-steps`` defaults to ``--log-every`` under psum, as in the
-reference.  ``--tiny``, ``--seq-len``, ``--train-n`` and ``--test-n``
-have no counterpart in the reference's CLI: they size a transformer run
-(BERT_TINY geometry, ``train_mlm``'s sequence length and split sizes).
+Under ``torchrun`` the trainer runs one rank per card over
+``torch.distributed`` (NCCL for the card's tensors, gloo for the host's;
+gloo alone with ``--device cpu``), ``--device cuda`` meaning the rank's
+own card ``cuda:LOCAL_RANK``; without a launcher there is no process
+group:
+
+    torchrun --nproc_per_node N -m mpi_tensorflow_torch [--sync avg50]
+    torchrun --nproc_per_node 2 -m mpi_tensorflow_torch --device cpu \\
+        --epochs 1 --sync avg50
+
+``--fused-steps`` defaults to ``--log-every`` under psum and to 1 under
+avg50, as in the reference.  ``--tiny``, ``--seq-len``, ``--train-n``
+and ``--test-n`` have no counterpart in the reference's CLI: they size
+a transformer run (BERT_TINY geometry, ``train_mlm``'s sequence length
+and split sizes).
 A ``--seq-len`` past the geometry's 512 positions raises
 ``max_positions`` to it; at ``flash_min_seq`` (4096) and above, the card
 runs the flash kernels.  Values whose path is not ported yet raise
@@ -34,6 +45,7 @@ import argparse
 import dataclasses
 
 from mpi_tensorflow_torch.config import Config
+from mpi_tensorflow_torch.parallel import mesh as meshlib
 
 TRANSFORMER_MODELS = ("bert_base", "moe_bert", "gpt_base", "encdec_t5")
 
@@ -60,15 +72,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stop when the validation error has not improved "
                         "for N trace points (0 = off)")
     p.add_argument("--sync", choices=["psum", "avg50"], default=d.sync,
-                   help="psum: per-step gradient mean (avg50: not ported "
-                        "yet)")
+                   help="psum: per-step gradient mean; avg50: per-rank "
+                        "SGD, parameters averaged every --log-every steps")
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--data-dir", default=d.data_dir,
                    help="the four MNIST IDX files; written synthetic when "
                         "absent")
     p.add_argument("--mesh", default=None,
-                   help="mesh spec, e.g. 'data=1'; a data axis over "
-                        "processes is not ported yet")
+                   help="mesh spec, e.g. 'data=4': the data axis must "
+                        "equal the number of ranks")
     p.add_argument("--fused-steps", type=int, default=None,
                    help="train steps per window (one upload each). "
                         "Default: --log-every for psum, 1 for avg50")
@@ -98,7 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="transformer-family optimizer (lamb: not ported "
                         "yet)")
     p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu; cuda without a card fails")
+                   help="cuda (default; the rank's own card under "
+                        "torchrun) or cpu; cuda without a card fails")
     p.add_argument("--tiny", action="store_true",
                    help="BERT_TINY geometry instead of BERT_BASE")
     p.add_argument("--seq-len", type=int, default=128,
@@ -141,11 +154,26 @@ def config_from_args(args) -> Config:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     config = config_from_args(args)
+    device = meshlib.rank_device(args.device)
+    joined = meshlib.initialize_distributed(device)
+    try:
+        _run(config, args, device)
+    finally:
+        if joined:
+            meshlib.shutdown()
+    return 0
+
+
+def _run(config: Config, args, device) -> None:
     if config.model not in TRANSFORMER_MODELS:
         from mpi_tensorflow_torch.train import loop
 
-        loop.train(config, device=args.device)
-        return 0
+        loop.train(config, device=device)
+        return
+    if meshlib.process_count() > 1:
+        raise NotImplementedError(
+            "transformer training over more than one rank is not ported "
+            "yet: ROADMAP Queue 1 item 12")
     from mpi_tensorflow_torch.models import bert
     from mpi_tensorflow_torch.train import mlm_loop
 
@@ -157,5 +185,4 @@ def main(argv=None) -> int:
         max_positions=max(base.max_positions, args.seq_len))
     mlm_loop.train_mlm(config, bert_cfg, seq_len=args.seq_len,
                        train_n=args.train_n, test_n=args.test_n,
-                       device=args.device)
-    return 0
+                       device=device)

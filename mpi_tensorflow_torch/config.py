@@ -42,17 +42,18 @@ class Config:
     dropout_rate: float = 0.5     # after fc1, in training only
     early_stop_patience: int = 0  # >0: stop when the validation error has
                                   # not improved for N trace points
-    sync: str = "psum"            # per-step gradient mean over the shards;
-                                  # "avg50" (periodic parameter averaging)
-                                  # is not ported yet
+    sync: str = "psum"            # "psum": per-step gradient mean over
+                                  # the shards; "avg50": per-rank SGD with
+                                  # parameters averaged every log_every
     fused_steps: int = 1          # steps per window of the loop (batches
                                   # uploaded once per window); the CLI
                                   # defaults it to --log-every for psum
     prefetch: str = "auto"        # the reference's window assembly knob;
                                   # the port assembles inline whatever
                                   # it says ("native" is not ported yet)
-    mesh_shape: Optional[dict] = None  # {"data": n}; one process runs
-                                       # data=1 only
+    mesh_shape: Optional[dict] = None  # {"data": n}: n must be the
+                                       # torch.distributed world size
+                                       # (checked when training starts)
     checkpoint_dir: Optional[str] = None  # not ported yet (item 15)
     resume: bool = False
     metrics_dir: Optional[str] = None
@@ -101,11 +102,6 @@ class Config:
              "12 (zero1/fsdp over NCCL)"),
             (self.text_file is not None, "text_file",
              "13 (corpus data)"),
-            (self.sync == "avg50", "sync='avg50'",
-             "7-10, slice B (periodic parameter averaging)"),
-            (self._mesh_axis("data") > 1,
-             f"mesh_shape={self.mesh_shape} (a data axis in one process)",
-             "7-10, slice B (the data axis over torch.distributed)"),
             (any(v > 1 for k, v in (self.mesh_shape or {}).items()
                  if k != "data"),
              f"mesh_shape={self.mesh_shape}", "14 (model parallelism)"),
@@ -128,9 +124,6 @@ class Config:
             raise ValueError(f"unknown sync mode {self.sync!r}")
         if self.prefetch not in ("auto", "native", "thread", "off"):
             raise ValueError(f"unknown prefetch mode {self.prefetch!r}")
-
-    def _mesh_axis(self, name: str) -> int:
-        return int((self.mesh_shape or {}).get(name, 1))
 
     @property
     def num_channels(self) -> int:

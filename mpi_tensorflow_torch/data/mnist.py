@@ -5,7 +5,10 @@ The port's counterpart of ``mpi_tensorflow_tpu/data/mnist.py``:
 - ``ensure_data`` uses the four IDX files when ``data_dir`` holds them
   and otherwise writes the synthetic set there.  There is no network
   fetch: real MNIST is read only from files already in ``data_dir``
-  (the fetch waits for ROADMAP Queue 1 item 15);
+  (the fetch waits for ROADMAP Queue 1 item 15).  Under
+  ``torch.distributed`` rank 0 alone checks or writes the files, and
+  every rank reads them after a barrier (``data_dir`` is one directory
+  for all ranks: one host, or a shared filesystem);
 - ``_write_synthetic`` writes the same bytes as the reference's for the
   same sizes (one ``numpy.random.default_rng(0)``, the same draws in the
   same order): class-dependent bright 8x8 patches a model can fit;
@@ -24,6 +27,7 @@ import os
 import numpy as np
 
 from mpi_tensorflow_torch.data import idx, sharding
+from mpi_tensorflow_torch.parallel import collectives, mesh
 
 FILES = {
     "train_images": "train-images-idx3-ubyte.gz",
@@ -54,12 +58,31 @@ def ensure_data(data_dir: str = "./data", verbose: bool = True) -> dict:
     """The paths of the four MNIST files in ``data_dir``: the files
     there when all four are present, else a synthetic set written there.
     A directory holding some of the four but not all raises, rather than
-    mixing real and synthetic files."""
-    os.makedirs(data_dir, exist_ok=True)
+    mixing real and synthetic files.  Rank 0 alone checks and writes;
+    the other ranks wait for it, so N ranks never write one directory at
+    once."""
     paths = {k: os.path.join(data_dir, f) for k, f in FILES.items()}
+    failed = None
+    if mesh.process_index() == 0:
+        try:
+            _ensure_here(data_dir, paths, verbose)
+        except OSError as e:
+            failed = e
+    collectives.barrier()
+    if failed is not None:
+        raise failed
+    missing = [p for p in paths.values() if not os.path.exists(p)]
+    if missing:
+        raise FileNotFoundError(f"rank {mesh.process_index()}: {missing} "
+                                f"absent after rank 0 prepared {data_dir}")
+    return paths
+
+
+def _ensure_here(data_dir: str, paths: dict, verbose: bool) -> None:
+    os.makedirs(data_dir, exist_ok=True)
     present = [k for k, p in paths.items() if os.path.exists(p)]
     if len(present) == len(FILES):
-        return paths
+        return
     if present:
         missing = sorted(set(FILES) - set(present))
         raise FileNotFoundError(
@@ -69,7 +92,6 @@ def ensure_data(data_dir: str = "./data", verbose: bool = True) -> dict:
         print(f"[data] no MNIST files in {data_dir}; writing the synthetic "
               f"set", flush=True)
     _write_synthetic(data_dir)
-    return paths
 
 
 def _write_synthetic(data_dir: str, train_n: int = _TRAIN_N,

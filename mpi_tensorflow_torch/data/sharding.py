@@ -1,12 +1,12 @@
-"""Contiguous equal sharding of the data splits, numpy only.
+"""Contiguous equal sharding of the data splits, in numpy.
 
 The port's own copy of the host-side arithmetic of
 ``mpi_tensorflow_tpu/data/sharding.py``: sizes truncated to a multiple
 of the shard count, shard ``i`` owning rows ``[i*n/k, (i+1)*n/k)`` (what
 ``MPI.Scatter`` of a contiguous buffer gives each rank), and the
 reference's sequential wraparound batching ``offset = (step*B) % (N -
-B)``.  The per-process slice over ``torch.distributed`` is the data
-axis's slice (ROADMAP Queue 1 items 7-10, slice B).
+B)``.  ``host_shard`` is one rank's slice over the ``torch.distributed``
+data axis (``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -38,6 +38,20 @@ def shard_array(x: np.ndarray, num_shards: int, index: int) -> np.ndarray:
 
 def shard_arrays(arrays: Iterable[np.ndarray], num_shards: int, index: int):
     return tuple(shard_array(a, num_shards, index) for a in arrays)
+
+
+def host_shard(x: np.ndarray, process_index: int | None = None,
+               process_count: int | None = None) -> np.ndarray:
+    """This rank's contiguous slice of ``x``: shard ``process_index``
+    (default: this process's rank) of ``process_count`` (default: the
+    world size) — the ``MPI.Scatter`` equivalent, with no root."""
+    from mpi_tensorflow_torch.parallel import mesh
+
+    if process_index is None:
+        process_index = mesh.process_index()
+    if process_count is None:
+        process_count = mesh.process_count()
+    return shard_array(x, process_count, process_index)
 
 
 def batch_offset(step: int, batch_size: int, n: int) -> int:

@@ -9,7 +9,8 @@ the step itself: loss, ``backward``, then the optimizer update.
 
 Where the reference folds its rng with the step (``fold_in(rng,
 state.step)``), the port draws each step's dropout masks from a
-``torch.Generator`` seeded by ``(seed, step)`` (``step_generator``).
+``torch.Generator`` seeded by ``(seed, step)`` and, on a data axis across
+ranks, the rank (``step_generator``).
 """
 
 from __future__ import annotations
@@ -36,11 +37,13 @@ def init_state(model: BertMlm, tx: TransformerTx) -> TrainState:
     return TrainState(model, tx.init(model.param_tree()))
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The dropout generator of one train step, on ``device``, seeded by
-    ``(seed, step)``."""
+def step_generator(seed: int, step: int, device,
+                   rank: int = 0) -> torch.Generator:
+    """The dropout generator of one train step of one rank, on
+    ``device``, seeded by ``(seed, rank, step)``; rank 0's is the
+    one-process run's."""
     return torch.Generator(device=device).manual_seed(
-        int(seed) * 1_000_003 + int(step))
+        int(seed) * 1_000_003 + int(step) + (int(rank) << 40))
 
 
 def make_train_step(tx: TransformerTx):

@@ -1,35 +1,48 @@
 """The image-family host loop: ``python -m mpi_tensorflow_torch``'s
 zero-flag path (the reference MPI script's ``Cnn.run_process``).
 
-Counterpart of ``mpi_tensorflow_tpu/train/loop.py`` in ``psum`` mode,
-with ``num_shards`` shards in one process in place of the JAX mesh's
-``data`` axis:
+Counterpart of ``mpi_tensorflow_tpu/train/loop.py``.  The JAX mesh's
+``data`` axis is the ``torch.distributed`` world (one rank per card,
+``parallel.mesh``), or, with no process group, ``num_shards`` shards in
+one process (``psum`` only):
 
 - per-shard contiguous layout (shard i owns train rows ``[i*local_n,
-  (i+1)*local_n)``), ``num_steps = epochs * local_n // batch_size``,
-  and one decay of the LR per local epoch;
-- sequential wraparound batching per shard, no shuffling: the global
-  batch of each step is every shard's window concatenated
+  (i+1)*local_n)``; every rank loads the same split and keeps its own
+  shard), ``num_steps = epochs * local_n // batch_size``, and one decay
+  of the LR per local epoch;
+- sequential wraparound batching per shard, no shuffling
   (``data/prefetch.assemble_window``);
+- ``psum``: the gradients averaged every step (``train/step.py``);
+  ``avg50``: each rank steps its own replica, and the replicas'
+  parameters and velocity are averaged at every trace point but the
+  last (mpipy.py:91); the replicas start from rank 0's parameters;
 - a trace point at ``(t > 0 and t % log_every == 0) or t ==
-  num_steps - 1``: the test set is evaluated (off the timed span) and
-  one line per shard printed in the reference's format;
+  num_steps - 1``, in the JAX loop's order: stop the timer, evaluate
+  the test set (each rank its rows of every window,
+  ``evaluation.eval_sharded``), print one line per shard, average
+  (avg50), check early stopping on the averaged state, restart the
+  timer.  Rank 0 alone prints, so a W-rank run prints what the JAX loop
+  prints on a W-device mesh;
 - windows of K = ``fused_steps + 1`` steps (1 when ``fused_steps`` is
-  1) ending on the trace cadence (``window_schedule``), assembled
-  inline, uploaded once and stepped through one step after another.
-  The reference runs each window as one scanned dispatch; a CUDA graph
-  per window would be the counterpart and is not built yet (nor is the
-  reference's background assembly: ``prefetch`` is accepted and has no
-  effect until a window costs the host little enough to hide it);
+  1; always 1 under avg50, as in the reference) ending on the trace
+  cadence (``window_schedule``), assembled inline, uploaded once and
+  stepped through one step after another.  The reference runs each
+  window as one scanned dispatch; a CUDA graph per window would be the
+  counterpart and is not built yet (nor is the reference's background
+  assembly: ``prefetch`` is accepted and has no effect);
 - early stopping on the validation split when ``early_stop_patience >
-  0``.
+  0`` (every rank reaches the same verdict from the gathered
+  predictions).
 
-Timing: ``StepTimer(warmup_steps=1)`` with the card synchronised at
-every trace point, so each span is the device work it queued; the first
-span (the first window) is skipped.  Batches go to
-the device named by ``device`` (``cuda`` unless the caller asks for the
-CPU); nothing falls back.  Checkpoints, preemption and the metrics sink
-are ROADMAP Queue 1 item 15.
+Timing: ``StepTimer(warmup_steps=1)`` with this rank's card
+synchronised at every trace point, so each span is the device work it
+queued; the first span (the first window) is skipped.  Rank 0's time is
+the one reported, as the JAX loop reports process 0's: under psum the
+per-step all-reduce keeps the ranks in step, under avg50 they meet only
+at the trace points.  ``images_per_sec`` counts the global batch, batch
+x shards.  Batches go to the device named by ``device`` (``cuda``
+unless the caller asks for the CPU); nothing falls back.  Checkpoints,
+preemption and the metrics sink are ROADMAP Queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from mpi_tensorflow_torch.config import Config
 from mpi_tensorflow_torch.data import mnist, prefetch, sharding
 from mpi_tensorflow_torch.data.idx import error_rate
 from mpi_tensorflow_torch.models import cnn
+from mpi_tensorflow_torch.parallel import mesh as meshlib
 from mpi_tensorflow_torch.train import evaluation, step as step_lib
 from mpi_tensorflow_torch.train.gspmd import step_generator
 from mpi_tensorflow_torch.utils import logging as logs
@@ -58,7 +72,7 @@ class TrainResult:
     final_test_error: float
     images_per_sec: float
     step_time_seconds: float
-    num_devices: int       # shards
+    num_devices: int       # shards: ranks x shards in a process
     num_steps: int
     final_loss: float      # the last step's training loss
     device: str            # the card's name, or "cpu"
@@ -115,16 +129,29 @@ def window_schedule(num_steps: int, log_every: int, window_k: int,
 def train(config: Config, model=None, splits: Optional[mnist.Splits] = None,
           num_shards: Optional[int] = None, verbose: bool = True,
           device="cuda") -> TrainResult:
-    """Data-parallel training of ``model`` (default: ``build_model``)
-    over ``num_shards`` shards in one process (default: the config's
-    data axis, 1) on ``device``."""
+    """Data-parallel training of ``model`` (default: ``build_model``) on
+    ``device``: one shard per rank of the process group, or, without
+    one, ``num_shards`` shards in one process (default 1).
+    ``config.mesh_shape`` must give the ``data`` axis the world size."""
+    world = meshlib.data_axis_size(meshlib.make_mesh(config.mesh_shape))
+    rank = meshlib.process_index()
+    across_ranks = meshlib.active()
+    if across_ranks and num_shards not in (None, 1):
+        raise ValueError(f"a rank holds one shard; num_shards={num_shards} "
+                         f"is the in-process data axis")
+    local_shards = num_shards or 1
+    avg50 = config.sync == "avg50"
+    if avg50 and local_shards > 1:
+        raise ValueError("avg50 runs one replica per rank: launch "
+                         f"{local_shards} ranks, not num_shards="
+                         f"{local_shards} in one process")
+    ndev = world * local_shards
+    say = verbose and rank == 0
     model = model if model is not None else build_model(config)
     dev = resolve_device(device)
     model = model.to(dev)
-    ndev = num_shards if num_shards is not None else int(
-        (config.mesh_shape or {}).get("data", 1))
     if splits is None:
-        splits = load_dataset(config, ndev, verbose=verbose)
+        splits = load_dataset(config, ndev, verbose=say)
     b = config.batch_size
 
     local_n = splits.train_labels.shape[0] // ndev
@@ -133,14 +160,23 @@ def train(config: Config, model=None, splits: Optional[mnist.Splits] = None,
     tr_d = splits.train_data[:local_n * ndev].reshape(
         ndev, local_n, *splits.train_data.shape[1:])
     tr_l = splits.train_labels[:local_n * ndev].reshape(ndev, local_n)
+    mine = slice(rank * local_shards, (rank + 1) * local_shards)
+    tr_d, tr_l = tr_d[mine], tr_l[mine]
     num_steps = sharding.steps_per_run(local_n, b, config.epochs)
     global_b = b * ndev
 
+    step_lib.broadcast_params(model)
     state = step_lib.init_state(model)
-    train_step = step_lib.make_train_step(model, config, ndev,
-                                          decay_steps=local_n)
+    if avg50:
+        train_step = step_lib.make_local_train_step(model, config,
+                                                    decay_steps=local_n)
+        average = step_lib.make_average_step(state)
+    else:
+        train_step = step_lib.make_train_step(
+            model, config, local_shards, decay_steps=local_n,
+            across_ranks=across_ranks)
     eval_step = step_lib.make_eval_step(model, config)
-    fused = max(1, int(config.fused_steps or 1))
+    fused = 1 if avg50 else max(1, int(config.fused_steps or 1))
     window_k = fused + 1 if fused > 1 else 1
     dropout = getattr(model, "dropout_rate", 0.0) > 0.0
 
@@ -148,16 +184,17 @@ def train(config: Config, model=None, splits: Optional[mnist.Splits] = None,
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def generator(t):
-        return step_generator(config.seed + 1, t, dev) if dropout else None
+        return (step_generator(config.seed + 1, t, dev, rank)
+                if dropout else None)
 
     def run_eval(data):
-        return evaluation.eval_in_batches(
+        return evaluation.eval_sharded(
             lambda x: eval_step(state, put(x)).cpu().numpy(), data,
-            global_b)
+            global_b, rank, world)
 
     es_patience = int(config.early_stop_patience or 0)
     es_usable = es_patience > 0 and splits.val_labels.shape[0] >= global_b
-    if es_patience > 0 and not es_usable and verbose:
+    if es_patience > 0 and not es_usable and say:
         print(f"[early-stop] DISABLED: validation split "
               f"({splits.val_labels.shape[0]} rows) is smaller than the "
               f"global batch ({global_b}) — --early-stop-patience ignored")
@@ -168,14 +205,14 @@ def train(config: Config, model=None, splits: Optional[mnist.Splits] = None,
         if not es_usable:
             return False
         val_err = error_rate(run_eval(splits.val_data), splits.val_labels)
-        if verbose:
+        if say:
             logs.val_trace(0, val_err)
         if val_err < es_best - 1e-12:
             es_best, es_bad = val_err, 0
             return False
         es_bad += 1
         if es_bad >= es_patience:
-            if verbose:
+            if say:
                 print(f"[early-stop] validation error has not improved for "
                       f"{es_patience} trace points (best {es_best:.2f}%)")
             return True
@@ -186,7 +223,7 @@ def train(config: Config, model=None, splits: Optional[mnist.Splits] = None,
     metrics = {}
     pending = 0                 # steps queued since the span started
 
-    if verbose:
+    if say:
         logs.session_start(0)
     timer.start()
     for t0, w in zip(*window_schedule(num_steps, config.log_every,
@@ -200,22 +237,24 @@ def train(config: Config, model=None, splits: Optional[mnist.Splits] = None,
         t = t0 + w - 1
         if not is_trace_step(t, config.log_every, num_steps):
             continue
-        # close the timed span, evaluate off it, trace
+        # close the timed span, evaluate off it, trace, average
         timer.stop(pending)
         pending = 0
         preds = run_eval(splits.test_data)
         history.append((t, error_rate(preds, splits.test_labels)))
-        if verbose:
+        if say:
             for r, e in enumerate(evaluation.shard_error_rates(
                     preds, splits.test_labels, ndev)):
                 logs.step_trace(r, t, e)
+        if avg50 and t != num_steps - 1:           # mpipy.py:91
+            state = average(state)
         if t != num_steps - 1 and check_early_stop():
             break
         timer.start()
 
     final_err = history[-1][1] if history else float("nan")
     ips = timer.images_per_sec(global_b)
-    if verbose:
+    if say:
         logs.timing_summary(ips, timer.mean_step_seconds * 1e3, ndev)
     return TrainResult(
         state=state, history=history, final_test_error=final_err,

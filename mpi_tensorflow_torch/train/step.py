@@ -1,26 +1,36 @@
-"""The image-family train and eval steps: synchronous SGD (``psum``).
+"""The image-family train and eval steps: synchronous SGD (``psum``) and
+the reference's periodic averaging (``avg50``).
 
-Counterpart of the psum path of ``mpi_tensorflow_tpu/train/step.py``:
-the loss (mean sparse-softmax cross-entropy plus ``weight_decay`` times
-the L2 of the model's regularised subset), its gradients, then the TF
-momentum update under the reference's staircase schedule.
+Counterpart of ``mpi_tensorflow_tpu/train/step.py``: the loss (mean
+sparse-softmax cross-entropy plus ``weight_decay`` times the L2 of the
+model's regularised subset), its gradients, then the TF momentum update
+under the reference's staircase schedule.
 
-Shards in one process.  The reference runs one shard per device:
-every shard takes the mean loss of its own batch window, the gradients
-are summed over the ``data`` axis and divided by its size.  Here the
-global batch is the ``num_shards`` windows concatenated in shard order
-(the layout ``train.loop`` builds), and one ``backward`` of the mean
-loss over it gives that same gradient: with equal shards the mean of
-the per-shard mean losses IS the global mean, and the L2 term, the same
-on every shard, survives the division unchanged.  Only the order of the
-float32 sums differs.  The data axis over ``torch.distributed`` and the
-``avg50`` mode (per-shard SGD with periodic averaging) are ROADMAP
-Queue 1 items 7-10, slice B.
+``psum``, across ranks (``across_ranks=True``, one shard per rank of
+the ``torch.distributed`` world): each rank takes the mean loss of its
+own batch window and its gradients, then ONE all-reduce sums the eight
+gradients and the loss, packed back to back in one preallocated float32
+buffer, and divides by the world size (the reference's ``psum`` then
+``/ axis_size``, ``step.py:138-143``).  The L2 term's gradient is the
+same on every rank, so the division keeps it.
+
+``psum``, shards in one process (``num_shards`` > 1, no process group):
+the global batch is the ``num_shards`` windows concatenated in shard
+order, and one ``backward`` of the mean loss over it gives that same
+gradient: with equal shards the mean of the per-shard mean losses IS
+the global mean.  Only the order of the float32 sums differs.
+
+``avg50``: each rank steps its own replica with no communication
+(``make_local_train_step``), and ``make_average_step`` replaces the
+parameters and momentum velocity of every rank with their mean at the
+loop's trace points (the reference's ``bcast_parameters`` with its
+missing broadcast supplied).  One process is one card here, so the JAX
+package's virtual shards of a stacked state have no counterpart: avg50
+runs one replica per rank.
 
 The reference folds its dropout key with the shard index and the step;
-the port draws one mask over the global batch from a generator seeded
-by ``(seed + 1, step)`` (``train.gspmd.step_generator``), equal in
-distribution.
+the port draws each rank's mask from a generator seeded by ``(seed + 1,
+rank, step)`` (``train.gspmd.step_generator``), equal in distribution.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from mpi_tensorflow_torch.models import base
+from mpi_tensorflow_torch.parallel import collectives
 from mpi_tensorflow_torch.train.optimizer import (MomentumState,
                                                   momentum_apply,
                                                   momentum_init,
@@ -74,17 +85,37 @@ def make_loss_fn(model, config):
     return loss_fn
 
 
-def make_train_step(model, config, num_shards: int, decay_steps: int):
+def _flat_buffer(tensors: list, extra: int = 0):
+    """``(buffer, views)``: one float32 buffer on the tensors' device
+    holding their elements back to back, then ``extra`` more, and a
+    view of it shaped like each tensor."""
+    sizes = [t.numel() for t in tensors]
+    buf = torch.empty(sum(sizes) + extra, dtype=torch.float32,
+                      device=tensors[0].device)
+    return buf, [v.view_as(t) for v, t in zip(
+        buf[:sum(sizes)].split(sizes), tensors)]
+
+
+def make_train_step(model, config, num_shards: int, decay_steps: int,
+                    across_ranks: bool = False):
     """``train_step(state, batch, labels, generator) -> (state, {"loss":
     float32 scalar tensor, "lr": float32})`` for ``state.model is
     model``: ``batch`` (num_shards x batch_size, H, W, C) holds the
     shards' windows in shard order, ``labels`` their int64 labels;
-    ``generator`` feeds dropout (None when the model has none).  The LR
+    ``generator`` feeds dropout (None when the model has none).  With
+    ``across_ranks`` the batch is this rank's one shard and the
+    gradients and the loss are averaged over the process group.  The LR
     is read at the step counter before the update, as the reference
     reads it; the loss stays on the device."""
+    if across_ranks and num_shards != 1:
+        raise ValueError(f"a rank holds one shard; num_shards={num_shards} "
+                         f"is the in-process data axis")
     schedule = reference_schedule(config, decay_steps)
     loss_fn = make_loss_fn(model, config)
     params = _params(model)
+    if across_ranks:
+        # the gradients, then the loss, in one buffer: one all-reduce
+        buf, grad_views = _flat_buffer(params, extra=1)
 
     def train_step(state: TrainState, batch, labels, generator=None):
         if batch.shape[0] % num_shards:
@@ -93,17 +124,63 @@ def make_train_step(model, config, num_shards: int, decay_steps: int):
         loss, new_state = loss_fn(state.model_state, batch, labels,
                                   generator)
         grads = torch.autograd.grad(loss, params)
+        loss = loss.detach()
+        if across_ranks:
+            torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)],
+                      out=buf)
+            collectives.allreduce_mean(buf)
+            grads, loss = grad_views, buf[-1].clone()
         lr = schedule(state.opt.step)
         momentum_apply(params, grads, state.opt, lr, config.momentum)
         state.model_state = new_state
-        return state, {"loss": loss.detach(), "lr": lr}
+        return state, {"loss": loss, "lr": lr}
 
     return train_step
 
 
+def make_local_train_step(model, config, decay_steps: int):
+    """avg50's step: this rank's replica alone, no communication, as
+    each MPI rank of the reference steps between syncs (mpipy.py:79-91).
+    """
+    return make_train_step(model, config, 1, decay_steps)
+
+
+def make_average_step(state: TrainState):
+    """``average(state) -> state``: the mean over the ranks of the
+    parameters and the momentum velocity, given to every rank (the
+    corrected ``bcast_parameters``, mpipy.py:95-153), as one all-reduce
+    of both packed in one preallocated buffer, divided by the world
+    size.  The JAX package ``pmean``s the float32 step counter too; it
+    is the same number on every rank (every rank takes every step of
+    the schedule), so its mean is itself and the port leaves it."""
+    buf, views = _flat_buffer(_params(state.model) + state.opt.velocity)
+
+    @torch.no_grad()
+    def average(state: TrainState) -> TrainState:
+        tensors = _params(state.model) + state.opt.velocity
+        torch.cat([t.reshape(-1) for t in tensors], out=buf)
+        collectives.allreduce_mean(buf)
+        torch._foreach_copy_(tensors, views)
+        return state
+
+    return average
+
+
+def broadcast_params(model) -> None:
+    """Every rank's parameters become rank 0's, so the replicas start
+    identical by construction (the JAX package's replicated ``P()``
+    state)."""
+    with torch.no_grad():
+        for p in _params(model):
+            collectives.pbroadcast(p)
+
+
 def make_eval_step(model, config):
     """``eval_step(state, batch) -> softmax probabilities (N, classes)``:
-    the forward without dropout, without gradients."""
+    the forward without dropout, without gradients.  Each rank predicts
+    with its own replica, so under avg50 this is also the reference's
+    ``make_stacked_eval_step``; ``train.evaluation.eval_sharded`` gives
+    each rank its rows."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):

@@ -3,10 +3,11 @@
 Integer and host logic must match exactly: the zero-flag ``Config`` and
 the CLI's ``--fused-steps`` default, the synthetic MNIST bytes and the
 splits at 1 and 4 shards, ``assemble_window``, the window schedule the
-reference's windowed loop hands its prefetcher, ``eval_in_batches`` with
-a tail window and ``shard_error_rates``, the staircase LR in float32
-at every step across decay boundaries, and the profile's ``conv``
-category (cuDNN's convolution kernels only).
+reference's windowed loop hands its prefetcher, ``eval_in_batches``
+(the port's ``eval_sharded`` on one rank) with a tail window and
+``shard_error_rates``, the staircase LR in float32 at every step across
+decay boundaries, and the profile's ``conv`` category (cuDNN's
+convolution kernels only).
 
 Float parity, inputs normal x 0.3 from numpy, the reference's own
 parameters carried across by ``convert.cnn_params_from_jax``:
@@ -112,7 +113,8 @@ def test_zero_flag_config_matches_reference():
 @pytest.mark.parametrize("argv,fused", [
     ([], 50), (["--log-every", "10"], 10), (["--fused-steps", "1"], 1),
     (["--data-dir", "/x", "--early-stop-patience", "3", "--prefetch", "off",
-      "--mesh", "data=1", "--epochs", "1", "--base-lr", "0.1"], 50)])
+      "--mesh", "data=1", "--epochs", "1", "--base-lr", "0.1"], 50),
+    (["--sync", "avg50"], 1)])
 def test_cli_config_and_fused_steps_default(argv, fused):
     want = jax_cli.config_from_args(jax_cli.build_parser().parse_args(argv))
     got = cli.config_from_args(cli.build_parser().parse_args(argv))
@@ -121,16 +123,33 @@ def test_cli_config_and_fused_steps_default(argv, fused):
     assert got.fused_steps == fused
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--sync", "avg50"], "slice B"), (["--mesh", "data=4"], "slice B"),
-    (["--prefetch", "native"], "item 15"),
-    (["--checkpoint-dir", "/x"], "item 15"), (["--resume"], "item 15"),
-    (["--metrics-dir", "/x"], "item 15"),
-    (["--dataset", "cifar10"], "item 14a"),
-    (["--model", "resnet50"], "item 14a"), (["--model", "vit"], "item 14")])
-def test_unported_values_raise_naming_their_item(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(argv + ["--device", "cpu"])
+@pytest.mark.parametrize("argv,error,match", [
+    # ported: a data axis the world (one process here) cannot hold
+    # raises, and avg50 on a data axis of one trains
+    (["--mesh", "data=4"], ValueError, "needs 4 processes"),
+    (["--sync", "avg50", "--mesh", "data=1", "--epochs", "1"], None,
+     "0  process at  14 with test error"),
+    (["--prefetch", "native"], NotImplementedError, "item 15"),
+    (["--checkpoint-dir", "/x"], NotImplementedError, "item 15"),
+    (["--resume"], NotImplementedError, "item 15"),
+    (["--metrics-dir", "/x"], NotImplementedError, "item 15"),
+    (["--dataset", "cifar10"], NotImplementedError, "item 14a"),
+    (["--model", "resnet50"], NotImplementedError, "item 14a"),
+    (["--model", "vit"], NotImplementedError, "item 14")])
+def test_unported_values_raise_naming_their_item(argv, error, match,
+                                                 mnist_dir, monkeypatch):
+    """Each value raises naming its ROADMAP item; a run that trains reads
+    the 1200/256-row synthetic MNIST (15 steps of 64, one trace point)."""
+    monkeypatch.setattr(mnist, "load_splits", functools.partial(
+        mnist.load_splits, train_n=1200, test_n=256))
+    argv = argv + ["--device", "cpu", "--data-dir", mnist_dir]
+    if error is not None:
+        with pytest.raises(error, match=match):
+            cli.main(argv)
+        return
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        assert cli.main(argv) == 0
+    assert match in out.getvalue() and "[timing]" in out.getvalue()
 
 
 def test_zero_flag_run_without_a_card_raises(monkeypatch, tmp_path):
@@ -240,13 +259,13 @@ def test_eval_in_batches_tail_and_shard_error_rates():
         return (z / z.sum(-1, keepdims=True)).astype(np.float32)
 
     want = jax_evaluation.eval_in_batches(predict, data, 8)
-    got = evaluation.eval_in_batches(predict, data, 8)
+    got = evaluation.eval_sharded(predict, data, 8, 0, 1)   # one rank
     assert want.tobytes() == got.tobytes()
     for k in (1, 3, 4):
         assert (evaluation.shard_error_rates(got, labels, k)
                 == jax_evaluation.shard_error_rates(want, labels, k))
     with pytest.raises(ValueError, match="larger than dataset"):
-        evaluation.eval_in_batches(predict, data[:5], 8)
+        evaluation.eval_sharded(predict, data[:5], 8, 0, 1)
 
 
 @pytest.mark.parametrize("batch,decay_steps,steps", [
