@@ -125,7 +125,30 @@ fails:
    the mean of the gathered replicas; final error < 30 % and <= the
    first; 11c: ``python -m mpi_tensorflow_torch.bench --mode allreduce``
    (a world of one over NCCL: a launch and a copy on the card, not a
-   link), its line printed.
+   link), its line printed;
+12. data-parallel BERT-base MLM training (``train.gspmd`` across the
+   ranks; each case in processes of its own, as in phase 11) — 12a: NCCL
+   at world size 1, ``cli.main`` in a torchrun rank as ``torchrun
+   --nproc_per_node 1 -m mpi_tensorflow_torch --model bert_base
+   --seq-len 4096 --batch-size 4 --precision bf16`` runs it, at phase
+   7's 8 steps and trace points, plain and with ``--grad-accum 2``: each
+   flash kernel's launches counted from 0 (12 layers x steps x
+   microbatches, the forward's eval forwards too), a finite loss, the
+   reference's trace and ``[timing]`` lines; tokens/s, step ms, MFU,
+   peak GiB and bytes at rest beside phase 7's; then the step across the
+   one rank against the one-process step (float32, 2 layers at full
+   width, S = 512 with the flash kernels, 3 steps from the seed-0
+   state) within ``DP_TOL``, bit-equality printed; 12b: two ranks on
+   ``cuda:0`` over gloo, the same 3 steps in each layout of
+   ``DP_CASES`` (replicated, ``grad_accum`` 2, zero1, fsdp), each rank
+   feeding its rows of every global batch, against the one-process step
+   on the global rows and (zero1, fsdp) against replicated, within
+   ``DP_TOL``; each rank's bytes at rest: zero1's moments and fsdp's
+   parameters + moments 0.50-0.51 of a replica's, every leaf that stays
+   whole under 1024 elements; 12c: ``python -m mpi_tensorflow_torch.bench
+   --mode train --model bert_base --seq-len 4096 --batch-size 4
+   --precision bf16``, plain and under ``torchrun --nproc_per_node 1``,
+   each line printed.
 
 Prints one ``kernels`` JSON line, then the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a card it
@@ -997,9 +1020,10 @@ def time_flash(dev) -> dict:
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_N, TEST_N, LOG_EVERY = 4096, 4, 32, 8, 4
 
 
-def train_full_width(dev) -> dict:
+def train_full_width(dev) -> tuple:
     """BERT_BASE widths, bf16, S=4096, batch 4, dropout 0.1, through
-    ``train_mlm``.  Returns the flash launches of the run."""
+    ``train_mlm``.  Returns the flash launches of the run and its
+    numbers."""
     from mpi_tensorflow_torch.config import Config
     from mpi_tensorflow_torch.models import bert
     from mpi_tensorflow_torch.train import mlm_loop
@@ -1031,7 +1055,7 @@ def train_full_width(dev) -> dict:
     if [t for t, _ in res.history] != [4, 7]:
         raise AssertionError(f"unexpected history {res.history}")
     model_flops = flops.transformer_train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    log("[train] " + json.dumps({
+    stats = {
         "layers": cfg.layers, "hidden": cfg.hidden, "heads": cfg.heads,
         "vocab": cfg.vocab_size, "precision": "bf16", "seq_len": TRAIN_SEQ,
         "batch": TRAIN_BATCH, "dropout": cfg.dropout, "steps": steps,
@@ -1041,8 +1065,9 @@ def train_full_width(dev) -> dict:
         "model_flops_per_step": model_flops,
         "mfu_bf16": flops.mfu(model_flops, res.step_time_seconds, "bf16"),
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-        "launches": launches}))
-    return launches
+        "launches": launches}
+    log("[train] " + json.dumps(stats))
+    return launches, stats
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1963,6 +1988,312 @@ def dp_phase(card: str, cnn: dict) -> dict:
             "gloo_steps": gloo_steps, "avg50": avg, "bench": bench}
 
 
+# --------------------------------------------------------------- phase 12
+
+# 12a: the data-parallel BERT trainer through the CLI in a torchrun rank,
+# at phase 7's shape and cadence: 8 steps (32 train rows, batch 4), trace
+# points at steps 4 and 7 (the timer skips the first span, so one point
+# would leave no step timed), 2 held-out forwards of 4 rows at each
+DP_BERT_ARGS = ["--model", "bert_base", "--seq-len", str(TRAIN_SEQ),
+                "--batch-size", str(TRAIN_BATCH), "--precision", "bf16",
+                "--epochs", "1", "--train-n", str(TRAIN_N), "--test-n",
+                str(TEST_N), "--log-every", str(LOG_EVERY)]
+DP_BERT_STEPS, DP_BERT_EVALS = TRAIN_N // TRAIN_BATCH, 4
+# 12a's world-1 check and 12b: float32, 2 layers at full width, S = 512
+# with the flash kernels taken from there (the CUDA-core kernels in
+# float32), dropout 0, global batch 4, 3 steps of transformer_tx(1e-4)
+# from a common state (phase 8's recipe and tolerances: a loss within
+# 1e-4, every parameter within 1e-5, bk within 3 x lr -- its gradient is
+# zero in exact arithmetic and adamw normalises each run's float noise)
+DP_SEQ, DP_GLOBAL_B, DP_STEPS, DP_LR = 512, 4, 3, 1e-4
+DP_TOL = {"loss": 1e-4, "param": 1e-5, "bk": 3 * DP_LR}
+DP_CASES = (("replicated", "replicated", 1), ("accum2", "replicated", 2),
+            ("zero1", "zero1", 1), ("fsdp", "fsdp", 1))
+
+
+def dp_bert_cfg():
+    from mpi_tensorflow_torch.models import bert
+
+    return dataclasses.replace(bert.BERT_BASE, layers=2, dropout=0.0,
+                               flash_min_seq=DP_SEQ)
+
+
+def dp_bert_batches():
+    """``DP_STEPS`` global batches of ``DP_GLOBAL_B`` rows (numpy)."""
+    from mpi_tensorflow_torch.data import synthetic
+
+    tokens, targets, mask = synthetic.mlm_batches(
+        DP_STEPS * DP_GLOBAL_B, seq_len=DP_SEQ,
+        vocab_size=dp_bert_cfg().vocab_size, seed=5)
+    shape = (DP_STEPS, DP_GLOBAL_B, DP_SEQ)
+    return tokens.reshape(shape), targets.reshape(shape), mask.reshape(shape)
+
+
+def dp_bert_run(dev, kind: str, accum: int, rows, across: bool) -> dict:
+    """``DP_STEPS`` steps of ``dp_bert_cfg`` from the seed-0 state in
+    ``kind``'s layout, feeding ``rows`` of each global batch: the losses,
+    the whole parameters after them (on the card) and the bytes at rest.
+    """
+    from mpi_tensorflow_torch.models import bert
+    from mpi_tensorflow_torch.train import gspmd, optimizer
+
+    tokens, targets, mask = dp_bert_batches()
+    model = bert.BertMlm.from_seed(dp_bert_cfg(), 0).to(dev)
+    tx = optimizer.transformer_tx(DP_LR, DP_STEPS)
+    state = gspmd.init_for(kind, model, tx)
+    step = gspmd.make_train_step(tx, grad_accum=accum, across_ranks=across)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev)
+    losses = []
+    for t in range(DP_STEPS):
+        state, m = step(state, {"tokens": put(tokens[t]),
+                                "mask": put(mask[t])}, put(targets[t]))
+        losses.append(m["loss"])
+    with gspmd.full_params(state) as whole:
+        params = {n: p.detach().clone() for n, p in whole.named_parameters()}
+    return {"losses": torch.stack(losses), "params": params,
+            "bytes": gspmd.bytes_at_rest(state)}
+
+
+def dp_bert_diff(got: dict, want: dict) -> dict:
+    """The largest differences of two ``dp_bert_run`` results, and
+    whether they are bit-equal."""
+    loss = float((got["losses"] - want["losses"]).abs().max())
+    param, bk = 0.0, 0.0
+    for n, p in got["params"].items():
+        e = float((p - want["params"][n]).abs().max())
+        if n.endswith(".bk"):
+            bk = max(bk, e)
+        else:
+            param = max(param, e)
+    equal = bool(torch.equal(got["losses"], want["losses"])) and all(
+        torch.equal(p, want["params"][n]) for n, p in got["params"].items())
+    return {"loss": loss, "param": param, "bk": bk, "bit_equal": equal}
+
+
+def dp_bert_within(diff: dict) -> bool:
+    return all(diff[k] <= DP_TOL[k] for k in DP_TOL)
+
+
+def worker_bert_train(backend: str) -> None:
+    """12a: ``python -m mpi_tensorflow_torch --model bert_base``'s path
+    (``cli.main`` in this rank, in the world joined here) at phase 7's
+    shape, with each flash kernel's launches counted, plain and with
+    ``--grad-accum 2``; then the step across the ranks against the
+    one-process step from the seed-0 state."""
+    from mpi_tensorflow_torch import cli
+    from mpi_tensorflow_torch.parallel import mesh
+    from mpi_tensorflow_torch.train import gspmd, mlm_loop
+    from mpi_tensorflow_torch.utils import flops
+
+    dev, rank, world = join_world(backend)
+    torch.empty(0, device=dev)           # the allocator up, for its stats
+    runs = {}
+    real_train = mlm_loop.train_mlm
+    for accum in (1, 2):
+        results = []
+
+        def recorded(*a, **kw):
+            results.append(real_train(*a, **kw))
+            return results[-1]
+
+        mlm_loop.train_mlm = recorded
+        torch.cuda.reset_peak_memory_stats(dev)
+        set_flash_counts({k: 0 for k in FLASH})
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                cli.main([*DP_BERT_ARGS, "--grad-accum", str(accum),
+                          "--device", str(dev)])
+        finally:
+            mlm_loop.train_mlm = real_train
+        torch.cuda.synchronize(dev)
+        (res,) = results
+        model_flops = flops.transformer_train_flops(
+            res.state.model.cfg, TRAIN_BATCH, TRAIN_SEQ)
+        runs[accum] = {
+            "launches": flash_counts(), "steps": res.num_steps,
+            "history": res.history, "final_loss": res.final_loss,
+            "step_ms": res.step_time_seconds * 1e3,
+            "tokens_per_sec": res.tokens_per_sec,
+            "mfu_bf16": flops.mfu(model_flops, res.step_time_seconds,
+                                  "bf16"),
+            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "bytes_at_rest": gspmd.bytes_at_rest(res.state),
+            "num_devices": res.num_devices,
+            "lines": out.getvalue().splitlines()}
+        del res, results
+    rows = np.arange(DP_GLOBAL_B)
+    across = dp_bert_run(dev, "replicated", 1, rows, True)
+    plain = dp_bert_run(dev, "replicated", 1, rows, False)
+    again = dp_bert_run(dev, "replicated", 1, rows, False)
+    if rank == 0:
+        print(DP_RESULT + json.dumps({
+            "case": "bert_train", "backend": backend, "world": world,
+            "device": str(dev), "runs": runs,
+            "dp_vs_plain": dp_bert_diff(across, plain),
+            "plain_repeatable": dp_bert_diff(again, plain)["bit_equal"]}),
+            flush=True)
+    mesh.shutdown()
+
+
+def worker_bert_steps(backend: str) -> None:
+    """12b: ``DP_STEPS`` steps of each layout of ``DP_CASES`` across the
+    ranks, each rank feeding its rows of every global batch, against the
+    one-process step on the whole global batch (with the same
+    accumulation), and zero1 and fsdp against replicated; each rank's
+    bytes at rest."""
+    from mpi_tensorflow_torch.parallel import collectives, fsdp, mesh
+    from mpi_tensorflow_torch.train import mlm_loop
+
+    dev, rank, world = join_world(backend)
+    whole = np.arange(DP_GLOBAL_B)
+    runs, plain = {}, {}
+    t0 = time.perf_counter()
+    for name, kind, accum in DP_CASES:
+        rows = mlm_loop.rank_rows(0, DP_GLOBAL_B, accum, rank, world)
+        runs[name] = dp_bert_run(dev, kind, accum, rows, True)
+    sec = time.perf_counter() - t0
+    bytes_at_rest = collectives.host_allgather(np.array(
+        [[runs[n]["bytes"][k] for k in ("params", "moments",
+                                         "replica_params",
+                                         "replica_moments")]
+         for n, _, _ in DP_CASES], dtype=np.int64)).tolist()
+    if rank != 0:
+        mesh.shutdown()
+        return
+    for accum in (1, 2):         # rank 0 alone: no collective
+        plain[accum] = dp_bert_run(dev, "replicated", accum, whole, False)
+    shapes = {n: tuple(p.shape) for n, p in
+              runs["replicated"]["params"].items()}
+    counts = dp_bert_batches()[2].reshape(DP_STEPS, world, -1).sum(-1)
+    print(DP_RESULT + json.dumps({
+        "case": "bert_steps", "backend": backend, "world": world,
+        "device": str(dev), "seconds": sec,
+        "masked_counts_by_rank": counts.tolist(),
+        "vs_plain": {name: dp_bert_diff(runs[name], plain[accum])
+                     for name, _, accum in DP_CASES},
+        "vs_replicated": {name: dp_bert_diff(runs[name],
+                                             runs["replicated"])
+                          for name in ("zero1", "fsdp")},
+        "losses": runs["replicated"]["losses"].tolist(),
+        "bytes": bytes_at_rest,
+        "replicated_leaves": sorted(
+            int(np.prod(s)) for s in shapes.values()
+            if fsdp.shard_dim(s, world) is None)}), flush=True)
+    mesh.shutdown()
+
+
+WORKERS.update(bert_train=worker_bert_train, bert_steps=worker_bert_steps)
+
+
+def bert_dp_phase(card: str, phase7: dict) -> dict:
+    """Phase 12: data-parallel BERT-base training.  12a: NCCL at world
+    size 1 through the CLI, the flash kernels counted, beside phase 7;
+    12b: two ranks on ``cuda:0`` over gloo, every layout against the
+    one-process step; 12c: the bench's BERT line, plain and under
+    torchrun."""
+    me = os.path.abspath(__file__)
+    # 12a
+    res = dp_result(torchrun(1, [me, "--worker", "bert_train", "nccl"], 600))
+    problems = []
+    for accum, run in res["runs"].items():
+        accum = int(accum)
+        steps = run["steps"]
+        want = {"flash_fwd": 12 * (steps * accum + DP_BERT_EVALS),
+                "flash_dq": 12 * steps * accum,
+                "flash_dkdv": 12 * steps * accum}
+        if steps != DP_BERT_STEPS or run["launches"] != want:
+            problems.append(f"grad_accum {accum}: {steps} steps, flash "
+                            f"launches {run['launches']} != {want}")
+        trace = check_trace(run["lines"], 1, [LOG_EVERY, DP_BERT_STEPS - 1],
+                            f"torchrun BERT, grad_accum {accum}")
+        if not np.isfinite(run["final_loss"]) or run["num_devices"] != 1 \
+                or not any(ln.startswith("[timing]") and
+                           ln.endswith("| 1 device(s)")
+                           for ln in run["lines"]):
+            problems.append(f"grad_accum {accum}: loss {run['final_loss']}, "
+                            f"lines {run['lines']}")
+        log(f"[dp bert] torchrun --nproc_per_node 1 -m mpi_tensorflow_torch "
+            f"{' '.join(DP_BERT_ARGS)} --grad-accum {accum} (NCCL, world "
+            f"1): {steps} steps, trace {trace}, final loss "
+            f"{run['final_loss']:.4f}; flash launches {run['launches']} "
+            f"(12 layers x {steps} steps x {accum} microbatch(es), fwd + "
+            f"{DP_BERT_EVALS} eval forwards); {run['tokens_per_sec']:.1f} "
+            f"tokens/s, step {run['step_ms']:.3f} ms, MFU "
+            f"{100 * run['mfu_bf16']:.2f} %, peak "
+            f"{run['peak_memory_gib']:.3f} GiB, at rest "
+            f"{json.dumps(run['bytes_at_rest'])}; phase 7's one-process run "
+            f"in this call: {phase7['tokens_per_sec']:.1f} tokens/s, step "
+            f"{phase7['step_ms']:.3f} ms, MFU {100 * phase7['mfu_bf16']:.2f}"
+            f" %, peak {phase7['peak_memory_gib']:.3f} GiB; {card}")
+    diff = res["dp_vs_plain"]
+    log(f"[dp bert] the step across 1 rank (NCCL) against the one-process "
+        f"step, float32, 2 layers at full width, S={DP_SEQ}, B="
+        f"{DP_GLOBAL_B}, {DP_STEPS} steps from the seed-0 state: "
+        f"{json.dumps(diff)} (tolerance {DP_TOL}); the one-process step "
+        f"bit-equal to itself: {res['plain_repeatable']}")
+    if not dp_bert_within(diff):
+        problems.append(f"world-1 step against the one-process step: "
+                        f"{diff}")
+    if problems:
+        raise AssertionError(f"phase 12a: {problems}")
+    # 12b
+    steps = dp_result(torchrun(2, [me, "--worker", "bert_steps", "gloo"],
+                               600))
+    bad = {n: d for n, d in {**steps["vs_plain"],
+                             **{f"{n} vs replicated": d for n, d in
+                                steps["vs_replicated"].items()}}.items()
+           if not dp_bert_within(d)}
+    shares = {}
+    for r, per_rank in enumerate(steps["bytes"]):
+        for (name, _, _), (p, m, rp, rm) in zip(DP_CASES, per_rank):
+            shares[name, r] = {"params": p / rp, "moments": m / rm,
+                               "params+moments": (p + m) / (rp + rm),
+                               "bytes": p + m}
+    for r in range(2):
+        zero1, fsdp_share = shares["zero1", r], shares["fsdp", r]
+        if not (zero1["params"] == 1.0 and 0.5 <= zero1["moments"] < 0.51
+                and 0.5 <= fsdp_share["params+moments"] < 0.51
+                and shares["replicated", r]["params+moments"] == 1.0):
+            bad[f"bytes at rest, rank {r}"] = {
+                n: shares[n, r] for n, _, _ in DP_CASES}
+    if max(steps["replicated_leaves"]) >= 1024:
+        bad["replicated leaves"] = steps["replicated_leaves"]
+    log(f"[dp bert] 2 ranks on cuda:0 over gloo, float32, 2 layers at full "
+        f"width, S={DP_SEQ}, global batch {DP_GLOBAL_B} (masked positions "
+        f"by step and rank {steps['masked_counts_by_rank']}), {DP_STEPS} "
+        f"steps each: against the one-process step on the global rows "
+        f"{json.dumps(steps['vs_plain'])}; zero1 and fsdp against "
+        f"replicated {json.dumps(steps['vs_replicated'])} (tolerance "
+        f"{DP_TOL}); losses {steps['losses']}; the four layouts "
+        f"{steps['seconds']:.1f} s (two ranks share the card)")
+    log(f"[dp bert] bytes at rest (parameters + moments) per rank, share "
+        f"of a replica: " + "; ".join(
+            f"{n} rank {r}: params {s['params']:.4f}, moments "
+            f"{s['moments']:.4f}, both {s['params+moments']:.4f} "
+            f"({s['bytes']} B)" for (n, r), s in shares.items())
+        + f"; {len(steps['replicated_leaves'])} leaves stay whole, the "
+          f"largest of {max(steps['replicated_leaves'])} elements")
+    if bad:
+        raise AssertionError(f"phase 12b: {bad}")
+    # 12c
+    bench_args = ["-m", "mpi_tensorflow_torch.bench", "--mode", "train",
+                  "--model", "bert_base", "--seq-len", str(TRAIN_SEQ),
+                  "--batch-size", str(TRAIN_BATCH), "--precision", "bf16",
+                  "--steps", "10", "--warmup", "3"]
+    benches = {}
+    for name, out in (("plain", lambda: run_sub(
+            [sys.executable, *bench_args], 300)),
+                      ("torchrun", lambda: torchrun(1, bench_args, 300))):
+        line = json.loads(out().strip().splitlines()[-1])
+        if not (line["num_devices"] == 1 and line["step_time_ms"] > 0
+                and np.isfinite(line["final_loss"])):
+            raise AssertionError(f"phase 12c, {name}: {line}")
+        benches[name] = line
+        log(f"[dp bert bench] {name}: {json.dumps(line)}")
+    return {"bert_train": res, "bert_steps": steps, "bench": benches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda reports no card; nothing was run",
@@ -1975,6 +2306,7 @@ def main() -> int:
     from mpi_tensorflow_torch.utils.device import resolve_device
 
     resolve_device(dev)                  # TF32 off for float32 products
+    torch.empty(0, device=dev)           # the allocator up, for its stats
     build()
     worst = check_kernel(dev)
     timing = time_decode(dev)
@@ -1988,7 +2320,7 @@ def main() -> int:
     flash_worst = check_flash(dev)
     check_flash_grads(dev)
     flash_timing = time_flash(dev)
-    flash_launches = train_full_width(dev)
+    flash_launches, phase7 = train_full_width(dev)
     cross_check_train(dev)
     # no path runs the fused kernels: their counts stay at 0 through
     # every main path above, and the comparison launches below are reset
@@ -2004,6 +2336,7 @@ def main() -> int:
     fused.online_logsumexp.launches = fused_launches["logsumexp"]
     cnn = cnn_phase(dev, card)
     dp_phase(card, cnn)
+    bert_dp = bert_dp_phase(card, phase7)["bert_train"]["runs"]
     paged_src = "mpi_tensorflow_torch/ops/csrc/paged_attention.cu"
     paged_replaces = "mpi_tensorflow_tpu/ops/paged_attention_kernel.py:90"
     kernels = [{
@@ -2040,6 +2373,10 @@ def main() -> int:
             "source": "mpi_tensorflow_torch/ops/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name],
             "launches": flash_launches[name],
+            # phase 12a: the data-parallel trainer, plain and at
+            # grad_accum 2, each counted from 0
+            "launches_dp": bert_dp["1"]["launches"][name],
+            "launches_dp_accum2": bert_dp["2"]["launches"][name],
             "max_abs_err": max(flash_worst[name, torch.float32],
                                flash_worst[name, torch.bfloat16]),
             "max_abs_err_fp32": flash_worst[name, torch.float32],
@@ -2066,7 +2403,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--worker"]:     # a rank of phase 11
+    if sys.argv[1:2] == ["--worker"]:     # a rank of phase 11 or 12
         WORKERS[sys.argv[2]](sys.argv[3])
         sys.exit(0)
     sys.exit(main())

@@ -31,6 +31,28 @@ card's line):
     torchrun --nproc_per_node 4 -m mpi_tensorflow_torch.bench \\
         --mode allreduce
 
+``--mode train --model bert_base``: the counterpart of the one-step arm
+of the reference's ``measure_bert``: the BERT-base MLM train step
+(``train.gspmd``, adamw through ``transformer_tx`` at a constant 1e-4,
+dropout 0.1) at ``--batch-size`` sequences per card of ``--seq-len``
+tokens (``max_positions`` raised to it), ``--grad-accum`` microbatches
+and the ``--param-sharding`` layout, on the synthetic MLM stream in 4
+rotating banks of the global batch, each rank feeding its rows.  Under
+``torchrun`` it runs over the launched world; without a launcher on one
+card with no process group.  The mean over ``--steps`` timed steps
+(default 20, after 3 untimed) between two synchronisations of rank 0's
+card; prints one JSON line from rank 0: tokens/sec per card, step ms,
+MFU (``utils/flops.py``, the per-card batch), the card's peak allocated
+GiB and this rank's bytes at rest, the world size, and the card's line.
+The reference's bench runs ``optax.adamw(1e-4)`` without clipping; the
+port's runs the trainer's optimizer, one global norm more a step:
+
+    python -m mpi_tensorflow_torch.bench --mode train --model bert_base \\
+        --seq-len 4096 --batch-size 4 --precision bf16
+    torchrun --nproc_per_node 4 -m mpi_tensorflow_torch.bench --mode train \\
+        --model bert_base --seq-len 4096 --batch-size 4 --precision bf16 \\
+        [--grad-accum 2] [--param-sharding zero1|fsdp]
+
 The reference's scanned arm (K steps per dispatch) and the ``serving``
 mode are not ported yet (ROADMAP Queue 1 item 6).
 """
@@ -38,6 +60,7 @@ mode are not ported yet (ROADMAP Queue 1 item 6).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -48,7 +71,9 @@ import torch.distributed as dist
 
 from mpi_tensorflow_torch.config import Config
 from mpi_tensorflow_torch.parallel import collectives, mesh as meshlib
-from mpi_tensorflow_torch.train import loop, step as step_lib
+from mpi_tensorflow_torch.train import gspmd, loop, mlm_loop
+from mpi_tensorflow_torch.train import optimizer as opt_lib
+from mpi_tensorflow_torch.train import step as step_lib
 from mpi_tensorflow_torch.train.gspmd import step_generator
 from mpi_tensorflow_torch.utils import flops
 from mpi_tensorflow_torch.utils.device import (card_line, device_name,
@@ -110,6 +135,81 @@ def measure_train(model_name: str = "mnist_cnn", batch_size: int = 64,
     }
 
 
+def measure_bert(batch_size: int = 4, seq_len: int = 128,
+                 precision: str = "fp32", grad_accum: int = 1,
+                 param_sharding: str = "replicated", steps: int = 20,
+                 warmup: int = 3, device="cuda") -> dict:
+    """Mean time of one BERT-base MLM train step over the process group
+    that is up (none: one card), after ``warmup`` untimed ones."""
+    from mpi_tensorflow_torch.data import synthetic
+    from mpi_tensorflow_torch.models import bert
+
+    dev = resolve_device(device)
+    world, rank = meshlib.process_count(), meshlib.process_index()
+    cfg = Config(model="bert_base", batch_size=batch_size,
+                 precision=precision, grad_accum=grad_accum,
+                 param_sharding=param_sharding)
+    bcfg = dataclasses.replace(
+        bert.BERT_BASE, dtype=cfg.compute_dtype,
+        max_positions=max(bert.BERT_BASE.max_positions, seq_len))
+    b = batch_size * world
+    if batch_size % grad_accum:
+        raise ValueError(f"--batch-size {batch_size} is not divisible by "
+                         f"--grad-accum {grad_accum}")
+    if dev.type == "cuda":
+        torch.empty(0, device=dev)      # the allocator up, for its stats
+        torch.cuda.reset_peak_memory_stats(dev)
+    model = bert.BertMlm.from_seed(bcfg, cfg.seed).to(dev)
+    tx = opt_lib.transformer_tx(1e-4, warmup + steps, schedule="constant")
+    state = gspmd.init_for(param_sharding, model, tx)
+    train_step = gspmd.make_train_step(tx, grad_accum=grad_accum)
+    toks, tgts, mask = synthetic.mlm_batches(
+        N_BANKS * b, seq_len=seq_len, vocab_size=bcfg.vocab_size, seed=0)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    banks = []
+    for k in range(N_BANKS):
+        rows = mlm_loop.rank_rows(k * b, b, grad_accum, rank, world)
+        banks.append(({"tokens": put(toks[rows]), "mask": put(mask[rows])},
+                      put(tgts[rows])))
+
+    def run(i):
+        gens = [step_generator(cfg.seed + 2, i, dev, rank, j)
+                for j in range(grad_accum)]
+        return train_step(state, *banks[i % N_BANKS], gens)[1]["loss"]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for i in range(warmup):
+        run(i)
+    sync()
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + steps):
+        loss = run(i)
+    sync()
+    sec = (time.perf_counter() - t0) / steps
+    step_flops = flops.transformer_train_flops(bcfg, batch_size, seq_len)
+    mfu = flops.mfu(step_flops, sec, precision) if dev.type == "cuda" \
+        else None
+    return {
+        "mode": "train", "model": "bert_base",
+        "tokens_per_sec": b * seq_len / sec,
+        "tokens_per_sec_per_chip": batch_size * seq_len / sec,
+        "step_time_ms": sec * 1e3,
+        "model_flops_per_step": step_flops,
+        "mfu_pct": None if mfu is None else 100.0 * mfu,
+        "peak_memory_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                            if dev.type == "cuda" else None),
+        "bytes_at_rest": gspmd.bytes_at_rest(state),
+        "num_devices": world, "batch_size_per_chip": batch_size,
+        "seq_len": seq_len, "grad_accum": grad_accum,
+        "param_sharding": param_sharding, "precision": precision,
+        "steps": steps, "warmup": warmup, "final_loss": float(loss),
+        "device": device_name(dev), "card": card_line(dev),
+    }
+
+
 def measure_allreduce(payload_mb: float = 25.4, chain: int = 32,
                       dispatches: int = 7, device="cuda") -> dict:
     """The median time of one all-reduce of ``payload_mb`` MB of float32
@@ -157,14 +257,23 @@ def main(argv=None) -> int:
     ap.add_argument("--mode", choices=["train", "allreduce", "serving"],
                     default="train")
     ap.add_argument("--model", default="mnist_cnn",
-                    choices=["mnist_cnn", "resnet20", "resnet50", "vit"])
-    ap.add_argument("--batch-size", type=int, default=64,
-                    help="per-card batch")
+                    choices=["mnist_cnn", "resnet20", "resnet50", "vit",
+                             "bert_base"])
+    ap.add_argument("--batch-size", type=int, default=None,
+                    help="per-card batch (default 64; bert_base 4)")
     ap.add_argument("--precision", choices=["fp32", "bf16"], default="fp32")
-    ap.add_argument("--steps", type=int, default=1000,
-                    help="timed train steps")
-    ap.add_argument("--warmup", type=int, default=50,
-                    help="untimed steps before the timed ones")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="timed train steps (default 1000; bert_base 20)")
+    ap.add_argument("--warmup", type=int, default=None,
+                    help="untimed steps before the timed ones (default 50;"
+                         " bert_base 3)")
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="bert_base: tokens per sequence")
+    ap.add_argument("--grad-accum", type=int, default=1,
+                    help="bert_base: microbatches per step")
+    ap.add_argument("--param-sharding", default="replicated",
+                    choices=["replicated", "zero1", "fsdp"],
+                    help="bert_base: the state's layout over the ranks")
     ap.add_argument("--payload-mb", type=float, default=25.4,
                     help="allreduce: float32 MB on each rank")
     ap.add_argument("--device", default="cuda",
@@ -174,13 +283,28 @@ def main(argv=None) -> int:
     if args.mode == "serving":
         raise NotImplementedError("--mode serving is not ported yet: "
                                   "ROADMAP Queue 1 item 6")
-    if args.mode == "train":
-        print(json.dumps(measure_train(args.model, args.batch_size,
-                                       args.precision, args.steps,
-                                       args.warmup, args.device)),
+    bert_run = args.mode == "train" and args.model == "bert_base"
+    defaults = (4, 20, 3) if bert_run else (64, 1000, 50)
+    batch, steps, warmup = (d if v is None else v for v, d in zip(
+        (args.batch_size, args.steps, args.warmup), defaults))
+    if args.mode == "train" and not bert_run:
+        print(json.dumps(measure_train(args.model, batch, args.precision,
+                                       steps, warmup, args.device)),
               flush=True)
         return 0
     dev = meshlib.rank_device(args.device)
+    if bert_run:            # the launcher's world, else none
+        joined = meshlib.initialize_distributed(dev)
+        try:
+            res = measure_bert(batch, args.seq_len, args.precision,
+                               args.grad_accum, args.param_sharding, steps,
+                               warmup, dev)
+            if meshlib.process_index() == 0:
+                print(json.dumps(res), flush=True)
+        finally:
+            if joined:
+                meshlib.shutdown()
+        return 0
     # the launcher's world, else a world of one made here
     joined = meshlib.initialize_distributed(dev) or \
         meshlib.initialize_distributed(

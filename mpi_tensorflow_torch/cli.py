@@ -27,6 +27,18 @@ group:
     torchrun --nproc_per_node N -m mpi_tensorflow_torch [--sync avg50]
     torchrun --nproc_per_node 2 -m mpi_tensorflow_torch --device cpu \\
         --epochs 1 --sync avg50
+    torchrun --nproc_per_node N -m mpi_tensorflow_torch --model bert_base \\
+        --seq-len 4096 --batch-size 4 --precision bf16 [--grad-accum A] \\
+        [--param-sharding replicated|zero1|fsdp]
+    torchrun --nproc_per_node 2 -m mpi_tensorflow_torch --model bert_base \\
+        --device cpu --tiny --epochs 1 --batch-size 2 --seq-len 32 \\
+        --train-n 64 --test-n 16 --log-every 4 --param-sharding fsdp
+
+``--batch-size`` is per rank (the global batch is it times the ranks);
+``--grad-accum`` splits each step's global batch into that many
+microbatches, and ``--param-sharding`` zero1/fsdp shards the
+transformer's state over the ranks (``train.gspmd``; a world of one
+rank raises, as the reference does without a data axis).
 
 ``--fused-steps`` defaults to ``--log-every`` under psum and to 1 under
 avg50, as in the reference.  ``--tiny``, ``--seq-len``, ``--train-n``
@@ -84,6 +96,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused-steps", type=int, default=None,
                    help="train steps per window (one upload each). "
                         "Default: --log-every for psum, 1 for avg50")
+    p.add_argument("--param-sharding",
+                   choices=["replicated", "fsdp", "zero1"],
+                   default=d.param_sharding,
+                   help="transformer-family state layout: replicated "
+                        "(default), fsdp (params+moments sharded over "
+                        "'data', ZeRO-3-style), or zero1 (optimizer "
+                        "moments sharded, params keep their layout)")
+    p.add_argument("--grad-accum", type=int, default=d.grad_accum,
+                   help="microbatches accumulated per optimizer step "
+                        "(activation-memory / batch-size trade)")
     p.add_argument("--prefetch", choices=["auto", "native", "thread", "off"],
                    default=d.prefetch,
                    help="accepted for the reference's CLI; the port "
@@ -147,6 +169,7 @@ def config_from_args(args) -> Config:
         checkpoint_dir=args.checkpoint_dir, resume=args.resume,
         metrics_dir=args.metrics_dir, precision=args.precision,
         optimizer=args.optimizer, prefetch=args.prefetch,
+        grad_accum=args.grad_accum, param_sharding=args.param_sharding,
         fused_steps=(args.fused_steps if args.fused_steps is not None
                      else (args.log_every if args.sync == "psum" else 1)))
 
@@ -154,6 +177,13 @@ def config_from_args(args) -> Config:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     config = config_from_args(args)
+    if config.param_sharding != "replicated" \
+            and config.model not in TRANSFORMER_MODELS:
+        raise SystemExit(
+            f"--param-sharding {config.param_sharding} applies to the "
+            f"transformer families (GSPMD step); the image loop keeps "
+            f"the reference's replicated layout and would silently "
+            f"ignore it")
     device = meshlib.rank_device(args.device)
     joined = meshlib.initialize_distributed(device)
     try:
@@ -170,10 +200,6 @@ def _run(config: Config, args, device) -> None:
 
         loop.train(config, device=device)
         return
-    if meshlib.process_count() > 1:
-        raise NotImplementedError(
-            "transformer training over more than one rank is not ported "
-            "yet: ROADMAP Queue 1 item 12")
     from mpi_tensorflow_torch.models import bert
     from mpi_tensorflow_torch.train import mlm_loop
 

@@ -59,8 +59,13 @@ class Config:
     metrics_dir: Optional[str] = None
     optimizer: str = "adamw"      # transformer-family optimizer
     remat: bool = False           # recompute layer activations in backward
-    grad_accum: int = 1           # microbatches per optimizer step
-    param_sharding: str = "replicated"  # transformer state layout
+    grad_accum: int = 1           # microbatches per optimizer step: the
+                                  # gradients accumulate before the one
+                                  # reduction and update
+    param_sharding: str = "replicated"  # transformer state layout:
+                                        # replicated, zero1 (moments
+                                        # sharded over the ranks) or fsdp
+                                        # (parameters and moments)
     text_file: Optional[str] = None     # real-text corpus (None: synthetic)
 
     # --- serving (continuous-batching decode engine, serving/) ---
@@ -95,11 +100,6 @@ class Config:
         not_ported = (
             (self.remat, "remat=True", "13 (remat)"),
             (self.optimizer == "lamb", "optimizer='lamb'", "13 (lamb)"),
-            (self.grad_accum > 1, f"grad_accum={self.grad_accum}",
-             "12 (gradient accumulation)"),
-            (self.param_sharding != "replicated",
-             f"param_sharding={self.param_sharding!r}",
-             "12 (zero1/fsdp over NCCL)"),
             (self.text_file is not None, "text_file",
              "13 (corpus data)"),
             (any(v > 1 for k, v in (self.mesh_shape or {}).items()
@@ -124,6 +124,20 @@ class Config:
             raise ValueError(f"unknown sync mode {self.sync!r}")
         if self.prefetch not in ("auto", "native", "thread", "off"):
             raise ValueError(f"unknown prefetch mode {self.prefetch!r}")
+        if self.param_sharding not in ("replicated", "zero1", "fsdp"):
+            raise ValueError(
+                f"unknown param_sharding {self.param_sharding!r} "
+                f"(replicated, zero1 or fsdp)")
+        if int(self.grad_accum) < 1:
+            raise ValueError(f"grad_accum must be >= 1, got "
+                             f"{self.grad_accum}")
+        if self.sync == "avg50" and self.grad_accum > 1:
+            # the reference's refusal (train/loop.py:132-137)
+            raise ValueError(
+                "grad_accum applies to the psum (sync-SGD) and transformer "
+                "paths; the avg50 fidelity mode reproduces the reference's "
+                "per-rank batch-64 stepping, where microbatching has no "
+                "counterpart")
 
     @property
     def num_channels(self) -> int:

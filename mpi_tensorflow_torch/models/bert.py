@@ -386,6 +386,16 @@ class BertMlm(nn.Module):
         holds ``tokens`` (B, S) and ``mask`` (B, S) bool; ``labels``
         (B, S) the original ids.  The denominator counts every masked
         position, overflow-dropped ones included, as the reference's."""
+        return self.masked_ce_sum(batch, labels, train=train,
+                                  generator=generator) / torch.clamp(
+            batch["mask"].to(torch.float32).sum(), min=1.0)
+
+    def masked_ce_sum(self, batch: dict, labels, *, train: bool = False,
+                      generator=None):
+        """The loss's numerator: the CE summed over the masked positions
+        that reach the head.  A data-parallel step divides it by the
+        masked count of the GLOBAL batch, as the reference's GSPMD loss
+        does (``train.gspmd``)."""
         h = self.encode(batch["tokens"], train=train, generator=generator)
         mask = batch["mask"].to(torch.bool)
         labels = labels.long()
@@ -397,5 +407,4 @@ class BertMlm(nn.Module):
         logits = self._logits(self.head_hidden(h))
         gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         ce = torch.logsumexp(logits, dim=-1) - gold
-        return (ce * weights).sum() / torch.clamp(
-            mask.to(torch.float32).sum(), min=1.0)
+        return (ce * weights).sum()

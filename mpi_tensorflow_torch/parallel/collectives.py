@@ -2,8 +2,8 @@
 on ``torch.distributed``.
 
 Counterpart of ``mpi_tensorflow_tpu/parallel/collectives.py``, the part
-the CNN's data axis uses.  The JAX versions run inside ``shard_map`` on
-a mesh axis; here the axis is the process group (``parallel.mesh``):
+the data axis uses.  The JAX versions run inside ``shard_map`` on a mesh
+axis; here the axis is the process group (``parallel.mesh``):
 
 | MPI role (reference)         | here                                     |
 |------------------------------|------------------------------------------|
@@ -11,13 +11,18 @@ a mesh axis; here the axis is the process group (``parallel.mesh``):
 | ``Gather`` (to root)         | ``allgather`` / ``host_allgather``       |
 | ``Bcast``                    | ``pbroadcast`` (root 0)                  |
 | ``Barrier``                  | ``barrier``                              |
+| (ZeRO; absent from the MPI   | ``reduce_scatter`` (``psum_scatter``,    |
+| script)                      | tiled) and ``allgather(x, tiled=True)``  |
 
-The tensor ops work in place on ``x`` and return it.  Without a process
-group each is the identity (``allgather`` adds the axis of one), and
-nothing is launched.  A CUDA tensor goes over NCCL and a host tensor
-over gloo under the ``cpu:gloo,cuda:nccl`` group the CLI creates.
-``reduce_scatter`` (ROADMAP Queue 1 item 12) and ``ppermute_shift``
-(item 14) have no user yet and are not ported.
+The all-reduces and the broadcast work in place on ``x`` and return it;
+``allgather`` and ``reduce_scatter`` return new tensors.  Without a
+process group each is the identity (``allgather`` adds the axis of one
+unless tiled), and nothing is launched.  A CUDA tensor goes over NCCL
+and a host tensor over gloo under the ``cpu:gloo,cuda:nccl`` group the
+CLI creates; a world made with ``backend="gloo"`` (the check-only world
+of several ranks on one card) carries CUDA tensors over gloo.
+``ppermute_shift`` (ROADMAP Queue 1 item 14) has no user yet and is not
+ported.
 """
 
 from __future__ import annotations
@@ -28,6 +33,14 @@ import torch.distributed as dist
 
 from mpi_tensorflow_torch.parallel.mesh import (active, process_count,
                                                 process_index)
+
+
+# the one-tensor forms: torch 2.13 renamed them (and deprecated the old
+# names, which earlier versions alone have)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+_ALL_GATHER = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
 
 
 def allreduce_sum(x: torch.Tensor) -> torch.Tensor:
@@ -52,13 +65,39 @@ def allreduce_max(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def allgather(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` stacked in rank order, ``(world, *x.shape)``."""
+def allgather(x: torch.Tensor, *, tiled: bool = False) -> torch.Tensor:
+    """Every rank's ``x`` stacked in rank order, ``(world, *x.shape)``;
+    ``tiled``: concatenated along the leading dimension instead,
+    ``(world * x.shape[0], *x.shape[1:])``, in one tensor."""
+    if tiled:
+        if not active():
+            return x
+        out = torch.empty((process_count() * x.shape[0], *x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        _ALL_GATHER(out, x.contiguous())
+        return out
     if not active():
         return x[None]
     parts = [torch.empty_like(x) for _ in range(process_count())]
     dist.all_gather(parts, x.contiguous())
     return torch.stack(parts)
+
+
+def reduce_scatter(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the ranks, of which rank r keeps the r-th of
+    ``world`` equal slices of the leading dimension (the reference's
+    ``psum_scatter(tiled=True)``): the building block of the sharded
+    optimizer states (``parallel.fsdp``, ``train.gspmd``)."""
+    if not active():
+        return x
+    world = process_count()
+    if x.shape[0] % world:
+        raise ValueError(f"leading dimension {x.shape[0]} is not {world} "
+                         f"equal slices")
+    out = torch.empty((x.shape[0] // world, *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    _REDUCE_SCATTER(out, x.contiguous())
+    return out
 
 
 def host_allgather(x: np.ndarray) -> np.ndarray:

@@ -1,74 +1,362 @@
-"""The transformer train and eval steps on one device.
+"""The transformer train and eval steps, on one device or across the
+ranks of the ``data`` axis.
 
-Counterpart of ``make_gspmd_train_step`` / ``make_gspmd_eval_step`` in
-``mpi_tensorflow_tpu/train/gspmd.py``.  On one card there is no sharding:
-the reference's GSPMD placement, its FSDP/zero1 layouts and its
-microbatch accumulation have nothing to place, and data parallelism
-over NCCL is a later slice (ROADMAP Queue 1 item 12).  What remains is
-the step itself: loss, ``backward``, then the optimizer update.
+Counterpart of ``init_gspmd_state``, ``init_zero1_state``,
+``init_fsdp_state``, ``make_gspmd_train_step`` and
+``make_gspmd_eval_step`` in ``mpi_tensorflow_tpu/train/gspmd.py`` on a
+mesh with a ``data`` axis alone: one rank per card, the axis the
+``torch.distributed`` world (``parallel.mesh``).  GSPMD inserts the
+reference's collectives from the placement; here the step places them
+by hand, and without a process group each one is the identity:
 
-Where the reference folds its rng with the step (``fold_in(rng,
-state.step)``), the port draws each step's dropout masks from a
-``torch.Generator`` seeded by ``(seed, step)`` and, on a data axis across
-ranks, the rank (``step_generator``).
+- **the loss** of a microbatch is its masked CE summed over this rank's
+  rows divided by the masked count of the microbatch's GLOBAL rows (the
+  counts of all microbatches all-reduced in one call before the
+  forward), so the sum over the ranks is the reference's global mean,
+  not a mean of per-rank means;
+- **accumulation** (``grad_accum`` = A): the rank's batch holds A
+  microbatches, microbatch i being this rank's rows of the global
+  microbatch i (``train.mlm_loop.rank_rows``: the reference reshapes
+  the GLOBAL batch, ``x.reshape(accum, B/accum, ...)``).  Their
+  gradients add up in ``.grad``, then one reduction, then the division
+  by A, and the loss is the sum of the microbatch losses over A
+  (``gspmd.py:223-226``);
+- **the reduction**: ``replicated``: one all-reduce of every gradient and
+  the loss, packed in one flat buffer; ``zero1`` and ``fsdp``: one
+  reduce-scatter of the sharded leaves' gradients, packed by
+  ``parallel.fsdp.FlatLayout``, which leaves each rank the sum of its
+  slices, and one all-reduce of the replicated leaves' gradients (the
+  leaves under ``fsdp.DEFAULT_MIN_SIZE`` elements) and the loss;
+- **the update**: ``TransformerTx.update`` on the whole leaves or on this
+  rank's slices, the global norm summed over the slices and counting
+  each replicated leaf once;
+- **zero1**: parameters whole on every rank, moments sliced; the updated
+  slices are all-gathered back into the parameters.  **fsdp**:
+  parameters and moments sliced between steps; the train and eval
+  steps all-gather the parameters for use (one flat buffer) and release
+  them after (``full_params``).  ``bytes_at_rest`` counts what stays.
+
+Overlapping the reduction with the backward is not done: the step
+reduces once, after the last microbatch.  zero1 and fsdp need a world
+of more than one rank (the reference's ``ValueError``,
+``mlm_loop.py:173-182``).  Every rank builds the same parameters from
+the seed, as every device of the reference's replicated placement holds
+the same.
+
+Where the reference folds its rng with the step and the microbatch
+(``fold_in(fold_in(rng, step), i)``), the port draws each microbatch's
+dropout masks from a ``torch.Generator`` seeded by ``(seed, step, rank,
+microbatch)`` (``step_generator``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
+import math
+from typing import Optional
 
 import torch
 
 from mpi_tensorflow_torch.models.bert import BertMlm
+from mpi_tensorflow_torch.parallel import collectives, fsdp
+from mpi_tensorflow_torch.parallel import mesh as meshlib
 from mpi_tensorflow_torch.train.optimizer import (AdamWState, TransformerTx,
                                                   named_leaves)
+from mpi_tensorflow_torch.train.step import flat_buffer
+
+@dataclasses.dataclass
+class Sharding:
+    """How a zero1 or fsdp state splits its leaves over the ranks."""
+    kind: str                     # "zero1" | "fsdp"
+    shapes: list                  # every leaf's whole shape, leaf order
+    dims: list                    # fsdp.shard_dim of each leaf
+    layout: fsdp.FlatLayout
+    rank: int
+    world: int
+    shards: Optional[torch.Tensor] = None   # fsdp: this rank's chunk of
+                                            # the sharded parameters
 
 
 @dataclasses.dataclass
 class TrainState:
     """Parameters (in ``model``), optimizer state and step count.  The
-    step updates the model's parameters and ``opt`` in place."""
+    step updates the model's parameters and ``opt`` in place.  With
+    ``sharding`` the moments of the sharded leaves are this rank's
+    slices, and under fsdp so are their parameters (``sharding.shards``)
+    while the model holds none of them between steps."""
     model: BertMlm
     opt: AdamWState
     step: int = 0
+    sharding: Optional[Sharding] = None
+
+
+def _params(model) -> list:
+    return [p for _, p in named_leaves(model.param_tree())]
+
+
+def _replace_leaves(tree, new: dict):
+    """``tree`` with leaf i (in ``named_leaves`` order) replaced by
+    ``new[i]`` where given."""
+    count = itertools.count()
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        i = next(count)
+        return new.get(i, t)
+    return walk(tree)
+
+
+def _opt_tree(state: TrainState):
+    """The tree the optimizer updates: the parameter tree with each
+    sharded leaf replaced by this rank's slice of it."""
+    sh, model = state.sharding, state.model
+    if sh is None:
+        return model.param_tree()
+    if sh.kind == "fsdp":
+        return _replace_leaves(model.param_tree(), sh.layout.views(sh.shards))
+    params = _params(model)
+    return _replace_leaves(model.param_tree(), {
+        i: fsdp.shard(params[i], d, sh.rank, sh.world)
+        for i, d in enumerate(sh.dims) if d is not None})
 
 
 def init_state(model: BertMlm, tx: TransformerTx) -> TrainState:
+    """Every leaf whole on every rank (``init_gspmd_state``)."""
     return TrainState(model, tx.init(model.param_tree()))
 
 
-def step_generator(seed: int, step: int, device,
-                   rank: int = 0) -> torch.Generator:
-    """The dropout generator of one train step of one rank, on
-    ``device``, seeded by ``(seed, rank, step)``; rank 0's is the
-    one-process run's."""
+def _sharding(model: BertMlm, kind: str, min_size: int) -> Sharding:
+    world = meshlib.process_count()
+    if world <= 1:
+        # the reference's check: without a data axis larger than 1 the
+        # placement shards nothing, and the run would go on replicated
+        # while the user believes the ZeRO sharding engaged
+        raise ValueError(
+            f"--param-sharding {kind} shards over the 'data' mesh axis, "
+            f"but this mesh has none (mesh {{'data': {world}}}); add "
+            f"data=N or drop the flag")
+    shapes = [tuple(p.shape) for p in _params(model)]
+    dims = [fsdp.shard_dim(s, world, min_size) for s in shapes]
+    return Sharding(kind, shapes, dims, fsdp.FlatLayout(shapes, dims, world),
+                    meshlib.process_index(), world)
+
+
+def init_zero1_state(model: BertMlm, tx: TransformerTx,
+                     min_size: int = fsdp.DEFAULT_MIN_SIZE) -> TrainState:
+    """ZeRO-1: the parameters whole on every rank, each sharded leaf's
+    moments this rank's slice (``init_zero1_state``)."""
+    state = TrainState(model, None, sharding=_sharding(model, "zero1",
+                                                       min_size))
+    state.opt = tx.init(_opt_tree(state))
+    return state
+
+
+def init_fsdp_state(model: BertMlm, tx: TransformerTx,
+                    min_size: int = fsdp.DEFAULT_MIN_SIZE) -> TrainState:
+    """FSDP: each sharded leaf's parameter and moments this rank's slice
+    (``init_fsdp_state``); the model keeps the replicated leaves only."""
+    sh = _sharding(model, "fsdp", min_size)
+    params = _params(model)
+    sh.shards = sh.layout.pack_own(params, sh.rank, torch.empty(
+        sh.layout.chunk, dtype=torch.float32, device=params[0].device))
+    state = TrainState(model, None, sharding=sh)
+    state.opt = tx.init(_opt_tree(state))
+    _release(state)
+    return state
+
+
+def init_for(param_sharding: str, model: BertMlm,
+             tx: TransformerTx) -> TrainState:
+    """The state in ``param_sharding``'s layout: replicated, zero1 or
+    fsdp."""
+    inits = {"replicated": init_state, "zero1": init_zero1_state,
+             "fsdp": init_fsdp_state}
+    if param_sharding not in inits:
+        raise ValueError(f"unknown param_sharding {param_sharding!r}")
+    return inits[param_sharding](model, tx)
+
+
+def _gather(state: TrainState) -> None:
+    """fsdp: every sharded parameter made whole in the model, from one
+    all-gather of the ranks' chunks."""
+    sh = state.sharding
+    whole = sh.layout.whole(collectives.allgather(sh.shards, tiled=True))
+    for i, p in enumerate(_params(state.model)):
+        if i in whole:
+            p.data = whole[i]
+
+
+def _release(state: TrainState) -> None:
+    """fsdp: the model's sharded parameters (and gradients) freed."""
+    sh = state.sharding
+    for p, d in zip(_params(state.model), sh.dims):
+        if d is not None:
+            p.data = p.data.new_empty(0)
+            p.grad = None
+
+
+@contextlib.contextmanager
+def full_params(state: TrainState):
+    """The model with every parameter whole for the duration (under fsdp
+    gathered on entry and released on exit; otherwise as it is).  Every
+    rank enters together."""
+    fsdp_state = state.sharding is not None and state.sharding.kind == "fsdp"
+    if fsdp_state:
+        _gather(state)
+    try:
+        yield state.model
+    finally:
+        if fsdp_state:
+            _release(state)
+
+
+def bytes_at_rest(state: TrainState) -> dict:
+    """The bytes this rank holds between steps: ``params`` (the model's
+    parameters, and under fsdp this rank's chunk) and ``moments``
+    (adamw's two), with what a whole replica would hold beside them."""
+    def size(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    params = size(_params(state.model))
+    shapes = [p.shape for p in _params(state.model)]
+    if state.sharding is not None:
+        shapes = state.sharding.shapes
+        if state.sharding.shards is not None:
+            params += size([state.sharding.shards])
+    whole = sum(4 * math.prod(s) for s in shapes)
+    return {"params": params, "moments": size(state.opt.mu + state.opt.nu),
+            "replica_params": whole, "replica_moments": 2 * whole}
+
+
+def step_generator(seed: int, step: int, device, rank: int = 0,
+                   micro: int = 0) -> torch.Generator:
+    """The dropout generator of one microbatch of one train step of one
+    rank, on ``device``, seeded by ``(seed, step, rank, micro)``; rank
+    0's first microbatch is the one-process run's."""
     return torch.Generator(device=device).manual_seed(
-        int(seed) * 1_000_003 + int(step) + (int(rank) << 40))
+        int(seed) * 1_000_003 + int(step) + (int(rank) << 40)
+        + (int(micro) << 52))
 
 
-def make_train_step(tx: TransformerTx):
+def _generators(generator, accum: int) -> list:
+    if generator is None:
+        return [None] * accum
+    gens = [generator] if isinstance(generator, torch.Generator) \
+        else list(generator)
+    if len(gens) != accum:
+        raise ValueError(f"{len(gens)} dropout generators for {accum} "
+                         f"microbatches")
+    return gens
+
+
+def _packed(tensors: list, loss: torch.Tensor):
+    """``(buffer, views)``: ``tensors`` then ``loss`` in one float32
+    buffer, and a view of it shaped like each tensor."""
+    buf, views = flat_buffer(tensors, extra=1)
+    torch.cat([t.reshape(-1) for t in tensors] + [loss.reshape(1)], out=buf)
+    return buf, views
+
+
+def _reduce(state: TrainState, grads: list, loss: torch.Tensor,
+            accum: int, across: bool):
+    """The gradients and the loss summed over the ranks and divided by
+    ``accum``: ``(tree to update, its gradients, sharded flags, loss)``.
+    """
+    sh = state.sharding
+    if sh is None:
+        if across:
+            buf, grads = _packed(grads, loss)
+            collectives.allreduce_sum(buf)
+            loss = buf[-1]
+        if accum > 1:
+            torch._foreach_div_(grads, accum)
+            loss = loss / accum
+        return state.model.param_tree(), grads, None, loss
+    lay = sh.layout
+    chunk = collectives.reduce_scatter(lay.pack(grads, torch.empty(
+        lay.world * lay.chunk, dtype=torch.float32, device=loss.device)))
+    whole = [i for i, d in enumerate(sh.dims) if d is None]
+    buf, views = _packed([grads[i] for i in whole], loss)
+    collectives.allreduce_sum(buf)
+    if accum > 1:
+        chunk.div_(accum)
+        buf.div_(accum)
+    out = {**lay.views(chunk), **dict(zip(whole, views))}
+    return (_opt_tree(state), [out[i] for i in range(len(grads))],
+            [d is not None for d in sh.dims], buf[-1])
+
+
+def make_train_step(tx: TransformerTx, grad_accum: int = 1,
+                    across_ranks: Optional[bool] = None):
     """``train_step(state, batch, labels, generator) -> (state, {"loss":
-    float32 scalar tensor})``: ``BertMlm.loss`` in train mode, its
-    gradients by ``backward``, then ``tx``'s update of every leaf.
-    ``batch`` holds ``tokens`` and ``mask`` (B, S); ``labels`` (B, S);
-    ``generator`` feeds dropout (None when ``cfg.dropout == 0``).  The
-    loss stays on the device: nothing here waits for the card."""
+    float32 scalar tensor})``: ``batch`` holds ``tokens`` and ``mask``
+    (B, S), this rank's rows of ``grad_accum`` microbatches in order;
+    ``labels`` (B, S); ``generator`` feeds dropout: one
+    ``torch.Generator`` a microbatch (a list, or one generator when
+    ``grad_accum`` is 1), None when ``cfg.dropout == 0``.  Across the
+    ranks of the process group (``across_ranks``, default: whether one is
+    up) the loss and gradients are the global batch's (module note).
+    The loss stays on the device: nothing here waits for the card."""
+    accum = int(grad_accum)
+    if accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
     def train_step(state: TrainState, batch: dict, labels,
                    generator=None):
+        across = meshlib.active() if across_ranks is None else across_ranks
+        sh = state.sharding
+        if sh is not None and not across:
+            raise ValueError(f"a {sh.kind} state steps across the ranks")
+        gens = _generators(generator, accum)
+        tokens, mask = batch["tokens"], batch["mask"]
+        n = tokens.shape[0]
+        if n % accum:
+            raise ValueError(f"batch dim {n} not divisible by grad_accum "
+                             f"{accum}")
+        m = n // accum
         model = state.model
-        tree = model.param_tree()
-        params = [p for _, p in named_leaves(tree)]
+        if sh is not None and sh.kind == "fsdp":
+            _gather(state)
+        params = _params(model)
+        # each microbatch's masked count over the global batch
+        counts = mask.reshape(accum, -1).to(torch.float32).sum(1)
+        if across:
+            collectives.allreduce_sum(counts)
         for p in params:
             p.grad = None
-        loss = model.loss(batch, labels, train=True, generator=generator)
-        loss.backward()
-        # a leaf the loss does not read (pos_emb under rope) has a zero
-        # gradient, as jax.grad gives it
-        tx.update(tree, [torch.zeros_like(p) if p.grad is None else p.grad
-                         for p in params], state.opt)
-        for p in params:
-            p.grad = None
+        loss = None
+        for i in range(accum):
+            rows = slice(i * m, (i + 1) * m)
+            part = model.masked_ce_sum(
+                {"tokens": tokens[rows], "mask": mask[rows]}, labels[rows],
+                train=True, generator=gens[i]) / torch.clamp(counts[i],
+                                                             min=1.0)
+            part.backward()
+            loss = part.detach() if loss is None else loss + part.detach()
+        with torch.no_grad():
+            # a leaf the loss does not read (pos_emb under rope) has a
+            # zero gradient, as jax.grad gives it
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in params]
+            tree, grads, sharded, loss = _reduce(state, grads, loss, accum,
+                                                 across)
+            tx.update(tree, grads, state.opt, sharded=sharded)
+            del tree, grads
+            for p in params:
+                p.grad = None
+            if sh is not None and sh.kind == "zero1":
+                own = sh.layout.pack_own(params, sh.rank, torch.empty(
+                    sh.layout.chunk, dtype=torch.float32,
+                    device=loss.device))
+                sh.layout.unpack(collectives.allgather(own, tiled=True),
+                                 params)
+            elif sh is not None:
+                _release(state)
         state.step += 1
         return state, {"loss": loss.detach()}
 
@@ -81,6 +369,7 @@ def make_eval_step():
 
     @torch.no_grad()
     def eval_step(state: TrainState, tokens):
-        return state.model.apply(tokens, train=False)
+        with full_params(state):
+            return state.model.apply(tokens, train=False)
 
     return eval_step

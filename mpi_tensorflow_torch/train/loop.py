@@ -12,7 +12,9 @@ one process (``psum`` only):
   of the LR per local epoch;
 - sequential wraparound batching per shard, no shuffling
   (``data/prefetch.assemble_window``);
-- ``psum``: the gradients averaged every step (``train/step.py``);
+- ``psum``: the gradients averaged every step (``train/step.py``),
+  each shard's batch split into ``grad_accum`` microbatches whose
+  gradients add up first;
   ``avg50``: each rank steps its own replica, and the replicas'
   parameters and velocity are averaged at every trace point but the
   last (mpipy.py:91); the replicas start from rank 0's parameters;
@@ -184,8 +186,12 @@ def train(config: Config, model=None, splits: Optional[mnist.Splits] = None,
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def generator(t):
-        return (step_generator(config.seed + 1, t, dev, rank)
-                if dropout else None)
+        if not dropout:
+            return None
+        if config.grad_accum == 1:
+            return step_generator(config.seed + 1, t, dev, rank)
+        return [step_generator(config.seed + 1, t, dev, rank, i)
+                for i in range(config.grad_accum)]
 
     def run_eval(data):
         return evaluation.eval_sharded(

@@ -47,6 +47,8 @@ import re
 import numpy as np
 import torch
 
+from mpi_tensorflow_torch.parallel import collectives
+
 _F32 = np.float32
 # bias-like leaf names across the families (the reference's regex)
 _BIAS_NAME = re.compile(r"^x?(b[a-z0-9]?|eb\d)$")
@@ -176,16 +178,23 @@ class TransformerTx:
                           [torch.zeros_like(p) for p in leaves])
 
     @torch.no_grad()
-    def update(self, tree, grads: list, state: AdamWState) -> None:
+    def update(self, tree, grads: list, state: AdamWState,
+               sharded=None) -> None:
         """One update of every leaf of ``tree`` in place from ``grads``
         (one per leaf, in ``tree``'s leaf order); ``state.count``
-        advances by one."""
+        advances by one.
+
+        ``sharded`` (a bool per leaf) marks the leaves that are this
+        rank's slice of a parameter sharded over the process group
+        (``train.gspmd``'s zero1 and fsdp): their squares are summed
+        over the ranks for the global norm, while every other leaf is
+        whole on every rank and counted once.  The rest of the update
+        is elementwise and runs on a slice as on a whole leaf."""
         named = list(named_leaves(tree))
         params = [p for _, p in named]
         grads = list(grads)
         if self.grad_clip_norm and self.grad_clip_norm > 0:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            norm = global_norm(grads, sharded)
             factor = torch.where(norm < self.grad_clip_norm,
                                  torch.ones_like(norm),
                                  self.grad_clip_norm / norm)
@@ -209,6 +218,24 @@ class TransformerTx:
                                 [params[i] for i in decay],
                                 alpha=self.weight_decay)
         torch._foreach_add_(params, u, alpha=-lr)
+
+
+def global_norm(grads: list, sharded=None) -> torch.Tensor:
+    """optax's ``global_norm``: the square root of every gradient's sum
+    of squares.  The leaves ``sharded`` marks are slices of leaves split
+    over the process group: their part is all-reduced, the rest (whole
+    on every rank) added once."""
+    norms = torch._foreach_norm(grads)
+    if sharded is None or not any(sharded):
+        return torch.linalg.vector_norm(torch.stack(norms))
+
+    def sum_sq(keep):
+        part = [n for n, s in zip(norms, sharded) if s == keep]
+        return torch.stack(part).square().sum() if part \
+            else torch.zeros((), device=norms[0].device)
+
+    return torch.sqrt(collectives.allreduce_sum(sum_sq(True))
+                      + sum_sq(False))
 
 
 def transformer_tx(base_lr: float, num_steps: int, *,

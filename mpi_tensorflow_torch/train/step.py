@@ -20,6 +20,10 @@ order, and one ``backward`` of the mean loss over it gives that same
 gradient: with equal shards the mean of the per-shard mean losses IS
 the global mean.  Only the order of the float32 sums differs.
 
+``grad_accum`` = A > 1 (psum only; the config refuses it under avg50,
+as the reference does): each shard's batch splits into A microbatches,
+whose gradients are summed and divided by A before the one reduction.
+
 ``avg50``: each rank steps its own replica with no communication
 (``make_local_train_step``), and ``make_average_step`` replaces the
 parameters and momentum velocity of every rank with their mean at the
@@ -30,7 +34,8 @@ runs one replica per rank.
 
 The reference folds its dropout key with the shard index and the step;
 the port draws each rank's mask from a generator seeded by ``(seed + 1,
-rank, step)`` (``train.gspmd.step_generator``), equal in distribution.
+rank, step)`` and the microbatch (``train.gspmd.step_generator``), equal
+in distribution.
 """
 
 from __future__ import annotations
@@ -85,7 +90,7 @@ def make_loss_fn(model, config):
     return loss_fn
 
 
-def _flat_buffer(tensors: list, extra: int = 0):
+def flat_buffer(tensors: list, extra: int = 0):
     """``(buffer, views)``: one float32 buffer on the tensors' device
     holding their elements back to back, then ``extra`` more, and a
     view of it shaped like each tensor."""
@@ -102,29 +107,56 @@ def make_train_step(model, config, num_shards: int, decay_steps: int,
     float32 scalar tensor, "lr": float32})`` for ``state.model is
     model``: ``batch`` (num_shards x batch_size, H, W, C) holds the
     shards' windows in shard order, ``labels`` their int64 labels;
-    ``generator`` feeds dropout (None when the model has none).  With
-    ``across_ranks`` the batch is this rank's one shard and the
+    ``generator`` feeds dropout (None when the model has none; with
+    ``config.grad_accum`` > 1 one generator a microbatch, in a list).
+    With ``across_ranks`` the batch is this rank's one shard and the
     gradients and the loss are averaged over the process group.  The LR
     is read at the step counter before the update, as the reference
-    reads it; the loss stays on the device."""
+    reads it; the loss stays on the device.
+
+    ``config.grad_accum`` = A > 1 splits each SHARD's batch into A
+    microbatches, as the reference does (``step.py:104-125``):
+    microbatch i is rows ``[i*b/A, (i+1)*b/A)`` of every shard's window,
+    their gradients are summed and divided by A, then reduced once."""
     if across_ranks and num_shards != 1:
         raise ValueError(f"a rank holds one shard; num_shards={num_shards} "
                          f"is the in-process data axis")
+    accum = int(config.grad_accum)
     schedule = reference_schedule(config, decay_steps)
     loss_fn = make_loss_fn(model, config)
     params = _params(model)
     if across_ranks:
         # the gradients, then the loss, in one buffer: one all-reduce
-        buf, grad_views = _flat_buffer(params, extra=1)
+        buf, grad_views = flat_buffer(params, extra=1)
+
+    def grads_of(model_state, batch, labels, generator):
+        if accum == 1:
+            loss, new_state = loss_fn(model_state, batch, labels, generator)
+            return loss.detach(), torch.autograd.grad(loss, params), new_state
+        b = batch.shape[0] // num_shards
+        if b % accum:
+            raise ValueError(f"per-shard batch {b} not divisible by "
+                             f"grad_accum {accum}")
+        gens = [None] * accum if generator is None else list(generator)
+        # (shard, microbatch, rows): microbatch i of every shard
+        xs = batch.reshape(num_shards, accum, b // accum, *batch.shape[1:])
+        ys = labels.reshape(num_shards, accum, b // accum)
+        grads, loss = None, 0.0
+        for i in range(accum):
+            part, model_state = loss_fn(
+                model_state, xs[:, i].reshape(-1, *batch.shape[1:]),
+                ys[:, i].reshape(-1), gens[i])
+            g = torch.autograd.grad(part, params)
+            grads = g if grads is None else torch._foreach_add(grads, g)
+            loss = loss + part.detach()
+        return loss / accum, torch._foreach_div(grads, accum), model_state
 
     def train_step(state: TrainState, batch, labels, generator=None):
         if batch.shape[0] % num_shards:
             raise ValueError(f"global batch {batch.shape[0]} is not "
                              f"{num_shards} equal shards")
-        loss, new_state = loss_fn(state.model_state, batch, labels,
-                                  generator)
-        grads = torch.autograd.grad(loss, params)
-        loss = loss.detach()
+        loss, grads, new_state = grads_of(state.model_state, batch, labels,
+                                          generator)
         if across_ranks:
             torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)],
                       out=buf)
@@ -153,7 +185,7 @@ def make_average_step(state: TrainState):
     size.  The JAX package ``pmean``s the float32 step counter too; it
     is the same number on every rank (every rank takes every step of
     the schedule), so its mean is itself and the port leaves it."""
-    buf, views = _flat_buffer(_params(state.model) + state.opt.velocity)
+    buf, views = flat_buffer(_params(state.model) + state.opt.velocity)
 
     @torch.no_grad()
     def average(state: TrainState) -> TrainState:

@@ -2,6 +2,7 @@
 """Where the port's training step time goes, on one NVIDIA card.
 
     python3 scripts/torch_train_profile.py                  # BERT_BASE
+    python3 scripts/torch_train_profile.py --one-rank-world # its DP step
     python3 scripts/torch_train_profile.py --model mnist_cnn [--precision bf16]
 
 ``bert_base`` (the default): builds ``BertMlm`` at the configuration
@@ -9,7 +10,10 @@
 batch 4, dropout 0.1, ``attention="auto"``, which takes the flash
 kernels at this length) with ``transformer_tx`` (adamw, warmup-linear,
 clipping at 1.0), runs two warmup steps, times three steps (host clock
-around synchronised steps), then profiles one more step.
+around synchronised steps), then profiles one more step.  With
+``--one-rank-world`` it first joins a world of one rank over NCCL, so
+the step is the data-parallel one (the gradients packed into one flat
+buffer and all-reduced).
 
 ``mnist_cnn``: the zero-flag CNN's train step (batch 64, dropout 0.5,
 the momentum step of ``train/step.py``) over one window of the windowed
@@ -138,6 +142,10 @@ def main(argv=None) -> int:
     ap.add_argument("--precision", choices=["fp32", "bf16"], default=None,
                     help="mnist_cnn only (default fp32); bert_base runs "
                          "bf16")
+    ap.add_argument("--one-rank-world", action="store_true",
+                    help="bert_base: join a world of one rank over NCCL "
+                         "first, so the step takes the data-parallel path "
+                         "(the flat all-reduce of train/gspmd.py)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_train_profile: no card", file=sys.stderr)
@@ -152,6 +160,12 @@ def main(argv=None) -> int:
         print(json.dumps(profile_cnn(dev, card, args.precision or "fp32")),
               flush=True)
         return 0
+    if args.one_rank_world:
+        from mpi_tensorflow_torch.parallel import mesh
+
+        mesh.initialize_distributed(
+            dev, init_method=f"tcp://127.0.0.1:{mesh.free_port()}", rank=0,
+            world_size=1)
     cfg = dataclasses.replace(bert.BERT_BASE, dtype=torch.bfloat16,
                               max_positions=SEQ)
     model = bert.BertMlm.from_seed(cfg, 0).to(dev)
@@ -184,6 +198,7 @@ def main(argv=None) -> int:
     model_flops = flops.transformer_train_flops(cfg, BATCH, SEQ)
     print(json.dumps({
         "card": card, "config": "BERT_BASE bf16 S=4096 B=4 dropout 0.1",
+        "one_rank_world": args.one_rank_world,
         "steps_timed": STEPS, "step_ms": step_s * 1e3,
         "tokens_per_sec": BATCH * SEQ / step_s,
         "model_flops_per_step": model_flops,
@@ -191,6 +206,8 @@ def main(argv=None) -> int:
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "last_loss": float(loss),
         **device_summary(kernels)}), flush=True)
+    if args.one_rank_world:
+        mesh.shutdown()
     return 0
 
 

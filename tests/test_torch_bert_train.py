@@ -209,11 +209,16 @@ def test_config_defaults_and_unported_values():
     for f in dataclasses.fields(Config):
         assert getattr(got, f.name) == getattr(want, f.name), f.name
     for kw, item in (({"remat": True}, "13"), ({"optimizer": "lamb"}, "13"),
-                     ({"grad_accum": 2}, "12"),
-                     ({"param_sharding": "fsdp"}, "12"),
                      ({"text_file": "x.txt"}, "13")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             Config(**kw)
+    # grad_accum and zero1/fsdp are ported: what raises now is a value
+    # the reference's CLI refuses too
+    for kw, what in (({"grad_accum": 0}, "grad_accum"),
+                     ({"param_sharding": "zero3"}, "param_sharding")):
+        with pytest.raises(ValueError, match=what):
+            Config(**kw)
+    assert Config(grad_accum=2, param_sharding="fsdp").grad_accum == 2
     with pytest.raises(NotImplementedError, match="item 14a"):
         cli.main(["--device", "cpu", "--model", "resnet20"])
 
