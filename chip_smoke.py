@@ -150,6 +150,41 @@ fails:
    --precision bf16``, plain and under ``torchrun --nproc_per_node 1``,
    each line printed.
 
+13. ResNet-20 and ResNet-50 training (no hand kernel lies on it: conv,
+   pool, BatchNorm and the fc are PyTorch's) — 13a: single float32
+   steps on the card (TF32 off, cuDNN's deterministic algorithms), 5 of
+   ResNet-20 at batch 128 and 2 of ResNet-50 at batch 4 x 224x224, each
+   from the CPU's state before it: loss, gradient and new BatchNorm
+   state within the model's ``RESNET_TOL`` of the CPU's step, and the
+   control with TF32 on outside the gradient's and the state's bounds;
+   in bf16 (``RESNET_BF16_EVAL_TOL``, ``RESNET50_FIT_*``) each model's
+   evaluation-mode logits within 2^-5 x max|logit| of the card's
+   float32 logits (the training-mode forward, the control, outside),
+   and ResNet-50's bf16 step descending on its batch: 8 steps on one
+   batch of 8 bring its cross-entropy to at most half its start, while
+   8 steps on another batch (the control) do not;
+   13b:
+   ``cli.main`` as ``python -m mpi_tensorflow_torch --model resnet20
+   --dataset cifar10 --batch-size 128`` runs it (the synthetic CIFAR-10,
+   1 epoch, 358 steps, trace every 50), fp32 and bf16, and ``--model
+   resnet50 --dataset imagenet_synthetic --num-classes 1000 --batch-size
+   64 --log-every 10`` (1 epoch, 29 steps), bf16 and fp32: the trace in
+   the reference's format, the ``[timing]`` line, a finite loss, and
+   for ResNet-20 a final test error no higher than the first trace
+   point's (ResNet-50's, at chance on 1000 synthetic classes, printed);
+   images/s, step ms, MFU and peak GiB printed beside the
+   card's name and power limit; 13c: every hand kernel's launch count 0
+   before 13b and still 0 after it (the ``launches_resnet`` of the
+   kernels line); 13d: ResNet-20 through ``torchrun --nproc_per_node 1``
+   (NCCL, world 1), then two ranks on ``cuda:0`` over gloo: 3 psum steps
+   against the in-process two-shard step (parameters and BatchNorm
+   state within ``RESNET_DP_TOL``), and an avg50 run (the first 13 000
+   rows, 46 steps, 4 averages) with every average watched: replicas
+   (their BatchNorm statistics too) apart before it, bit-identical
+   after it, within 1 ulp of the gathered mean; 13e: ``python -m
+   mpi_tensorflow_torch.bench --mode train --model resnet20|resnet50``
+   at fp32 and bf16, each line printed.
+
 Prints one ``kernels`` JSON line, then the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a card it
 prints no result and exits 1.
@@ -1789,40 +1824,57 @@ def profile_psum_step(dev, params, x, y, decay_steps: int,
         "collective_kernels": sorted({e.name[:60] for e in comm})}
 
 
-def worker_avg50_epoch(backend: str) -> None:
+AVG50_ARGS = ["--data-dir", CNN_DATA_DIR, "--epochs", "1"]
+
+
+def worker_avg50_epoch(backend: str, argv=AVG50_ARGS, load=None) -> None:
     """11b: ``python -m mpi_tensorflow_torch --sync avg50 --epochs 1``'s
     path (``cli.main`` in this rank, in the world joined here), every
     average step watched: the replicas gathered before it (they must
     differ) and after it (bit-identical), and the average against the
-    mean of the gathered replicas, in ulps."""
+    mean of the gathered replicas, in ulps (13d: the same for a ResNet,
+    its BatchNorm state's ulps also alone, on the splits ``load`` gives
+    in place of ``loop.load_dataset``'s)."""
     from mpi_tensorflow_torch import cli
     from mpi_tensorflow_torch.parallel import collectives, mesh
     from mpi_tensorflow_torch.train import loop, step
+    from mpi_tensorflow_torch.utils import tree as tree_lib
 
     dev, rank, world = join_world(backend)
     checks = []
     make_average = step.make_average_step
 
     def flat(state):
-        return torch.cat([t.detach().reshape(-1) for t in
-                          list(state.model.param_tree().values())
-                          + state.opt.velocity]).cpu().numpy()
+        """Parameters and velocity, then the model state."""
+        tensors = tree_lib.leaves(state.model.param_tree())
+        head = torch.cat([t.detach().reshape(-1) for t in
+                          tensors + state.opt.velocity]).cpu().numpy()
+        leaves = tree_lib.leaves(state.model_state)
+        tail = torch.cat([t.reshape(-1) for t in leaves]).cpu().numpy() \
+            if leaves else np.zeros(0, np.float32)
+        return np.concatenate([head, tail]), head.size
 
     def watched_average(state):
         average = make_average(state)
 
         def call(state):
-            before = collectives.host_allgather(flat(state))
+            before, n = flat(state)
+            before = collectives.host_allgather(before)
             state = average(state)
-            after = collectives.host_allgather(flat(state))
+            after = collectives.host_allgather(flat(state)[0])
             mean = (before[0] + before[1]) / np.float32(2) if world == 2 \
                 else before.mean(0, dtype=np.float32)
+            ulp = np.abs(after[rank] - mean) / np.spacing(np.abs(mean))
             checks.append({
                 "differ_before": not np.array_equal(before[0], before[1]),
                 "identical_after": all(np.array_equal(after[0], a)
                                        for a in after),
-                "max_ulp": float((np.abs(after[rank] - mean)
-                                  / np.spacing(np.abs(mean))).max())})
+                "max_ulp": float(ulp.max()),
+                "state_values": int(ulp.size - n),
+                "state_differ_before": not np.array_equal(
+                    before[0][n:], before[1][n:]),
+                "state_max_ulp": float(ulp[n:].max()) if ulp.size > n
+                else None})
             return state
         return call
 
@@ -1833,14 +1885,16 @@ def worker_avg50_epoch(backend: str) -> None:
         results.append(real_train(*a, **kw))
         return results[-1]
 
+    real_load = loop.load_dataset
     step.make_average_step, loop.train = watched_average, recorded_train
+    loop.load_dataset = load or real_load
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out):
-            cli.main(["--data-dir", CNN_DATA_DIR, "--epochs", "1", "--sync",
-                      "avg50", "--device", str(dev)])
+            cli.main([*argv, "--sync", "avg50", "--device", str(dev)])
     finally:
         step.make_average_step, loop.train = make_average, real_train
+        loop.load_dataset = real_load
     (res,) = results
     if rank == 0:
         print(out.getvalue(), end="")
@@ -2294,6 +2348,554 @@ def bert_dp_phase(card: str, phase7: dict) -> dict:
     return {"bert_train": res, "bert_steps": steps, "bench": benches}
 
 
+# --------------------------------------------------------------- phase 13
+
+# the ResNets' data directory holds neither CIFAR-10's binary files nor
+# ImageNet shards, so the loaders take their synthetic sets (nothing is
+# written there)
+RESNET_DATA_DIR = "build/resnet_data"
+# 13a: ResNet-20 at batch 128 for 5 steps and ResNet-50 at batch 4 for 2
+# (224x224), float32, TF32 off, cuDNN's deterministic algorithms; each
+# step on the card from the CPU's state before it: the loss (the largest
+# difference), the gradient (the whole update the step leaves in the
+# velocity: its relative difference, the median over the steps; the
+# worst parameter's is printed) and the new BatchNorm state (the worst
+# leaf's relative difference, the median over the steps).  BatchNorm's
+# backward subtracts means from the upstream gradient and the weight
+# gradients sum over N x H x W, so float32 alone leaves the gradient far
+# from float64: on the CPU (scripts/torch_resnet_conditioning.py, 8
+# threads) ResNet-20's lies 6.09e-4 from it (the worst parameter 5.0e-3,
+# the state 2.6e-6), ResNet-50's at batch 4 2.60e-2 (state 7.2e-6), and
+# the card's float32 is no nearer, so each bound allows a few times the
+# CPU's own distance; TF32 (emulated there) moves them 2.0e-2 / 8.8e-4
+# and 0.64 / 6.5e-3.  The control, the card with TF32 on, must miss the
+# gradient's and the state's bounds (the loss sits at ~ln(classes) + the
+# L2 term whatever the logits' last bits, so its bound cannot tell the
+# two apart).
+RESNET_TOL = {"resnet20": {"loss": 1e-5, "grad": 5e-3, "state": 3e-5},
+              "resnet50": {"loss": 1e-4, "grad": 0.1, "state": 1e-4}}
+RESNET_STEP_CASES = (("resnet20", 10, 128, 32, 5), ("resnet50", 1000, 4, 224, 2))
+# 13b: the runs through cli.main.  ResNet-20's synthetic CIFAR-10 is
+# learnt within its epoch (test error 80 % at step 50, 0 % by 350), so
+# its final error is held to the first trace point's; ResNet-50's 1000
+# synthetic classes, ~2 train images each, leave its test error at
+# chance (99.6-100.0 % at steps 10, 20 and 28, up or down by a row of
+# the 512), so its errors are printed, not held: 13a (in float32 and in
+# bf16, its step descending on a fixed batch) and the CPU parity tests
+# hold its arithmetic
+RESNET20_ARGS = ["--model", "resnet20", "--dataset", "cifar10",
+                 "--data-dir", RESNET_DATA_DIR, "--epochs", "1",
+                 "--batch-size", "128"]
+RESNET50_ARGS = ["--model", "resnet50", "--dataset", "imagenet_synthetic",
+                 "--num-classes", "1000", "--data-dir", RESNET_DATA_DIR,
+                 "--epochs", "1", "--batch-size", "64", "--log-every", "10"]
+# 13d: two gloo ranks, 3 psum steps of ResNet-20 at 64 rows a rank
+# against the in-process two-shard step, chained from the seed-0 state;
+# float32 sums in another order (the shards' gradients summed by the
+# all-reduce, not in one backward)
+RESNET_DP_ROWS, RESNET_DP_STEPS = 64, 3
+RESNET_DP_TOL = {"loss": 1e-5, "param": 1e-5, "state": 1e-5}
+# the avg50 run: the first 13 000 rows of the synthetic CIFAR-10 (11 917
+# train rows after the validation split: 46 steps of 128 a rank), a
+# trace every 10 steps (4 averages), 2000 test rows
+RESNET_AVG50_ARGS = ["--model", "resnet20", "--dataset", "cifar10",
+                     "--data-dir", RESNET_DATA_DIR, "--epochs", "1",
+                     "--batch-size", "128", "--log-every", "10"]
+RESNET_AVG50_ROWS = (13000, 2000)
+# 13a in bf16.  A training step cannot be held to the CPU's in bf16: a
+# channel whose spread lies below the bf16 resolution of its mean is
+# renormalised by BatchNorm's batch statistics, so one conv output
+# rounded the other way moves the step a long way.  On the CPU
+# (scripts/torch_resnet_conditioning.py, 8 threads against 1: one
+# oneDNN against itself) ResNet-50's training-mode logits at batch 4
+# part by 6.6 % of max|logit| and its gradient by 113 %, nearly as far
+# as bf16 lies from float32 (9.9 %, 132 %); ResNet-20's by 0.87 % and
+# 5.4 % (against 0.98 %, 6.6 %).  Nor does the card's bf16 round as the
+# CPU's: ResNet-20's evaluation-mode logits lie 4.95e-3 of max|logit|
+# from the CPU's bf16 ones, half as far as the card's float32 (1.08e-2;
+# this phase's output).  So in bf16 the script holds (1) the forward in
+# evaluation (the running statistics: 8 threads and 1 agree to the bit
+# there) to the card's float32 forward of the same weights and
+# statistics, within RESNET_BF16_EVAL_TOL x max|logit| (on the CPU bf16
+# lies 5.1e-3 / 6.6e-3 from float32, ResNet-20 / ResNet-50), from the
+# CPU's state after the float32 steps above; the control, the bf16
+# forward in training mode (batch statistics in place of the running
+# ones), must miss; the distances to the CPU's bf16 logits are printed,
+# not held; and (2) that ResNet-50's bf16 step descends:
+# RESNET50_FIT_STEPS steps on one fixed batch A of RESNET50_FIT_BATCH
+# rows from the seed-0 weights must bring A's cross-entropy (a
+# training-mode forward, the L2 term left out) to at most
+# RESNET50_FIT_RATIO of its start; the control, the same steps on
+# another batch B, must leave it above (on the card: 6.96 -> 2.05
+# trained on A, -> 30.9 trained on B)
+RESNET_BF16_EVAL_TOL = 2 ** -5
+RESNET50_FIT_BATCH, RESNET50_FIT_STEPS, RESNET50_FIT_RATIO = 8, 8, 0.5
+
+
+def rel_diff(got, want) -> float:
+    """The largest over matching tensors of |got - want| / |want| (norms)."""
+    return max(float((a - w).norm() / w.norm().clamp_min(1e-30))
+               for a, w in zip(got, want))
+
+
+def whole_rel_diff(got, want) -> float:
+    """|got - want| / |want| over all the tensors at once."""
+    flat = lambda ts: torch.cat([t.reshape(-1) for t in ts])
+    return rel_diff([flat(got)], [flat(want)])
+
+
+def resnet_model_step(name, classes, before, batch, dev, tf32=False):
+    """One float32 psum step of ``name`` on ``dev`` from ``before`` =
+    (parameters, velocity, counter, model state) (CPU tensors), TF32 as
+    asked: ``(loss, parameters, velocity, model state)`` after it, on
+    the CPU."""
+    from mpi_tensorflow_torch.config import Config
+    from mpi_tensorflow_torch.models import resnet
+    from mpi_tensorflow_torch.train import optimizer, step
+    from mpi_tensorflow_torch.utils import tree as tree_lib
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cudnn.deterministic = True
+    try:
+        params, velocity, count, model_state = before
+        model = resnet.ResNet(resnet.geometry(name, classes), params).to(dev)
+        state = step.init_state(model)
+        state.opt = optimizer.MomentumState(
+            [v.to(dev, copy=True) for v in velocity], count)
+        state.model_state = tree_lib.map_leaves(
+            lambda _, t: t.to(dev, copy=True), model_state)
+        train_step = step.make_train_step(model, Config(batch_size=batch[1]
+                                                        .shape[0]), 1,
+                                          decay_steps=50000)
+        x, y = batch
+        state, m = train_step(state, torch.from_numpy(x).to(dev),
+                              torch.from_numpy(y).to(dev))
+        cpu = lambda tree: tree_lib.map_leaves(
+            lambda _, t: t.detach().cpu(), tree)
+        return (float(m["loss"]), cpu(model.param_tree()),
+                [v.cpu() for v in state.opt.velocity],
+                cpu(state.model_state))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+
+
+def resnet_bf16_forward(dev, name, classes, params, model_state, x) -> dict:
+    """13a in bf16: the forward of ``params`` / ``model_state`` (CPU
+    tensors) on ``x``, relative to its max|logit|: the card's bf16
+    logits in evaluation against the card's float32 ones (``held``), the
+    bf16 logits in training mode against the same (``control``), and
+    the card's bf16 and float32 logits in evaluation against the CPU's
+    bf16 (``cpu_bf16``, ``cpu_bf16_vs_fp32``)."""
+    from mpi_tensorflow_torch.models import base, resnet
+    from mpi_tensorflow_torch.utils import tree as tree_lib
+
+    geo = resnet.geometry(name, classes)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        def logits(dev_, dtype, train=False):
+            model = resnet.ResNet(geo, params, compute_dtype=dtype).to(dev_)
+            state = tree_lib.map_leaves(lambda _, t: t.to(dev_), model_state)
+            with torch.no_grad():
+                out, _ = base.run_model(model, state, torch.from_numpy(x)
+                                        .to(dev_), train=train)
+            return out.double().cpu()
+
+        want = logits(dev, torch.float32)
+        bf16 = logits(dev, torch.bfloat16)
+        cpu = logits(torch.device("cpu"), torch.bfloat16)
+        apart = lambda a, b: float((a - b).abs().max() / b.abs().max())
+        return {"held": apart(bf16, want),
+                "control": apart(logits(dev, torch.bfloat16, True), want),
+                "cpu_bf16": apart(bf16, cpu),
+                "cpu_bf16_vs_fp32": apart(want, cpu)}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def resnet50_bf16_fit(dev) -> dict:
+    """13a in bf16: ResNet-50's bf16 step on the card descends on its
+    batch (``RESNET50_FIT_*``), and steps on another batch do not."""
+    import torch.nn.functional as F
+
+    from mpi_tensorflow_torch.config import Config
+    from mpi_tensorflow_torch.data import synthetic
+    from mpi_tensorflow_torch.models import base, resnet
+    from mpi_tensorflow_torch.train import step
+
+    b = RESNET50_FIT_BATCH
+    data = synthetic.image_classification(3 * b, 1, size=224, channels=3,
+                                          num_classes=1000, seed=7)
+    batch = lambda i: (torch.from_numpy(data.train_data[i * b:(i + 1) * b])
+                       .to(dev), torch.from_numpy(
+                           data.train_labels[i * b:(i + 1) * b]).to(dev))
+    a = batch(0)
+
+    def ce_of_a(model, state):
+        with torch.no_grad():
+            out, _ = base.run_model(model, state.model_state, a[0],
+                                    train=True)
+            return float(F.cross_entropy(out, a[1].long()))
+
+    out = {}
+    for name, fed in (("fit", a), ("control", batch(1))):
+        model = resnet.build("resnet50", 1000,
+                             compute_dtype=torch.bfloat16).to(dev)
+        state = step.init_state(model)
+        train = step.make_train_step(model, Config(batch_size=b), 1,
+                                     decay_steps=50000)
+        curve = [ce_of_a(model, state)]
+        for _ in range(RESNET50_FIT_STEPS):
+            state, _ = train(state, *fed)
+            curve.append(ce_of_a(model, state))
+        out[name] = curve
+    return out
+
+
+def resnet_cross_check(dev) -> dict:
+    """13a: each ``RESNET_STEP_CASES`` model from its seed-0 weights,
+    float32, on synthetic batches: every step on the card from the CPU's
+    state before it, within its ``RESNET_TOL`` of the CPU's step, and
+    the TF32 control outside the gradient's and the state's bounds."""
+    from mpi_tensorflow_torch.data import synthetic
+    from mpi_tensorflow_torch.models import resnet
+    from mpi_tensorflow_torch.utils import tree as tree_lib
+
+    out = {}
+    for name, classes, b, side, steps in RESNET_STEP_CASES:
+        data = synthetic.image_classification(
+            b * steps * 12 // 11 + 12, 1, size=side, channels=3,
+            num_classes=classes, seed=7)
+        batches = [(data.train_data[i * b:(i + 1) * b],
+                    data.train_labels[i * b:(i + 1) * b])
+                   for i in range(steps)]
+        model = resnet.build(name, classes)
+        p, ms = model.param_tree(), model.init_state()
+        # the velocity in the parameters' own order (the optimizer's)
+        v = [torch.zeros_like(t) for t in tree_lib.leaves(p)]
+        cpu, t0 = [], time.perf_counter()
+        for t, batch in enumerate(batches):
+            before = (p, v, np.float32(t), ms)
+            after = resnet_model_step(name, classes, before, batch,
+                                      torch.device("cpu"))
+            cpu.append((before, after))
+            _, p, v, ms = after
+        cpu_s = time.perf_counter() - t0
+
+        def apart(tf32):
+            loss, grad, worst, state = 0.0, [], [], []
+            for (before, (c_loss, _, c_v, c_ms)), batch in zip(cpu, batches):
+                g_loss, _, g_v, g_ms = resnet_model_step(
+                    name, classes, before, batch, dev, tf32)
+                loss = max(loss, abs(g_loss - c_loss))
+                grad.append(whole_rel_diff(g_v, c_v))
+                worst.append(rel_diff(g_v, c_v))
+                state.append(rel_diff(tree_lib.leaves(g_ms),
+                                      tree_lib.leaves(c_ms)))
+            return {"loss": loss, "grad": float(np.median(grad)),
+                    "grad_max": max(grad),
+                    "worst_param": float(np.median(worst)),
+                    "state": float(np.median(state)),
+                    "state_max": max(state)}
+
+        got, ctl = apart(False), apart(True)
+        tol = RESNET_TOL[name]
+        losses = [after[0] for _, after in cpu]
+        log(f"[resnet cross-check] {name}, {steps} steps of batch {b} at "
+            f"{side}x{side}, float32, each from the CPU's state (CPU "
+            f"{cpu_s:.1f} s): CPU losses {losses[0]:.6f} -> "
+            f"{losses[-1]:.6f}; card vs CPU: loss {got['loss']:.3e}, "
+            f"gradient rel. median {got['grad']:.3e} (max "
+            f"{got['grad_max']:.3e}; the worst parameter's median "
+            f"{got['worst_param']:.3e}), BatchNorm state rel. median "
+            f"{got['state']:.3e} (max {got['state_max']:.3e}) (tolerance "
+            f"{tol}); control, TF32 on: loss {ctl['loss']:.3e}, gradient "
+            f"{ctl['grad']:.3e} (max {ctl['grad_max']:.3e}; worst "
+            f"parameter {ctl['worst_param']:.3e}), state "
+            f"{ctl['state']:.3e} (max {ctl['state_max']:.3e})")
+        if not np.isfinite(losses).all() \
+                or any(got[k] > tol[k] for k in tol):
+            raise AssertionError(f"{name} card vs CPU: {got} (tolerance "
+                                 f"{tol})")
+        if any(ctl[k] <= tol[k] for k in ("grad", "state")):
+            raise AssertionError(
+                f"{name}: the TF32 control reads {ctl}, inside the "
+                f"tolerance {tol}: the bound does not tell the precisions "
+                f"apart")
+        # bf16: the forward from the CPU's state after the steps
+        _, p_end, _, ms_end = cpu[-1][1]
+        bf16 = resnet_bf16_forward(dev, name, classes, p_end, ms_end,
+                                   batches[0][0])
+        log(f"[resnet cross-check] {name} bf16 forward on the card, batch "
+            f"{b}, from the CPU's state after the steps, |bf16 - float32| / "
+            f"max|logit| in evaluation: {bf16['held']:.3e} (tolerance "
+            f"{RESNET_BF16_EVAL_TOL:.3e}); control, bf16 in training mode: "
+            f"{bf16['control']:.3e}; against the CPU's bf16 logits, not "
+            f"held: the card's bf16 {bf16['cpu_bf16']:.3e}, its float32 "
+            f"{bf16['cpu_bf16_vs_fp32']:.3e}")
+        if not bf16["held"] <= RESNET_BF16_EVAL_TOL:
+            raise AssertionError(f"{name} bf16 forward: {bf16}")
+        if not bf16["control"] > RESNET_BF16_EVAL_TOL:
+            raise AssertionError(
+                f"{name}: the training-mode control reads {bf16}, inside "
+                f"the tolerance {RESNET_BF16_EVAL_TOL}")
+        out[name] = {"card_vs_cpu": got, "control_tf32": ctl, "tol": tol,
+                     "cpu_losses": losses, "bf16_forward": bf16}
+    fit = resnet50_bf16_fit(dev)
+    bound = RESNET50_FIT_RATIO * fit["fit"][0]
+    log(f"[resnet cross-check] resnet50 bf16 on the card, "
+        f"{RESNET50_FIT_STEPS} steps of batch {RESNET50_FIT_BATCH} from the "
+        f"seed-0 weights: batch A's cross-entropy trained on A "
+        f"{[round(c, 4) for c in fit['fit']]}, bound {bound:.4f}; control, "
+        f"trained on batch B {[round(c, 4) for c in fit['control']]}")
+    if not (np.isfinite(fit["fit"]).all() and fit["fit"][-1] <= bound):
+        raise AssertionError(f"resnet50 bf16 step does not descend: {fit}")
+    if not fit["control"][-1] > bound:
+        raise AssertionError(f"resnet50 bf16: the control reads {fit}, "
+                             f"inside the bound {bound}")
+    out["resnet50_bf16_fit"] = fit
+    return out
+
+
+def resnet_cli(dev, card: str, argv, want_steps: int, want_trace: list,
+               gate_error: bool) -> dict:
+    """13b: ``cli.main(argv)`` as ``python -m mpi_tensorflow_torch`` runs
+    it, on the card: the steps, the trace lines in the reference's
+    format, the ``[timing]`` line, a finite loss and the card named in
+    the result; with ``gate_error``, a final test error no higher than
+    the first trace point's.  Images/s, step ms, MFU and peak GiB are
+    printed beside the card's name and power limit."""
+    from mpi_tensorflow_torch import cli
+    from mpi_tensorflow_torch.train import loop
+    from mpi_tensorflow_torch.utils import flops
+
+    results = []
+    real_train = loop.train
+
+    def recorded_train(*a, **kw):
+        results.append(real_train(*a, **kw))
+        return results[-1]
+
+    out = _Tee(sys.stdout)
+    loop.train = recorded_train
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    finally:
+        loop.train = real_train
+    wall = time.perf_counter() - t0
+    (res,) = results
+    lines = out.getvalue().splitlines()
+    trace = [TRACE_LINE.fullmatch(ln) for ln in lines]
+    trace = [(int(m[1]), float(m[2])) for m in trace if m]
+    errs = [e for _, e in res.history]
+    problems = []
+    if rc != 0 or res.device != torch.cuda.get_device_name(dev):
+        problems.append(f"rc {rc}, device {res.device!r}")
+    if res.num_steps != want_steps or [t for t, _ in trace] != want_trace \
+            or [t for t, _ in res.history] != want_trace:
+        problems.append(f"{res.num_steps} steps, trace steps "
+                        f"{[t for t, _ in trace]}")
+    if not any(ln.startswith("[timing]") for ln in lines):
+        problems.append("no [timing] line")
+    if not np.isfinite(res.final_loss) \
+            or (gate_error and res.final_test_error > errs[0]):
+        problems.append(f"loss {res.final_loss}, errors {errs}")
+    if problems:
+        raise AssertionError(f"ResNet run {argv}: {problems}")
+    config = cli.config_from_args(cli.build_parser().parse_args(argv))
+    step_flops = flops.image_train_flops(config.model, config.batch_size)
+    summary = {
+        "argv": argv, "card": card, "device": res.device,
+        "model": config.model, "precision": config.precision,
+        "steps": res.num_steps, "trace_lines": len(trace),
+        "images_per_sec": res.images_per_sec,
+        "step_ms": res.step_time_seconds * 1e3,
+        "mfu_pct": 100.0 * flops.mfu(step_flops, res.step_time_seconds,
+                                     config.precision),
+        "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "final_loss": res.final_loss, "history": res.history,
+        "wall_s": wall}
+    log("[resnet] " + json.dumps(summary))
+    return summary
+
+
+def worker_resnet_psum_steps(backend: str) -> None:
+    """13d: ``RESNET_DP_STEPS`` psum steps of ResNet-20 (float32, cuDNN's
+    deterministic algorithms) from its seed-0 state, each rank feeding
+    its ``RESNET_DP_ROWS`` rows, against the in-process step over the
+    world's shards concatenated (each shard normalised on its own)."""
+    from mpi_tensorflow_torch.config import Config
+    from mpi_tensorflow_torch.data import synthetic
+    from mpi_tensorflow_torch.models import resnet
+    from mpi_tensorflow_torch.parallel import mesh
+    from mpi_tensorflow_torch.train import step
+    from mpi_tensorflow_torch.utils import tree as tree_lib
+
+    dev, rank, world = join_world(backend)
+    torch.backends.cudnn.deterministic = True
+    b = RESNET_DP_ROWS
+    data = synthetic.image_classification(
+        RESNET_DP_STEPS * world * b * 12 // 11 + 12, 1, size=32, channels=3,
+        num_classes=10, seed=8)
+    cfg = Config(batch_size=b)
+
+    def run(shards, across, rows):
+        model = resnet.build("resnet20", seed=0).to(dev)
+        state = step.init_state(model)
+        train = step.make_train_step(model, cfg, shards, 50000,
+                                     across_ranks=across)
+        losses = []
+        for t in range(RESNET_DP_STEPS):
+            x = data.train_data[t * world * b:(t + 1) * world * b][rows]
+            y = data.train_labels[t * world * b:(t + 1) * world * b][rows]
+            state, m = train(state, torch.from_numpy(x).to(dev),
+                             torch.from_numpy(y).to(dev))
+            losses.append(float(m["loss"]))
+        return (np.array(losses),
+                [t.detach() for t in tree_lib.leaves(model.param_tree())],
+                tree_lib.leaves(state.model_state))
+
+    across = run(1, True, slice(rank * b, (rank + 1) * b))
+    plain = run(world, False, slice(None))
+    diff = {"loss": float(np.abs(across[0] - plain[0]).max()),
+            "param": max(float((a - w).abs().max())
+                         for a, w in zip(across[1], plain[1])),
+            "state": max(float((a - w).abs().max())
+                         for a, w in zip(across[2], plain[2]))}
+    if rank == 0:
+        print(DP_RESULT + json.dumps({
+            "case": "resnet_psum_steps", "backend": backend, "world": world,
+            "device": str(dev), "diff": diff,
+            "losses": plain[0].tolist()}), flush=True)
+    mesh.shutdown()
+
+
+def resnet_avg50_splits(config, num_shards, verbose=True):
+    """13d's avg50 run: the first ``RESNET_AVG50_ROWS`` rows of the
+    synthetic CIFAR-10 in ``config.data_dir``."""
+    from mpi_tensorflow_torch.data import cifar
+
+    return cifar.load_splits(config.data_dir, *RESNET_AVG50_ROWS)
+
+
+WORKERS.update(resnet_psum_steps=worker_resnet_psum_steps,
+               resnet_avg50=lambda backend: worker_avg50_epoch(
+                   backend, RESNET_AVG50_ARGS, load=resnet_avg50_splits))
+
+
+def resnet_phase(dev, card: str) -> dict:
+    """Phase 13: ResNet-20 and ResNet-50 training.  13a: single steps on
+    the card against the CPU's; 13b: one epoch of each through
+    ``cli.main``, fp32 and bf16; 13c: no hand kernel launched on 13b's
+    runs; 13d: ResNet-20 through torchrun at world 1 over NCCL, then two
+    gloo ranks on ``cuda:0``: psum steps against the in-process two-shard
+    step, and an avg50 run with every average watched; 13e: the bench's
+    ResNet lines."""
+    from mpi_tensorflow_torch.train import loop
+
+    cross = resnet_cross_check(dev)
+    # 13b, 13c: each synthetic set made once for both precisions
+    cache, real_load = {}, loop.load_dataset
+
+    def cached_load(config, num_shards, *a, **kw):
+        key = (config.dataset, num_shards, repr(a), repr(sorted(kw.items())))
+        if key not in cache:
+            cache[key] = real_load(config, num_shards, *a, **kw)
+        return cache[key]
+
+    every = lambda n, k: [t for t in range(1, n) if t % k == 0] + [n - 1]
+    saved = hand_kernel_counts()
+    set_hand_kernel_counts({k: 0 for k in saved})
+    loop.load_dataset = cached_load
+    try:
+        runs = {}
+        for name, argv, steps, k in (("resnet20", RESNET20_ARGS, 358, 50),
+                                     ("resnet50", RESNET50_ARGS, 29, 10)):
+            for prec in (("fp32", "bf16") if name == "resnet20"
+                         else ("bf16", "fp32")):
+                runs[name, prec] = resnet_cli(
+                    dev, card, argv + ["--precision", prec], steps,
+                    every(steps, k), gate_error=name == "resnet20")
+    finally:
+        loop.load_dataset = real_load
+        cache.clear()
+    torch.cuda.synchronize(dev)
+    launched = hand_kernel_counts()
+    set_hand_kernel_counts(saved)
+    if any(launched.values()):
+        raise AssertionError(f"the ResNet path launched hand kernels: "
+                             f"{launched}")
+    log("[resnet] no hand kernel launched on the ResNet runs (paged, flash "
+        "and fused counts all 0)")
+    # 13d
+    me = os.path.abspath(__file__)
+    lines = torchrun(1, ["-m", "mpi_tensorflow_torch", *RESNET20_ARGS],
+                     600).splitlines()
+    trace = check_trace(lines, 1, every(358, 50), "torchrun ResNet-20")
+    if trace[-1][1] > trace[0][1]:
+        raise AssertionError(f"torchrun ResNet-20: errors {trace}")
+    world1 = trainer_timing(lines)
+    log(f"[resnet dp] torchrun --nproc_per_node 1 -m mpi_tensorflow_torch "
+        f"{' '.join(RESNET20_ARGS)} (NCCL, world 1): 358 steps, errors "
+        f"{trace[0][1]} -> {trace[-1][1]} %; {json.dumps(world1)} beside "
+        f"13b's {runs['resnet20', 'fp32']['images_per_sec']:.1f} images/s "
+        f"(no process group); {card}")
+    psum = dp_result(torchrun(2, [me, "--worker", "resnet_psum_steps",
+                                  "gloo"], 300))
+    log(f"[resnet dp] psum, 2 ranks on cuda:0 over gloo, ResNet-20 float32, "
+        f"{RESNET_DP_STEPS} steps of {RESNET_DP_ROWS} rows a rank from the "
+        f"seed-0 state against the in-process two-shard step: "
+        f"{json.dumps(psum['diff'])} (tolerance {RESNET_DP_TOL}); losses "
+        f"{psum['losses']}")
+    if any(psum["diff"][k] > RESNET_DP_TOL[k] for k in RESNET_DP_TOL):
+        raise AssertionError(f"ResNet psum across ranks: {psum}")
+    avg = dp_result(torchrun(2, [me, "--worker", "resnet_avg50", "gloo"],
+                             600))
+    want_trace = every(avg["steps"], 10)
+    trace = check_trace(avg["lines"], 2, want_trace, "ResNet avg50, 2 ranks")
+    checks = avg["averages"]
+    if len(checks) != len(want_trace) - 1 or not all(
+            c["differ_before"] and c["identical_after"]
+            and c["state_differ_before"] and c["max_ulp"] <= 1.0
+            and c["state_max_ulp"] <= 1.0 for c in checks) \
+            or not np.isfinite(avg["final_loss"]):
+        raise AssertionError(f"ResNet avg50, 2 ranks over gloo: {checks}, "
+                             f"loss {avg['final_loss']}")
+    log(f"[resnet dp] avg50, 2 ranks on cuda:0 over gloo, ResNet-20: "
+        f"{avg['steps']} steps, {len(trace)} trace points x 2 lines, "
+        f"{len(checks)} averages of {checks[0]['state_values']} BatchNorm "
+        f"values with the parameters and velocity: replicas apart before "
+        f"each (their statistics too) and bit-identical after each, within "
+        f"{max(c['max_ulp'] for c in checks)} ulp of the gathered mean "
+        f"(the statistics {max(c['state_max_ulp'] for c in checks)} ulp); "
+        f"test error {trace[0][1]} -> {trace[-1][1]} %; {card}")
+    # 13e
+    benches = {}
+    for name, extra in (("resnet20", ["--steps", "100", "--warmup", "10"]),
+                        ("resnet50", ["--steps", "20", "--warmup", "3"])):
+        for prec in ("fp32", "bf16"):
+            out = run_sub([sys.executable, "-m", "mpi_tensorflow_torch.bench",
+                           "--mode", "train", "--model", name,
+                           "--precision", prec, *extra], 300)
+            line = json.loads(out.strip().splitlines()[-1])
+            if not (line["images_per_sec"] > 0
+                    and np.isfinite(line["final_loss"])):
+                raise AssertionError(f"bench {name} {prec}: {line}")
+            benches[name, prec] = line
+            log(f"[resnet bench] {json.dumps(line)}")
+    return {"cross_check": cross, "runs": runs, "launches": launched,
+            "world1": world1, "psum": psum, "avg50": avg,
+            "bench": benches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda reports no card; nothing was run",
@@ -2337,6 +2939,7 @@ def main() -> int:
     cnn = cnn_phase(dev, card)
     dp_phase(card, cnn)
     bert_dp = bert_dp_phase(card, phase7)["bert_train"]["runs"]
+    resnet_launches = resnet_phase(dev, card)["launches"]
     paged_src = "mpi_tensorflow_torch/ops/csrc/paged_attention.cu"
     paged_replaces = "mpi_tensorflow_tpu/ops/paged_attention_kernel.py:90"
     kernels = [{
@@ -2394,6 +2997,9 @@ def main() -> int:
             "max_abs_err_fp32": fused_worst[name, torch.float32],
             "max_abs_err_bf16": fused_worst[name, torch.bfloat16],
             **fused_timing[name]})
+    for k in kernels:           # phase 13c: the ResNet runs, counted from 0
+        k["launches_resnet"] = resnet_launches[
+            "paged_attention" if k["name"].startswith("paged") else k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,19 +10,23 @@ Layout mirrors the reference so each counterpart is easy to find:
 
 - ``config``   — the run-config fields the ported paths read;
 - ``cli``      — ``python -m mpi_tensorflow_torch``, the trainer;
-- ``data``     — the synthetic MLM stream;
-- ``models``   — the transformer layer math and ``BertMlm`` (``bert``),
+- ``data``     — MNIST, CIFAR-10 and the ImageNet-shaped set (each with
+                 its synthetic stand-in), and the synthetic MLM stream;
+- ``models``   — the MNIST CNN (``cnn``), ResNet-20/50 (``resnet``),
+                 the transformer layer math and ``BertMlm`` (``bert``),
                  the causal LM with its paged forward (``gpt``), and the
                  parameter-tree converter (``convert``);
-- ``ops``      — the CUDA paged-attention and flash-attention kernels
-                 with their plain PyTorch twins, paged KV-cache ops, and
-                 the MLM head's masked-position packing;
+- ``ops``      — the CUDA paged-attention, flash-attention and fused
+                 kernels with their plain PyTorch twins, paged KV-cache
+                 ops, the MLM head's masked-position packing, and the
+                 ResNet's SAME conv, pooling and BatchNorm (``nn``);
 - ``parallel`` — dense attention (the path below ``flash_min_seq``);
 - ``serving``  — block allocator, scheduler, per-iteration loop,
                  continuous-batching engine, trace generator and the
                  ``python -m mpi_tensorflow_torch.serving`` entry point;
-- ``train``    — adamw with the warmup schedule, the train/eval steps
-                 and the MLM host loop ``train_mlm``;
+- ``train``    — TF momentum and adamw, the image family's train/eval
+                 steps and loop (``step``, ``loop``), the transformer's
+                 (``gspmd``) and the MLM host loop ``train_mlm``;
 - ``utils``    — device resolution, step timing and profile summaries,
                  the console trace, model-FLOP accounting, and the
                  metrics blocks the engine returns.

@@ -4,14 +4,20 @@
 --mode train`` (the JAX package's bench): the train step of an image
 model at a per-card batch, on random-normal x 0.3 batches with random
 labels in 4 rotating banks (so steps do not alias one input), the LR
-schedule's ``decay_steps`` at 50000, dropout on.  ``--warmup`` steps run
-first and are not timed; the card is synchronised before and after the
-``--steps`` timed steps.  Prints one JSON line: images/sec (and per
-card), step ms, model-FLOP utilisation against the card's peak for the
-precision (``utils/flops.py``), and the card's name and power limit.
+schedule's ``decay_steps`` at 50000, the CNN's dropout on.  The input
+geometry, classes and defaults are the JAX bench's ``MODEL_SPECS``
+(``IMAGE_SPECS``): ``mnist_cnn`` 64 x 28x28x1, 10 classes; ``resnet20``
+128 x 32x32x3, 10 classes; ``resnet50`` 32 x 224x224x3, 1000 classes.
+``--warmup`` steps run first and are not timed; the card is
+synchronised before and after the ``--steps`` timed steps.  Prints one
+JSON line: images/sec (and per card), step ms, model-FLOP utilisation
+against the card's peak for the precision (``utils/flops.py``), the
+card's peak allocated GiB, and the card's name and power limit.
 
     python -m mpi_tensorflow_torch.bench --mode train
     python -m mpi_tensorflow_torch.bench --mode train --precision bf16
+    python -m mpi_tensorflow_torch.bench --mode train --model resnet50 \\
+        --precision bf16
     python -m mpi_tensorflow_torch.bench --mode train --device cpu \\
         --steps 20 --warmup 2
 
@@ -80,31 +86,44 @@ from mpi_tensorflow_torch.utils.device import (card_line, device_name,
                                                resolve_device)
 
 N_BANKS = 4
+# per image model: the input (H, W, C), the classes, and the defaults of
+# --batch-size, --steps and --warmup
+IMAGE_SPECS = {
+    "mnist_cnn": dict(shape=(28, 28, 1), classes=10, defaults=(64, 1000, 50)),
+    "resnet20": dict(shape=(32, 32, 3), classes=10, defaults=(128, 500, 20)),
+    "resnet50": dict(shape=(224, 224, 3), classes=1000,
+                     defaults=(32, 48, 5)),
+}
 
 
 def measure_train(model_name: str = "mnist_cnn", batch_size: int = 64,
                   precision: str = "fp32", steps: int = 1000,
                   warmup: int = 50, device="cuda") -> dict:
     """Mean time of one train step after ``warmup`` untimed ones."""
+    spec = IMAGE_SPECS[model_name]
     cfg = Config(model=model_name, batch_size=batch_size,
-                 precision=precision)
-    model = loop.build_model(cfg)
+                 precision=precision, num_classes=spec["classes"])
     dev = resolve_device(device)
-    model = model.to(dev)
+    if dev.type == "cuda":
+        torch.empty(0, device=dev)      # the allocator up, for its stats
+        torch.cuda.reset_peak_memory_stats(dev)
+    model = loop.build_model(cfg).to(dev)
     state = step_lib.init_state(model)
     train_step = step_lib.make_train_step(model, cfg, 1, decay_steps=50000)
     rng = np.random.default_rng(0)
-    shape = (batch_size, cfg.image_size, cfg.image_size, cfg.num_channels)
+    shape = (batch_size, *spec["shape"])
     batches = [torch.from_numpy(
         (rng.normal(size=shape) * 0.3).astype(np.float32)).to(dev)
         for _ in range(N_BANKS)]
     labels = [torch.from_numpy(rng.integers(
         0, cfg.num_classes, size=batch_size).astype(np.int64)).to(dev)
         for _ in range(N_BANKS)]
+    dropout = getattr(model, "dropout_rate", 0.0) > 0.0
 
     def run(i):
+        gen = step_generator(cfg.seed + 1, i, dev) if dropout else None
         return train_step(state, batches[i % N_BANKS], labels[i % N_BANKS],
-                          step_generator(cfg.seed + 1, i, dev))[1]["loss"]
+                          gen)[1]["loss"]
 
     def sync():
         if dev.type == "cuda":
@@ -128,7 +147,10 @@ def measure_train(model_name: str = "mnist_cnn", batch_size: int = 64,
         "step_time_ms": sec * 1e3,
         "model_flops_per_step": step_flops,
         "mfu_pct": None if mfu is None else 100.0 * mfu,
+        "peak_memory_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                            if dev.type == "cuda" else None),
         "num_devices": 1, "batch_size_per_chip": batch_size,
+        "image_shape": list(spec["shape"]), "num_classes": cfg.num_classes,
         "precision": precision, "steps": steps, "warmup": warmup,
         "final_loss": float(loss), "device": device_name(dev),
         "card": card_line(dev),
@@ -260,13 +282,16 @@ def main(argv=None) -> int:
                     choices=["mnist_cnn", "resnet20", "resnet50", "vit",
                              "bert_base"])
     ap.add_argument("--batch-size", type=int, default=None,
-                    help="per-card batch (default 64; bert_base 4)")
+                    help="per-card batch (default: mnist_cnn 64, resnet20 "
+                         "128, resnet50 32, bert_base 4)")
     ap.add_argument("--precision", choices=["fp32", "bf16"], default="fp32")
     ap.add_argument("--steps", type=int, default=None,
-                    help="timed train steps (default 1000; bert_base 20)")
+                    help="timed train steps (default: mnist_cnn 1000, "
+                         "resnet20 500, resnet50 48, bert_base 20)")
     ap.add_argument("--warmup", type=int, default=None,
-                    help="untimed steps before the timed ones (default 50;"
-                         " bert_base 3)")
+                    help="untimed steps before the timed ones (default: "
+                         "mnist_cnn 50, resnet20 20, resnet50 5, bert_base"
+                         " 3)")
     ap.add_argument("--seq-len", type=int, default=128,
                     help="bert_base: tokens per sequence")
     ap.add_argument("--grad-accum", type=int, default=1,
@@ -284,7 +309,11 @@ def main(argv=None) -> int:
         raise NotImplementedError("--mode serving is not ported yet: "
                                   "ROADMAP Queue 1 item 6")
     bert_run = args.mode == "train" and args.model == "bert_base"
-    defaults = (4, 20, 3) if bert_run else (64, 1000, 50)
+    if args.mode == "train" and args.model == "vit":
+        raise NotImplementedError("model 'vit' is not ported yet: ROADMAP "
+                                  "Queue 1 item 14")
+    defaults = (4, 20, 3) if bert_run else \
+        IMAGE_SPECS.get(args.model, IMAGE_SPECS["mnist_cnn"])["defaults"]
     batch, steps, warmup = (d if v is None else v for v, d in zip(
         (args.batch_size, args.steps, args.warmup), defaults))
     if args.mode == "train" and not bert_run:

@@ -5,12 +5,23 @@ training paths read, the reference's defaults, plus ``--device``.  With
 no flags it trains the reference CNN (``mnist_cnn``) for 2 epochs at
 batch 64 on MNIST from ``--data-dir`` (the synthetic set when the
 directory holds no MNIST files), sync ``psum``, on the card, through
-``train.loop.train``; the transformer path runs with ``--model bert_base
+``train.loop.train``; ``--model resnet20 --dataset cifar10`` and
+``--model resnet50 --dataset imagenet_synthetic --num-classes 1000``
+train the ResNets through the same loop (CIFAR-10's binary files when
+``--data-dir`` holds ``cifar-10-batches-bin``, else the synthetic set of
+its shapes; ``imagenet_npy`` shards when present, else the synthetic
+224x224 set); the transformer path runs with ``--model bert_base
 --dataset mlm_synthetic``:
 
     python -m mpi_tensorflow_torch                     # on the card
     python -m mpi_tensorflow_torch --device cpu --epochs 1 \\
         --data-dir /tmp/mnist
+    python -m mpi_tensorflow_torch --model resnet20 --dataset cifar10 \\
+        --batch-size 128 [--precision bf16]            # on the card
+    python -m mpi_tensorflow_torch --model resnet50 \\
+        --dataset imagenet_synthetic --num-classes 1000 --precision bf16
+    python -m mpi_tensorflow_torch --model resnet20 --dataset cifar10 \\
+        --device cpu --epochs 1 --data-dir /tmp/c10
     python -m mpi_tensorflow_torch --model bert_base \\
         --dataset mlm_synthetic --precision bf16 --seq-len 4096 \\
         --batch-size 4                                 # on the card
@@ -88,8 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "SGD, parameters averaged every --log-every steps")
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--data-dir", default=d.data_dir,
-                   help="the four MNIST IDX files; written synthetic when "
-                        "absent")
+                   help="MNIST's four IDX files (written synthetic when "
+                        "absent), cifar-10-batches-bin or imagenet_npy "
+                        "(synthetic when absent)")
     p.add_argument("--mesh", default=None,
                    help="mesh spec, e.g. 'data=4': the data axis must "
                         "equal the number of ranks")

@@ -2,8 +2,8 @@
 
 Counterpart of ``mpi_tensorflow_tpu/config.py``: the reference MPI
 script's knobs and the image-family fields ``train.loop.train`` reads
-(the CNN, its momentum optimizer and staircase decay, the trace and
-early-stop cadence, the windowed loop), the training fields
+(the CNN and the ResNets, the momentum optimizer and staircase decay,
+the trace and early-stop cadence, the windowed loop), the training fields
 ``train.mlm_loop.train_mlm`` and ``cli`` read, the precision knob and
 its compute dtype, and the ``serve_*`` pool, kernel and fault-policy
 knobs ``serving.engine.ServeConfig.from_config`` bridges to the engine.
@@ -32,7 +32,10 @@ class Config:
     model: str = "mnist_cnn"      # the trainer's model family
     dataset: str = "mnist"
     data_dir: str = "./data"      # the four MNIST IDX files (or, when
-                                  # absent, the synthetic set written there)
+                                  # absent, the synthetic set written
+                                  # there); cifar-10-batches-bin or
+                                  # imagenet_npy (else their synthetic
+                                  # sets, nothing written)
 
     # --- image family: optimizer, schedule, loop ---
     base_lr: float = 0.01         # staircase exponential decay of the LR,
@@ -111,8 +114,6 @@ class Config:
              "15 (the metrics sink)"),
             (self.prefetch == "native", "prefetch='native'",
              "15 (the C++ window worker)"),
-            (self.dataset in ("cifar10", "imagenet_synthetic"),
-             f"dataset={self.dataset!r}", "14a (the ResNet datasets)"),
         )
         for bad, what, item in not_ported:
             if bad:

@@ -1,14 +1,47 @@
-"""Deterministic synthetic masked-LM data (numpy only).
+"""Deterministic synthetic data (numpy only): images for the ResNet
+datasets and masked-LM sequences.
 
-The port's own copy of ``mlm_batches`` from
-``mpi_tensorflow_tpu/data/synthetic.py``: the same draws in the same
-order from ``numpy.random.default_rng(seed)``, so one seed gives the
-same bytes in both packages.
+The port's own copy of ``image_classification`` and ``mlm_batches``
+from ``mpi_tensorflow_tpu/data/synthetic.py``: the same draws in the
+same order from ``numpy.random.default_rng(seed)``, so one seed gives
+the same bytes in both packages.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from mpi_tensorflow_torch.data.mnist import Splits
+
+
+def image_classification(train_n: int, test_n: int, *, size: int,
+                         channels: int, num_classes: int,
+                         seed: int = 0) -> Splits:
+    """Class-separable NHWC float32 images in ``[-0.5, 0.5]`` (noise of
+    sd 0.15 plus a low-frequency pattern per class) with int64 labels;
+    the first ``train_n // 12`` train rows (at least one) are the
+    validation split."""
+    rng = np.random.default_rng(seed)
+
+    def make(n):
+        labels = rng.integers(0, num_classes, size=n).astype(np.int64)
+        x = rng.normal(0.0, 0.15, size=(n, size, size, channels))
+        freqs = 1 + (np.arange(num_classes) % 4)
+        phases = 2 * np.pi * np.arange(num_classes) / num_classes
+        t = np.linspace(0, 2 * np.pi, size)
+        for c in range(num_classes):
+            mask = labels == c
+            pattern = 0.25 * np.outer(np.sin(freqs[c] * t + phases[c]),
+                                      np.cos(freqs[c] * t))
+            x[mask] += pattern[None, :, :, None]
+        return np.clip(x, -0.5, 0.5).astype(np.float32), labels
+
+    tr_x, tr_y = make(train_n)
+    ts_x, ts_y = make(test_n)
+    val_n = max(train_n // 12, 1)
+    return Splits(train_data=tr_x[val_n:], train_labels=tr_y[val_n:],
+                  test_data=ts_x, test_labels=ts_y,
+                  val_data=tr_x[:val_n], val_labels=tr_y[:val_n])
 
 
 def mlm_batches(num_examples: int, *, seq_len: int, vocab_size: int,

@@ -6,8 +6,9 @@ passes ``params`` to a pure ``apply``, the port calls the module.
 
 - ``l2_loss``: ``tf.nn.l2_loss``, ``sum(x**2) / 2``;
 - ``run_model``: the uniform forward, ``(outputs, model_state)``,
-  whether or not the model carries state (BatchNorm statistics; the
-  CNN and BERT carry none and give back ``{}``);
+  whether or not the model carries state (the ResNet's BatchNorm
+  statistics, with ``shards`` equal shards of the batch normalised each
+  on its own; the CNN and BERT carry none and give back ``{}``);
 - ``dropout_mask``: inverted dropout from an explicit
   ``torch.Generator``.
 """
@@ -32,11 +33,14 @@ def init_model_state(model) -> Any:
     return {}
 
 
-def run_model(model, model_state, inputs, *, train: bool, generator=None):
-    """``(outputs, new_model_state)`` of one forward of ``model``."""
+def run_model(model, model_state, inputs, *, train: bool, generator=None,
+              shards: int = 1):
+    """``(outputs, new_model_state)`` of one forward of ``model``;
+    ``shards`` reaches a stateful model only (a stateless one computes
+    each row on its own)."""
     if hasattr(model, "apply_with_state"):
         return model.apply_with_state(model_state, inputs, train=train,
-                                      generator=generator)
+                                      generator=generator, shards=shards)
     return model(inputs, train=train, generator=generator), model_state
 
 

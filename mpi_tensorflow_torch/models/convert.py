@@ -13,13 +13,19 @@ dicts, ``layers`` stays a list.
   numpy leaves, to compare with a JAX model's parameters;
 - ``cnn_params_from_jax`` / ``cnn_params_to_numpy``: the same for the
   MNIST CNN, whose conv weights are the one layout that changes (the
-  reference's HWIO is the port's OIHW).
+  reference's HWIO is the port's OIHW);
+- ``resnet_params_from_jax`` / ``resnet_params_to_numpy``: the
+  ResNet's nested parameter tree, every 4-D leaf (a conv weight) HWIO
+  <-> OIHW (its running statistics cross as they are, through
+  ``params_from_jax`` / ``params_to_numpy``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from mpi_tensorflow_torch.utils import tree as tree_lib
 
 
 def params_from_jax(tree):
@@ -70,3 +76,22 @@ def cnn_params_to_numpy(tree: dict) -> dict:
             v = np.ascontiguousarray(v.transpose(_OIHW_TO_HWIO))
         out[k] = v
     return out
+
+
+def _conv_layout(arr: np.ndarray, perm) -> np.ndarray:
+    return np.ascontiguousarray(arr.transpose(perm)) if arr.ndim == 4 \
+        else arr
+
+
+def resnet_params_from_jax(tree):
+    """The reference ``ResNet``'s numpy leaves -> the port's float32
+    tensors, conv weights HWIO -> OIHW."""
+    return tree_lib.map_leaves(lambda _, v: torch.from_numpy(_conv_layout(
+        v.numpy(), _HWIO_TO_OIHW).copy()), params_from_jax(tree))
+
+
+def resnet_params_to_numpy(tree):
+    """The inverse of ``resnet_params_from_jax``: port tensors (on any
+    device) -> the reference's float32 numpy layout."""
+    return tree_lib.map_leaves(lambda _, v: _conv_layout(v, _OIHW_TO_HWIO),
+                               params_to_numpy(tree))

@@ -53,7 +53,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import itertools
 import math
 from typing import Optional
 
@@ -62,9 +61,9 @@ import torch
 from mpi_tensorflow_torch.models.bert import BertMlm
 from mpi_tensorflow_torch.parallel import collectives, fsdp
 from mpi_tensorflow_torch.parallel import mesh as meshlib
-from mpi_tensorflow_torch.train.optimizer import (AdamWState, TransformerTx,
-                                                  named_leaves)
+from mpi_tensorflow_torch.train.optimizer import AdamWState, TransformerTx
 from mpi_tensorflow_torch.train.step import flat_buffer
+from mpi_tensorflow_torch.utils import tree as tree_lib
 
 @dataclasses.dataclass
 class Sharding:
@@ -93,22 +92,14 @@ class TrainState:
 
 
 def _params(model) -> list:
-    return [p for _, p in named_leaves(model.param_tree())]
+    return tree_lib.leaves(model.param_tree())
 
 
 def _replace_leaves(tree, new: dict):
-    """``tree`` with leaf i (in ``named_leaves`` order) replaced by
-    ``new[i]`` where given."""
-    count = itertools.count()
-
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return [walk(v) for v in t]
-        i = next(count)
-        return new.get(i, t)
-    return walk(tree)
+    """``tree`` with leaf i (in tree order) replaced by ``new[i]`` where
+    given."""
+    return tree_lib.unflatten(tree, [new.get(i, leaf) for i, leaf in
+                                     enumerate(tree_lib.leaves(tree))])
 
 
 def _opt_tree(state: TrainState):

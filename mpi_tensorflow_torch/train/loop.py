@@ -36,6 +36,15 @@ one process (``psum`` only):
   0`` (every rank reaches the same verdict from the gathered
   predictions).
 
+The model is the reference CNN (``mnist_cnn``) or a ResNet
+(``resnet20``, ``resnet50``; ``models/resnet.py``), whose BatchNorm
+statistics ride in the train state (``train/step.py``); the data is
+MNIST, CIFAR-10 or the ImageNet-shaped set (``load_dataset``).  A label
+the model cannot score (``>= num_classes``) raises before any step:
+the reference builds ResNet-50 with ``config.num_classes`` (10 unless
+``--num-classes`` says otherwise) and on ``imagenet_synthetic``'s 1000
+classes reads NaN from its ``take_along_axis``.
+
 Timing: ``StepTimer(warmup_steps=1)`` with this rank's card
 synchronised at every trace point, so each span is the device work it
 queued; the first span (the first window) is skipped.  Rank 0's time is
@@ -56,9 +65,10 @@ import numpy as np
 import torch
 
 from mpi_tensorflow_torch.config import Config
-from mpi_tensorflow_torch.data import mnist, prefetch, sharding
+from mpi_tensorflow_torch.data import cifar, imagenet, mnist, prefetch
+from mpi_tensorflow_torch.data import sharding
 from mpi_tensorflow_torch.data.idx import error_rate
-from mpi_tensorflow_torch.models import cnn
+from mpi_tensorflow_torch.models import cnn, resnet
 from mpi_tensorflow_torch.parallel import mesh as meshlib
 from mpi_tensorflow_torch.train import evaluation, step as step_lib
 from mpi_tensorflow_torch.train.gspmd import step_generator
@@ -90,11 +100,15 @@ def build_model(config: Config):
             num_classes=config.num_classes,
             dropout_rate=config.dropout_rate,
             compute_dtype=config.compute_dtype)
-    if config.model in ("resnet20", "resnet50", "vit"):
-        item = "14" if config.model == "vit" else "14a"
+    if config.model in ("resnet20", "resnet50"):
+        return resnet.build(config.model, num_classes=config.num_classes,
+                            seed=config.seed,
+                            compute_dtype=config.compute_dtype,
+                            remat=config.remat)
+    if config.model == "vit":
         raise NotImplementedError(
             f"model {config.model!r} is not ported yet: ROADMAP Queue 1 "
-            f"item {item}")
+            "item 14")
     raise ValueError(f"unknown image model {config.model!r}")
 
 
@@ -103,8 +117,24 @@ def load_dataset(config: Config, num_shards: int,
     if config.dataset == "mnist":
         mnist.ensure_data(config.data_dir, verbose=verbose)
         return mnist.load_splits(config.data_dir, num_shards=num_shards)
+    if config.dataset == "cifar10":
+        return cifar.load_splits(config.data_dir)
+    if config.dataset == "imagenet_synthetic":
+        return imagenet.load_splits(config.data_dir)
     raise ValueError(f"unknown dataset {config.dataset!r} for the image "
                      f"loop")
+
+
+def check_labels(splits: mnist.Splits, num_classes: int) -> None:
+    """Raise unless every label is a class the model scores."""
+    top = max(int(a.max()) for a in (splits.train_labels,
+                                     splits.test_labels, splits.val_labels)
+              if a.size)
+    if top >= num_classes:
+        raise ValueError(
+            f"the data has label {top}, the model scores {num_classes} "
+            f"classes: pass --num-classes {top + 1} or more (the reference "
+            f"trains on such labels and reads NaN losses)")
 
 
 def is_trace_step(t: int, log_every: int, num_steps: int) -> bool:
@@ -154,6 +184,7 @@ def train(config: Config, model=None, splits: Optional[mnist.Splits] = None,
     model = model.to(dev)
     if splits is None:
         splits = load_dataset(config, ndev, verbose=say)
+    check_labels(splits, model.num_classes)
     b = config.batch_size
 
     local_n = splits.train_labels.shape[0] // ndev

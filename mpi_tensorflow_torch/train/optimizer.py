@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from mpi_tensorflow_torch.parallel import collectives
+from mpi_tensorflow_torch.utils import tree as tree_lib
 
 _F32 = np.float32
 # bias-like leaf names across the families (the reference's regex)
@@ -122,27 +123,6 @@ def momentum_apply(params: list, grads: list, state: MomentumState, lr,
     state.step = _F32(state.step + _F32(1.0))
 
 
-def named_leaves(tree, name=""):
-    """``(leaf name, leaf)`` pairs of a nested dict/list tree, depth
-    first; a leaf's name is its last dict key ('' for pure lists)."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from named_leaves(v, k)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from named_leaves(v, name)
-    else:
-        yield name, tree
-
-
-def _map_tree(fn, tree, name=""):
-    if isinstance(tree, dict):
-        return {k: _map_tree(fn, v, k) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map_tree(fn, v, name) for v in tree]
-    return fn(name, tree)
-
-
 def _decayable(name: str, leaf) -> bool:
     if name in ("scale", "bias") or name.endswith("_b") \
             or _BIAS_NAME.match(name):
@@ -155,7 +135,8 @@ def decay_mask(tree):
     matrices; skip LayerNorm ``scale``/``bias``, every bias (``b``,
     ``bq`` ... ``b2``, ``eb1``, ``xbq``, ``*_b``) and every leaf under 2
     dimensions.  Returns the tree with a bool at each leaf."""
-    return _map_tree(_decayable, tree)
+    return tree_lib.map_leaves(
+        lambda path, leaf: _decayable(tree_lib.leaf_name(path), leaf), tree)
 
 
 @dataclasses.dataclass
@@ -173,7 +154,7 @@ class TransformerTx:
     grad_clip_norm: float = 1.0   # 0 disables clipping
 
     def init(self, tree) -> AdamWState:
-        leaves = [p for _, p in named_leaves(tree)]
+        leaves = tree_lib.leaves(tree)
         return AdamWState(0, [torch.zeros_like(p) for p in leaves],
                           [torch.zeros_like(p) for p in leaves])
 
@@ -190,7 +171,7 @@ class TransformerTx:
         over the ranks for the global norm, while every other leaf is
         whole on every rank and counted once.  The rest of the update
         is elementwise and runs on a slice as on a whole leaf."""
-        named = list(named_leaves(tree))
+        named = tree_lib.named_leaves(tree)
         params = [p for _, p in named]
         grads = list(grads)
         if self.grad_clip_norm and self.grad_clip_norm > 0:

@@ -32,6 +32,15 @@ missing broadcast supplied).  One process is one card here, so the JAX
 package's virtual shards of a stacked state have no counterpart: avg50
 runs one replica per rank.
 
+BatchNorm statistics (the ResNet's ``model_state``) follow the JAX
+step (``step.py:125-146``): each shard normalises with its own batch's
+statistics (in one process, ``shards`` of ``models.base.run_model``),
+the microbatches of ``grad_accum`` chain the state one after another,
+and psum's new state is the mean over the shards; across ranks the
+state's leaves ride in the step's one all-reduce, between the gradients
+and the loss.  avg50's average takes the state with the parameters and
+the velocity, as the JAX package averages its whole ``TrainState``.
+
 The reference folds its dropout key with the shard index and the step;
 the port draws each rank's mask from a generator seeded by ``(seed + 1,
 rank, step)`` and the microbatch (``train.gspmd.step_generator``), equal
@@ -51,8 +60,8 @@ from mpi_tensorflow_torch.parallel import collectives
 from mpi_tensorflow_torch.train.optimizer import (MomentumState,
                                                   momentum_apply,
                                                   momentum_init,
-                                                  named_leaves,
                                                   reference_schedule)
+from mpi_tensorflow_torch.utils import tree as tree_lib
 
 
 @dataclasses.dataclass
@@ -66,7 +75,7 @@ class TrainState:
 
 
 def _params(model) -> list:
-    return [p for _, p in named_leaves(model.param_tree())]
+    return tree_lib.leaves(model.param_tree())
 
 
 def init_state(model) -> TrainState:
@@ -74,14 +83,16 @@ def init_state(model) -> TrainState:
                       base.init_model_state(model))
 
 
-def make_loss_fn(model, config):
+def make_loss_fn(model, config, shards: int = 1):
     """``loss_fn(model_state, batch, labels, generator) -> (loss,
     new_model_state)``: mean sparse-softmax CE of the training forward
-    plus ``config.weight_decay`` x the L2 of ``model.l2_params()``."""
+    plus ``config.weight_decay`` x the L2 of ``model.l2_params()``; the
+    batch is ``shards`` equal shards for the model's statistics."""
 
     def loss_fn(model_state, batch, labels, generator=None):
         logits, new_state = base.run_model(model, model_state, batch,
-                                           train=True, generator=generator)
+                                           train=True, generator=generator,
+                                           shards=shards)
         ce = F.cross_entropy(logits, labels)
         reg = config.weight_decay * sum(base.l2_loss(p)
                                         for p in model.l2_params())
@@ -110,9 +121,9 @@ def make_train_step(model, config, num_shards: int, decay_steps: int,
     ``generator`` feeds dropout (None when the model has none; with
     ``config.grad_accum`` > 1 one generator a microbatch, in a list).
     With ``across_ranks`` the batch is this rank's one shard and the
-    gradients and the loss are averaged over the process group.  The LR
-    is read at the step counter before the update, as the reference
-    reads it; the loss stays on the device.
+    gradients, the new model state and the loss are averaged over the
+    process group.  The LR is read at the step counter before the
+    update, as the reference reads it; the loss stays on the device.
 
     ``config.grad_accum`` = A > 1 splits each SHARD's batch into A
     microbatches, as the reference does (``step.py:104-125``):
@@ -123,11 +134,15 @@ def make_train_step(model, config, num_shards: int, decay_steps: int,
                          f"is the in-process data axis")
     accum = int(config.grad_accum)
     schedule = reference_schedule(config, decay_steps)
-    loss_fn = make_loss_fn(model, config)
+    loss_fn = make_loss_fn(model, config, num_shards)
     params = _params(model)
     if across_ranks:
-        # the gradients, then the loss, in one buffer: one all-reduce
-        buf, grad_views = flat_buffer(params, extra=1)
+        # the gradients, the model state, then the loss, in one buffer:
+        # one all-reduce
+        state_size = sum(t.numel() for t in tree_lib.leaves(
+            base.init_model_state(model)))
+        buf, grad_views = flat_buffer(params, extra=state_size + 1)
+        n_grads = buf.numel() - state_size - 1
 
     def grads_of(model_state, batch, labels, generator):
         if accum == 1:
@@ -158,10 +173,17 @@ def make_train_step(model, config, num_shards: int, decay_steps: int,
         loss, grads, new_state = grads_of(state.model_state, batch, labels,
                                           generator)
         if across_ranks:
-            torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)],
+            leaves = tree_lib.leaves(new_state)
+            torch.cat([g.reshape(-1) for g in grads]
+                      + [t.reshape(-1) for t in leaves] + [loss.reshape(1)],
                       out=buf)
             collectives.allreduce_mean(buf)
             grads, loss = grad_views, buf[-1].clone()
+            # the state outlives this step's buffer: one copy of its span
+            span = buf[n_grads:-1].clone()
+            new_state = tree_lib.unflatten(new_state, [
+                v.view_as(t) for v, t in zip(
+                    span.split([t.numel() for t in leaves]), leaves)])
         lr = schedule(state.opt.step)
         momentum_apply(params, grads, state.opt, lr, config.momentum)
         state.model_state = new_state
@@ -179,17 +201,22 @@ def make_local_train_step(model, config, decay_steps: int):
 
 def make_average_step(state: TrainState):
     """``average(state) -> state``: the mean over the ranks of the
-    parameters and the momentum velocity, given to every rank (the
-    corrected ``bcast_parameters``, mpipy.py:95-153), as one all-reduce
-    of both packed in one preallocated buffer, divided by the world
-    size.  The JAX package ``pmean``s the float32 step counter too; it
-    is the same number on every rank (every rank takes every step of
-    the schedule), so its mean is itself and the port leaves it."""
-    buf, views = flat_buffer(_params(state.model) + state.opt.velocity)
+    parameters, the momentum velocity and the model state (BatchNorm's
+    running statistics), given to every rank (the corrected
+    ``bcast_parameters``, mpipy.py:95-153), as one all-reduce of the
+    three packed in one preallocated buffer, divided by the world size.
+    The JAX package ``pmean``s the float32 step counter too; it is the
+    same number on every rank (every rank takes every step of the
+    schedule), so its mean is itself and the port leaves it."""
+    def tensors_of(state):
+        return (_params(state.model) + state.opt.velocity
+                + tree_lib.leaves(state.model_state))
+
+    buf, views = flat_buffer(tensors_of(state))
 
     @torch.no_grad()
     def average(state: TrainState) -> TrainState:
-        tensors = _params(state.model) + state.opt.velocity
+        tensors = tensors_of(state)
         torch.cat([t.reshape(-1) for t in tensors], out=buf)
         collectives.allreduce_mean(buf)
         torch._foreach_copy_(tensors, views)
@@ -209,10 +236,11 @@ def broadcast_params(model) -> None:
 
 def make_eval_step(model, config):
     """``eval_step(state, batch) -> softmax probabilities (N, classes)``:
-    the forward without dropout, without gradients.  Each rank predicts
-    with its own replica, so under avg50 this is also the reference's
-    ``make_stacked_eval_step``; ``train.evaluation.eval_sharded`` gives
-    each rank its rows."""
+    the forward without dropout, without gradients, BatchNorm on the
+    running statistics.  Each rank predicts with its own replica (its
+    parameters and statistics), so under avg50 this is also the
+    reference's ``make_stacked_eval_step``;
+    ``train.evaluation.eval_sharded`` gives each rank its rows."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):

@@ -15,9 +15,11 @@ from __future__ import annotations
 
 PEAK_TFLOPS = {"bf16": 989.0, "fp32": 67.0}
 
-# forward GFLOPs per image (2 x MACs): the CNN's two convs and two fc
-# layers at 28x28
-_IMAGE_FWD_GFLOPS = {"mnist_cnn": 0.024}
+# forward GFLOPs per image (2 x MACs) at the bench's input geometry: the
+# ResNets' published MACs (ResNet-50 4.09 GMAC at 224x224, ResNet-20 41
+# MMAC at 32x32), the CNN's two convs and two fc layers at 28x28
+_IMAGE_FWD_GFLOPS = {"resnet50": 8.2, "resnet20": 0.082,
+                     "mnist_cnn": 0.024}
 
 
 def transformer_train_flops(cfg, batch: int, seq_len: int,

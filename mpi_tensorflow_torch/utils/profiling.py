@@ -68,6 +68,11 @@ KERNEL_CATEGORIES = (                # first match wins, on the lower name
     ("flash_dq", ("flash_dq_kernel",)),
     ("flash_dkdv", ("flash_dkdv_kernel",)),
     ("paged_attention", ("paged_attention",)),
+    # BatchNorm's statistics, normalisation and backward (native and
+    # cuDNN kernels)
+    ("batch_norm", ("batch_norm", "bn_fw", "bn_bw")),
+    # the momentum update's multi-tensor kernels
+    ("optimizer", ("multi_tensor_apply",)),
     # cuDNN's convolution kernels alone (fprop, dgrad, wgrad; its
     # CUTLASS implicit-GEMM ones), not every kernel cuDNN names
     ("conv", ("wgrad", "dgrad", "fprop_implicit_gemm",

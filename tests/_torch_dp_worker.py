@@ -15,7 +15,13 @@ computed to ``WORKDIR/rank<RANK>.npz``:
   broadcast must replace), its history, trace lines, parameters,
   velocity and step counter, at the end and right after each average;
 - the average step and the sharded eval on this rank's own injected
-  replica.
+  replica;
+- a tiny ResNet (``RESNET``: one basic block a stage) trained through
+  ``loop.train`` under psum on a small synthetic image set
+  (``RESNET_SPLIT``), from the reference's injected parameters: its
+  history, parameters and BatchNorm state at the end; and avg50's
+  average step on this rank's injected ResNet replica (parameters,
+  velocity, BatchNorm state).
 """
 
 from __future__ import annotations
@@ -33,6 +39,14 @@ LOOP = dict(epochs=1, batch_size=64, log_every=3, dropout_rate=0.0,
             fused_steps=1)
 SPLIT = dict(train_n=1200, test_n=256)
 EVAL_ROWS, EVAL_BATCH = 200, 128        # two windows, the tail overlapped
+# the ResNet case: one basic block in each of two stages, 8x8 images,
+# 55 train rows (27 a rank: 6 steps of 4), a trace every 3 steps
+RESNET = dict(stage_sizes=(1, 1), widths=(8, 16), bottleneck=False,
+              cifar_stem=True)
+RESNET_SPLIT = dict(train_n=60, test_n=16, size=8, channels=3,
+                    num_classes=10)
+RESNET_LOOP = dict(epochs=1, batch_size=4, log_every=3, fused_steps=1)
+RESNET_STEP = 5.0                       # the replicas' step counter
 
 
 def _tree(npz, prefix: str) -> dict:
@@ -57,6 +71,56 @@ def _save_state(out: dict, prefix: str, state) -> None:
             dict(zip(cnn.NAMES, state.opt.velocity))).items():
         out[f"{prefix}velocity/{k}"] = v
     out[f"{prefix}step"] = np.float32(state.opt.step)
+
+
+def resnet_cases(rank: int, inputs, out: dict) -> None:
+    from _torch_tdp_worker import flatten, unflatten
+    from mpi_tensorflow_torch.config import Config
+    from mpi_tensorflow_torch.data import synthetic
+    from mpi_tensorflow_torch.models import convert, resnet
+    from mpi_tensorflow_torch.train import loop, optimizer, step
+    from mpi_tensorflow_torch.utils import tree as tree_lib
+
+    geo = resnet.Geometry(**RESNET)
+    inputs = dict(inputs)
+    params = convert.resnet_params_from_jax(unflatten(inputs, "resnet_init"))
+    if rank:                     # the loop's broadcast makes it rank 0's
+        params["fc"] = {k: v + 0.5 for k, v in params["fc"].items()}
+    cfg = Config(**RESNET_LOOP, mesh_shape={"data": 2})
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = loop.train(cfg, model=resnet.ResNet(geo, params),
+                         splits=synthetic.image_classification(
+                             **RESNET_SPLIT), device="cpu")
+    out["resnet/psum/history"] = np.array(res.history, dtype=np.float64)
+    out.update(flatten(convert.resnet_params_to_numpy(
+        res.state.model.param_tree()), "resnet/psum/params"))
+    out.update(flatten(convert.params_to_numpy(
+        res.state.model_state), "resnet/psum/state"))
+    # avg50's average of this rank's injected replica
+    pre = f"resnet_replica{rank}"
+    model = resnet.ResNet(geo, convert.resnet_params_from_jax(
+        unflatten(inputs, f"{pre}/params")))
+    state = step.init_state(model)
+    # the reference's trees (keys sorted), put in the model's order
+
+    def in_order(src, like):
+        return tree_lib.map_leaves(lambda path, _: tree_lib.at(src, path),
+                                   like)
+
+    velocity = convert.resnet_params_from_jax(unflatten(
+        inputs, f"{pre}/velocity"))
+    state.opt = optimizer.MomentumState(tree_lib.leaves(in_order(
+        velocity, model.param_tree())), np.float32(RESNET_STEP))
+    state.model_state = in_order(convert.params_from_jax(
+        unflatten(inputs, f"{pre}/state")), state.model_state)
+    state = step.make_average_step(state)(state)
+    out["resnet/average/step"] = np.float32(state.opt.step)
+    out.update(flatten(convert.resnet_params_to_numpy(model.param_tree()),
+                       "resnet/average/params"))
+    out.update(flatten(convert.resnet_params_to_numpy(tree_lib.unflatten(
+        model.param_tree(), state.opt.velocity)), "resnet/average/velocity"))
+    out.update(flatten(convert.params_to_numpy(state.model_state),
+                       "resnet/average/state"))
 
 
 def collectives_case(rank: int, out: dict) -> None:
@@ -148,6 +212,7 @@ def main() -> None:
         for sync in ("psum", "avg50"):
             loop_case(rank, sync, inputs, mnist_dir, out)
         replica_cases(rank, inputs, mnist_dir, out)
+        resnet_cases(rank, inputs, out)
     finally:
         mesh.shutdown()
     np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)

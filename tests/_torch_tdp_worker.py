@@ -144,6 +144,7 @@ def control_case(rank: int, world: int, inputs, out: dict) -> None:
     gradients and losses averaged over the ranks."""
     from mpi_tensorflow_torch.parallel import collectives
     from mpi_tensorflow_torch.train import gspmd, mlm_loop, optimizer
+    from mpi_tensorflow_torch.utils import tree as tree_lib
 
     tx = optimizer.transformer_tx(LR, NUM_STEPS)
     model = _model(inputs)
@@ -154,7 +155,7 @@ def control_case(rank: int, world: int, inputs, out: dict) -> None:
         batch, labels = _batch(inputs, t, rows)
         loss = model.loss(batch, labels, train=True)
         loss.backward()
-        params = [p for _, p in optimizer.named_leaves(model.param_tree())]
+        params = tree_lib.leaves(model.param_tree())
         grads = [collectives.allreduce_mean(p.grad) for p in params]
         tx.update(model.param_tree(), grads, state.opt)
         model.zero_grad(set_to_none=True)

@@ -219,8 +219,8 @@ def test_config_defaults_and_unported_values():
         with pytest.raises(ValueError, match=what):
             Config(**kw)
     assert Config(grad_accum=2, param_sharding="fsdp").grad_accum == 2
-    with pytest.raises(NotImplementedError, match="item 14a"):
-        cli.main(["--device", "cpu", "--model", "resnet20"])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        cli.main(["--device", "cpu", "--model", "vit"])
 
 
 # ------------------------------------------------------- float parity

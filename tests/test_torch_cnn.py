@@ -133,8 +133,9 @@ def test_cli_config_and_fused_steps_default(argv, fused):
     (["--checkpoint-dir", "/x"], NotImplementedError, "item 15"),
     (["--resume"], NotImplementedError, "item 15"),
     (["--metrics-dir", "/x"], NotImplementedError, "item 15"),
-    (["--dataset", "cifar10"], NotImplementedError, "item 14a"),
-    (["--model", "resnet50"], NotImplementedError, "item 14a"),
+    (["--optimizer", "lamb"], NotImplementedError, "item 13"),
+    (["--model", "vit", "--dataset", "cifar10"], NotImplementedError,
+     "item 14"),
     (["--model", "vit"], NotImplementedError, "item 14")])
 def test_unported_values_raise_naming_their_item(argv, error, match,
                                                  mnist_dir, monkeypatch):

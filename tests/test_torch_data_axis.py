@@ -33,6 +33,16 @@ platform, from the reference's own initial parameters carried across by
   windows of 128 (the tail window overlaps rows 72-127): identical
   argmax on every row, probabilities within 1e-5 (the replicas disagree
   on some of those rows, so the row-to-replica assignment is held);
+- (h) a tiny ResNet (one basic block a stage, ``worker.RESNET``)
+  through ``loop.train`` under psum on both ranks against the
+  reference's ``loop.train`` on the 2-device mesh, from its parameters,
+  on the synthetic image set of ``worker.RESNET_SPLIT`` (6 steps of 4
+  rows a rank, a trace every 3): the history exactly, parameters and
+  BatchNorm state (each rank normalising its own rows, the state
+  averaged in the step's one all-reduce) within ``PARAM_TOL``, the
+  ranks' states bit-identical; and avg50's average step on two
+  injected ResNet replicas (parameters, velocity, BatchNorm state)
+  against the reference's: within 1 ulp, every rank the same;
 - (g) ``initialize_distributed`` with a configured launch whose
   ``MASTER_ADDR:MASTER_PORT`` (localhost, a port nothing listens on)
   cannot be joined raises; with no launcher it is a no-op at world
@@ -53,6 +63,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from mpi_tensorflow_tpu.config import Config as JaxConfig
 from mpi_tensorflow_tpu.data import mnist as jax_mnist
+from mpi_tensorflow_tpu.data import synthetic as jax_synthetic
 from mpi_tensorflow_tpu.data import sharding as jax_sharding
 from mpi_tensorflow_tpu.models import cnn as jax_cnn
 from mpi_tensorflow_tpu.parallel import mesh as jax_mesh
@@ -64,6 +75,8 @@ from mpi_tensorflow_torch.data import mnist, sharding
 from mpi_tensorflow_torch.parallel import collectives, mesh
 
 import _torch_dp_worker as worker
+from _torch_resnet_inputs import net_inputs as resnet_inputs
+from _torch_tdp_worker import flatten
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
@@ -90,6 +103,41 @@ def _traced(fn):
 
 def _host(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+@contextlib.contextmanager
+def _fast_compile():
+    """XLA's optimisation passes off while the reference's ResNet loop
+    compiles its steps: they only slow the compile."""
+    saved = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", saved)
+
+
+def _reference_resnet(m, params, replicas) -> dict:
+    """(h): the reference's psum loop on the tiny ResNet, and its
+    average step on the two injected ResNet replicas ``replicas``
+    (``(params, velocity, BatchNorm state)`` each)."""
+    from mpi_tensorflow_tpu.models import resnet as jax_resnet
+
+    model = jax_resnet.ResNet(**worker.RESNET)
+    splits = jax_synthetic.image_classification(**worker.RESNET_SPLIT)
+    with pytest.MonkeyPatch.context() as mp, _fast_compile():
+        mp.setattr(jax_step, "init_state", lambda model, rng: jax.device_put(
+            jax_step.TrainState(params, jax_opt.momentum_init(params),
+                                model.init_state()), NamedSharding(m, P())))
+        psum = _traced(lambda: jax_loop.train(
+            JaxConfig(**worker.RESNET_LOOP), model=model, splits=splits,
+            mesh=m, verbose=True))[0]
+        state = jax.device_put(jax.tree.map(
+            lambda *xs: np.stack(xs), *[jax_step.TrainState(
+                p, jax_opt.MomentumState(v, np.float32(worker.RESNET_STEP)),
+                s) for p, v, s in replicas]), NamedSharding(m, P("data")))
+        average = _host(jax_step.make_average_step(m)(state))
+    return {"psum": psum, "average": average}
 
 
 def _reference(mnist_dir, init, replicas, velocities, step):
@@ -154,6 +202,16 @@ def world(mnist_dir, tmp_path_factory):
         inputs.update({f"replica{r}/{k}": v for k, v in replicas[r].items()})
         inputs.update({f"velocity{r}/{k}": v
                        for k, v in velocities[r].items()})
+    resnet_init, _ = resnet_inputs("basic", seed=5)
+    inputs.update(flatten(resnet_init, "resnet_init"))
+    resnet_replicas = [resnet_inputs("basic", seed=6 + r)
+                       for r in range(WORLD)]
+    resnet_replicas = [(p, jax.tree.map(lambda x: x * np.float32(1e-2), p),
+                        st) for p, st in resnet_replicas]
+    for r, (p, v, st) in enumerate(resnet_replicas):
+        inputs.update(flatten(p, f"resnet_replica{r}/params"))
+        inputs.update(flatten(v, f"resnet_replica{r}/velocity"))
+        inputs.update(flatten(st, f"resnet_replica{r}/state"))
     np.savez(workdir / "inputs.npz", step=np.float32(step), **inputs)
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
@@ -169,6 +227,9 @@ def world(mnist_dir, tmp_path_factory):
         stderr=subprocess.STDOUT) for r in range(WORLD)]
     try:
         ref = _reference(mnist_dir, init, replicas, velocities, step)
+        ref["resnet"] = _reference_resnet(jax_mesh.make_mesh(
+            {"data": WORLD}, devices=jax.devices()[:WORLD]), resnet_init,
+            resnet_replicas)
         rcs = [p.wait(timeout=300) for p in procs]
     finally:
         for p in procs:
@@ -333,6 +394,58 @@ def test_sharded_eval_assigns_rows_as_reference(mnist_dir, world):
     own = [np.asarray(model.apply(worker._tree(inputs, f"replica{r}/"), x)
                       ).argmax(-1) for r in range(WORLD)]
     assert np.any(own[0][72:128] != own[1][72:128])
+
+
+# ----------------------------------------------------------------- (h)
+
+def _close(got: dict, want, tol, what) -> None:
+    want = flatten(_host(want), "")
+    assert sorted(got) == sorted(want), what
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, atol=tol, rtol=0,
+                                   err_msg=f"{what} {k}")
+
+
+def _rank_tree(rank, prefix: str) -> dict:
+    """``{path: leaf}`` of one tree a rank saved under ``prefix``."""
+    return {k[len(prefix):]: rank[k] for k in rank.files
+            if k.startswith(prefix + "/")}
+
+
+def test_resnet_psum_loop_matches_reference(world):
+    ref, ranks, _ = world
+    want = ref["resnet"]["psum"]
+    for r in range(WORLD):
+        assert [tuple(h) for h in ranks[r]["resnet/psum/history"]] == [
+            (t, e) for t, e in want.history]
+        _close(_rank_tree(ranks[r], "resnet/psum/params"), want.state.params,
+               PARAM_TOL, f"psum rank {r} params")
+        _close(_rank_tree(ranks[r], "resnet/psum/state"),
+               want.state.model_state, PARAM_TOL,
+               f"psum rank {r} BatchNorm state")
+    states = [_rank_tree(ranks[r], "resnet/psum/state") for r in range(WORLD)]
+    assert all(np.array_equal(v, states[1][k]) for k, v in states[0].items())
+
+
+def test_resnet_average_step_matches_reference(world):
+    """avg50's average of two ResNet replicas: parameters, velocity and
+    BatchNorm state within 1 ulp of the reference's, every rank the
+    same."""
+    ref, ranks, _ = world
+    want = ref["resnet"]["average"]
+    for name, tree in (("params", want.params),
+                       ("velocity", want.opt.velocity),
+                       ("state", want.model_state)):
+        got = [_rank_tree(ranks[r], f"resnet/average/{name}")
+               for r in range(WORLD)]
+        for r in range(WORLD):
+            assert ranks[r]["resnet/average/step"] == np.float32(
+                worker.RESNET_STEP)
+            mine = flatten(jax.tree.map(lambda x: x[r], tree), "")
+            assert sorted(got[r]) == sorted(mine)
+            for k, w in mine.items():
+                np.testing.assert_array_max_ulp(got[r][k], w, maxulp=1)
+                assert np.array_equal(got[r][k], got[0][k])
 
 
 # ---------------------------------------------------------------- (g)
