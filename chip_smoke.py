@@ -184,6 +184,36 @@ fails:
    after it, within 1 ulp of the gathered mean; 13e: ``python -m
    mpi_tensorflow_torch.bench --mode train --model resnet20|resnet50``
    at fp32 and bf16, each line printed.
+14. the trainers' long-run services (no kernel is added; 14c runs the
+   flash kernels) — 14a: 13b's ResNet-50 bf16 trainer, ResNet-20 fp32
+   and the CNN through ``cli.main``, each with ``--prefetch`` off,
+   thread, thread, off, in a process of their own (no
+   ``torch.profiler`` session before them; cuDNN's deterministic
+   algorithms in all), the trace lines identical in every run,
+   images/s and step ms of each run printed pair by pair; then
+   ``torch_train_profile.py --model resnet50 --precision bf16 --loop``
+   (assembly, upload and launches a step) and ``python -m
+   mpi_tensorflow_torch.bench --mode hostio`` with ResNet-50's thread
+   rate as the card's demand; 14b:
+   ResNet-20 fp32 psum through ``cli.main`` on 13d's 13 000 rows (93
+   steps, a trace every 10; cuDNN deterministic) with
+   ``--checkpoint-dir`` and ``--metrics-dir``, stopped by
+   ``request_stop`` after step 25 and
+   ``--resume``d: the trace lines and the final parameters, velocity and
+   BatchNorm state the uninterrupted run's (bit-equal when two
+   uninterrupted runs are, else within twice their distance), the
+   metrics' tags; the checkpoint's bytes, the ``save_async`` stalls and
+   the restore's ms printed; 14c: phase 7's BERT_BASE bf16 run (S = 4096,
+   batch 4, 8 steps) uninterrupted, then stopped at its trace point 4
+   (the checkpoint queued there, the stop agreed) and resumed in a fresh
+   ``train_mlm``: the trace and losses the uninterrupted run's, the
+   parameters within 1e-5, each flash kernel's launches in the resumed
+   run counted from 0 (the ``launches_resumed`` of the kernels line);
+   the checkpoint's GiB, save and restore ms printed; 14d: zero1 and
+   fsdp checkpoints of ``dp_bert_cfg`` after 2 steps on two gloo ranks
+   on ``cuda:0`` (each rank its slices), each restored at world 1 in
+   this process and at world 1 over NCCL (torchrun), the third step
+   within ``DP_TOL`` of the uninterrupted one-process step.
 
 Prints one ``kernels`` JSON line, then the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a card it
@@ -199,6 +229,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -242,6 +273,15 @@ def previous_ms(key) -> str:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_T0 = time.perf_counter()
+
+
+def phase(name: str) -> None:
+    """Log where the script stands: the phase that begins and the
+    seconds since the script started (the run has a time limit)."""
+    log(f"[phase] {name} begins at {time.perf_counter() - _T0:.1f} s")
 
 
 def card_line() -> str:
@@ -1620,6 +1660,7 @@ def cnn_phase(dev, card: str) -> dict:
     trace lines) and one bf16 epoch; 10c checks that no hand kernel
     launched on either run; then the bench at fp32 and bf16."""
     cross = cnn_cross_check(dev)
+    phase("10b")
     saved = hand_kernel_counts()
     set_hand_kernel_counts({k: 0 for k in saved})
     every50 = lambda n: [t for t in range(1, n) if t % 50 == 0] + [n - 1]
@@ -1637,6 +1678,7 @@ def cnn_phase(dev, card: str) -> dict:
         raise AssertionError(f"the CNN path launched hand kernels: {moved}")
     log("[cnn] no hand kernel launched on the CNN path (paged, flash and "
         "fused counts all 0)")
+    phase("10 bench")
     bench = {p: cnn_bench(p) for p in ("fp32", "bf16")}
     return {"cross_check": cross, "runs": runs, "bench": bench}
 
@@ -1967,7 +2009,7 @@ def dp_phase(card: str, cnn: dict) -> dict:
     11c: the allreduce bench at world size 1 over NCCL."""
     every50 = lambda n: [t for t in range(1, n) if t % 50 == 0] + [n - 1]
     me = os.path.abspath(__file__)
-    # 11a
+    phase("11a")
     t0 = time.perf_counter()
     out = torchrun(1, ["-m", "mpi_tensorflow_torch", "--data-dir",
                        CNN_DATA_DIR, "--epochs", "1"], 600)
@@ -2001,7 +2043,7 @@ def dp_phase(card: str, cnn: dict) -> dict:
     nccl_steps = dp_result(torchrun(1, [me, "--worker", "psum_steps",
                                         "nccl"], 300))
     check_psum_steps(nccl_steps)
-    # 11b
+    phase("11b")
     gloo_steps = dp_result(torchrun(2, [me, "--worker", "psum_steps",
                                         "gloo"], 300))
     check_psum_steps(gloo_steps)
@@ -2029,7 +2071,7 @@ def dp_phase(card: str, cnn: dict) -> dict:
         f"test error {errs[0]} -> {errs[-1]} %; rank 0: "
         f"{avg['images_per_sec']:.1f} images/s, step {avg['step_ms']:.3f} "
         f"ms (two ranks share the card); {card}")
-    # 11c
+    phase("11c")
     out = run_sub([sys.executable, "-m", "mpi_tensorflow_torch.bench",
                    "--mode", "allreduce"], 300)
     bench = json.loads(out.strip().splitlines()[-1])
@@ -2247,7 +2289,7 @@ def bert_dp_phase(card: str, phase7: dict) -> dict:
     one-process step; 12c: the bench's BERT line, plain and under
     torchrun."""
     me = os.path.abspath(__file__)
-    # 12a
+    phase("12a")
     res = dp_result(torchrun(1, [me, "--worker", "bert_train", "nccl"], 600))
     problems = []
     for accum, run in res["runs"].items():
@@ -2291,7 +2333,7 @@ def bert_dp_phase(card: str, phase7: dict) -> dict:
                         f"{diff}")
     if problems:
         raise AssertionError(f"phase 12a: {problems}")
-    # 12b
+    phase("12b")
     steps = dp_result(torchrun(2, [me, "--worker", "bert_steps", "gloo"],
                                600))
     bad = {n: d for n, d in {**steps["vs_plain"],
@@ -2330,7 +2372,7 @@ def bert_dp_phase(card: str, phase7: dict) -> dict:
           f"largest of {max(steps['replicated_leaves'])} elements")
     if bad:
         raise AssertionError(f"phase 12b: {bad}")
-    # 12c
+    phase("12c")
     bench_args = ["-m", "mpi_tensorflow_torch.bench", "--mode", "train",
                   "--model", "bert_base", "--seq-len", str(TRAIN_SEQ),
                   "--batch-size", str(TRAIN_BATCH), "--precision", "bf16",
@@ -2801,8 +2843,10 @@ def resnet_phase(dev, card: str) -> dict:
     ResNet lines."""
     from mpi_tensorflow_torch.train import loop
 
+    phase("13a")
     cross = resnet_cross_check(dev)
     # 13b, 13c: each synthetic set made once for both precisions
+    phase("13b")
     cache, real_load = {}, loop.load_dataset
 
     def cached_load(config, num_shards, *a, **kw):
@@ -2835,7 +2879,7 @@ def resnet_phase(dev, card: str) -> dict:
                              f"{launched}")
     log("[resnet] no hand kernel launched on the ResNet runs (paged, flash "
         "and fused counts all 0)")
-    # 13d
+    phase("13d")
     me = os.path.abspath(__file__)
     lines = torchrun(1, ["-m", "mpi_tensorflow_torch", *RESNET20_ARGS],
                      600).splitlines()
@@ -2877,7 +2921,7 @@ def resnet_phase(dev, card: str) -> dict:
         f"{max(c['max_ulp'] for c in checks)} ulp of the gathered mean "
         f"(the statistics {max(c['state_max_ulp'] for c in checks)} ulp); "
         f"test error {trace[0][1]} -> {trace[-1][1]} %; {card}")
-    # 13e
+    phase("13e")
     benches = {}
     for name, extra in (("resnet20", ["--steps", "100", "--warmup", "10"]),
                         ("resnet50", ["--steps", "20", "--warmup", "3"])):
@@ -2896,6 +2940,558 @@ def resnet_phase(dev, card: str) -> dict:
             "bench": benches}
 
 
+# --------------------------------------------------------------- phase 14
+
+# 14a: each image trainer through cli.main, --prefetch off and thread in
+# the order off, thread, thread, off (the first run of a trainer pays
+# its warm-up: cuDNN plans, the allocator's growth), every pair
+# reported; cuDNN's deterministic algorithms in every run (the trace
+# lines are compared: the default algorithms move ResNet-50's test error
+# by a row between runs), all in a process with no torch.profiler
+# session.  13b's ResNet-50 bf16 epoch (29 steps), ResNet-20 fp32 on
+# 13d's 13 000 rows (93 steps) and phase 10's CNN fp32 epoch (781 steps)
+PREFETCH_ARGS = RESNET50_ARGS + ["--precision", "bf16"]
+PREFETCH_TRAINERS = (("resnet50_bf16", PREFETCH_ARGS),
+                     ("resnet20_fp32", RESNET20_ARGS + ["--precision",
+                                                        "fp32"]),
+                     ("cnn_fp32", ["--data-dir", CNN_DATA_DIR, "--epochs",
+                                   "1"]))
+PREFETCH_ORDER = ("off", "thread", "thread", "off")
+# then the host feed alone: 64 rows a step, windows of 11 (the trainer's)
+HOSTIO_ARGS = ["--batch-size", "64", "--window-k", "11", "--windows", "6",
+               "--hostio-dir", "build"]
+# 14b: ResNet-20 fp32 psum on the first 13 000 rows of the synthetic
+# CIFAR-10 (93 steps of 128, a trace every 10), stopped by request_stop
+# after step STOP_IMAGE (between the trace points 20 and 30), resumed;
+# cuDNN's deterministic algorithms, so that two uninterrupted runs can be
+# bit-equal
+CKPT_DIR = "build/ckpt14"            # git-ignored; removed at the end
+CKPT_IMAGE_ARGS = RESNET_AVG50_ARGS + ["--precision", "fp32"]
+STOP_IMAGE = 25
+# 14c: phase 7's BERT_BASE bf16 S = 4096 batch 4 run (8 steps, trace
+# points 4 and 7), stopped at the trace point 4 and resumed for 5-7
+STOP_MLM = 4
+# 14d: dp_bert_cfg's state after DP_STEPS - 1 steps on two gloo ranks,
+# saved in each of these layouts, restored at world 1 for the last step
+CKPT_DP_KINDS = ("zero1", "fsdp")
+
+
+@contextlib.contextmanager
+def stopping(step, at_trace: bool = False):
+    """Runs in the block record their checkpoint hooks (the yielded
+    list); with ``step``, each asks its guard to stop once its state has
+    taken train step ``step`` (the loop stops after that step), or with
+    ``at_trace`` once it has queued the checkpoint of trace point
+    ``step`` (the loop stops there, the stop agreed).  Each hook's
+    ``preempt_save`` is timed into its ``flush_s``."""
+    from mpi_tensorflow_torch.train import ckpt_hooks, gspmd, loop
+    from mpi_tensorflow_torch.train import mlm_loop, step as step_lib
+
+    made = []
+
+    class Hooks(ckpt_hooks.CheckpointHooks):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.flush_s = []
+            made.append(self)
+
+        def preempt_save(self, *a, **kw):
+            t0 = time.perf_counter()
+            super().preempt_save(*a, **kw)
+            self.flush_s.append(time.perf_counter() - t0)
+
+        def save_async(self, state, t):
+            super().save_async(state, t)
+            if at_trace and t == step:
+                self.guard.request_stop()
+
+    def wrap(make, count):
+        def made_step(*a, **kw):
+            fn = make(*a, **kw)
+
+            def train_step(state, *rest):
+                out = fn(state, *rest)
+                if step is not None and not at_trace \
+                        and count(state) == step + 1:
+                    made[-1].guard.request_stop()
+                return out
+            return train_step
+        return made_step
+
+    real = (loop.CheckpointHooks, mlm_loop.CheckpointHooks,
+            step_lib.make_train_step, gspmd.make_train_step)
+    loop.CheckpointHooks = mlm_loop.CheckpointHooks = Hooks
+    step_lib.make_train_step = wrap(real[2], lambda s: int(s.opt.step))
+    gspmd.make_train_step = wrap(real[3], lambda s: int(s.step))
+    try:
+        yield made
+    finally:
+        (loop.CheckpointHooks, mlm_loop.CheckpointHooks,
+         step_lib.make_train_step, gspmd.make_train_step) = real
+
+
+def cli_run(argv, train_fn="loop"):
+    """``cli.main(argv)`` on the card: ``(the trainer's result, the
+    printed lines but the [timing] line)``, the output passed on."""
+    from mpi_tensorflow_torch import cli
+    from mpi_tensorflow_torch.train import loop, mlm_loop
+
+    mod = loop if train_fn == "loop" else mlm_loop
+    name = "train" if train_fn == "loop" else "train_mlm"
+    real, results = getattr(mod, name), []
+
+    def recorded(*a, **kw):
+        results.append(real(*a, **kw))
+        return results[-1]
+
+    out = _Tee(sys.stdout)
+    setattr(mod, name, recorded)
+    try:
+        with contextlib.redirect_stdout(out):
+            if cli.main(argv) != 0:
+                raise AssertionError(f"cli.main({argv}) failed")
+    finally:
+        setattr(mod, name, real)
+    (res,) = results
+    return res, [ln for ln in out.getvalue().splitlines()
+                 if not ln.startswith("[timing]")]
+
+
+def _joined(*runs):
+    """The lines of consecutive runs as one run prints them (the
+    checkpoint notices and the repeated session header dropped)."""
+    out = []
+    for lines in runs:
+        for ln in lines:
+            if ln.startswith(("[checkpoint]", "[preemption]")) or (
+                    out and ln.startswith("Process ID")):
+                continue
+            out.append(ln)
+    return out
+
+
+def _dir_bytes(d: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+
+
+def _image_state(res) -> list:
+    """An image run's parameters, velocity and BatchNorm state, on the
+    card, in the checkpoint's leaf order."""
+    from mpi_tensorflow_torch.train import state_io
+
+    return [p.data for p in state_io.parts(res.state)
+            if isinstance(p.data, torch.Tensor)]
+
+
+def _apart(a: list, b: list) -> float:
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def worker_prefetch_arms(_backend: str) -> None:
+    """14a's runs in a process of their own (no torch.profiler session
+    before them): each of ``PREFETCH_TRAINERS`` through cli.main in the
+    ``--prefetch`` order ``PREFETCH_ORDER``, each synthetic set made
+    once."""
+    from mpi_tensorflow_torch.data import mnist
+    from mpi_tensorflow_torch.train import loop
+    from mpi_tensorflow_torch.utils.device import resolve_device
+
+    resolve_device(torch.device("cuda", 0))
+    # written before the first run, so that no run prints its notice
+    mnist.ensure_data(CNN_DATA_DIR, verbose=False)
+    cache, real_load = {}, loop.load_dataset
+
+    def cached_load(config, num_shards, *a, **kw):
+        if config.dataset not in cache:
+            load = (resnet_avg50_splits if config.dataset == "cifar10"
+                    else real_load)
+            cache[config.dataset] = load(config, num_shards, *a, **kw)
+        return cache[config.dataset]
+
+    torch.backends.cudnn.deterministic = True
+    loop.load_dataset = cached_load
+    arms = {}
+    for name, argv in PREFETCH_TRAINERS:
+        arms[name] = []
+        for mode in PREFETCH_ORDER:
+            with contextlib.redirect_stdout(io.StringIO()):
+                res, lines = cli_run(argv + ["--prefetch", mode])
+            arms[name].append({
+                "prefetch": mode, "images_per_sec": res.images_per_sec,
+                "step_ms": res.step_time_seconds * 1e3,
+                "steps": res.num_steps, "history": res.history,
+                "final_loss": res.final_loss, "lines": lines})
+    print(DP_RESULT + json.dumps({"case": "prefetch_arms", "arms": arms}),
+          flush=True)
+
+
+WORKERS.update(prefetch_arms=worker_prefetch_arms)
+
+
+def prefetch_phase(card: str) -> dict:
+    """14a: each image trainer with --prefetch off and thread, alternated,
+    in a child process (the trace identical in every run; images/s and
+    step ms of each run, the two pairs side by side), the --loop split
+    of scripts/torch_train_profile.py in another, then the hostio bench
+    with this card's ResNet-50 thread rate as the demand."""
+    me = os.path.abspath(__file__)
+    arms = dp_result(run_sub([sys.executable, me, "--worker",
+                              "prefetch_arms", "none"], 600))["arms"]
+    for name, runs in arms.items():
+        if any(r["lines"] != runs[0]["lines"]
+               or not np.isfinite(r["final_loss"]) for r in runs):
+            raise AssertionError(f"14a {name}: the trace differs between "
+                                 f"--prefetch runs: {runs}")
+        pairs = [runs[i:i + 2] for i in range(0, len(runs), 2)]
+        log(f"[prefetch] {name} through cli.main, {runs[0]['steps']} "
+            f"steps a run (cuDNN deterministic, a process of their own), "
+            f"{len(runs[0]['lines']) - 1} trace lines identical in all "
+            f"{len(runs)} runs; " + "; ".join(
+                "pair " + str(k + 1) + ": " + ", ".join(
+                    f"{r['prefetch']} {r['step_ms']:.3f} ms a step "
+                    f"({r['images_per_sec']:.1f} images/s)" for r in pair)
+                for k, pair in enumerate(pairs)) + f"; {card}")
+    out = run_sub([sys.executable, "scripts/torch_train_profile.py",
+                   "--model", "resnet50", "--precision", "bf16", "--loop"],
+                  600)
+    split = json.loads(out.strip().splitlines()[-1])
+    log(f"[prefetch] torch_train_profile.py --model resnet50 --precision "
+        f"bf16 --loop: the loop {split['loop']['step_ms']:.3f} ms a step "
+        f"(host ms a step: {json.dumps(split['loop']['host_ms_per_step'])})"
+        f", on the card {split['on_card']['step_ms']:.3f} ms; {card}")
+    thread = [r["images_per_sec"] for r in arms["resnet50_bf16"]
+              if r["prefetch"] == "thread"]
+    demand = sum(thread) / len(thread)
+    out = run_sub([sys.executable, "-m", "mpi_tensorflow_torch.bench",
+                   "--mode", "hostio", "--demand-images-per-sec",
+                   repr(demand), *HOSTIO_ARGS], 300)
+    hostio = json.loads(out.strip().splitlines()[-1])
+    if not (hostio["host_images_per_sec_inline"] > 0
+            and hostio["host_images_per_sec_thread"] > 0
+            and hostio["host_images_per_sec_native"] is None
+            and hostio["device_demand_img_s"] == demand):
+        raise AssertionError(f"14a hostio: {hostio}")
+    log(f"[prefetch] bench --mode hostio: {json.dumps(hostio)}")
+    return {"arms": {k: [{kk: v for kk, v in r.items() if kk != "lines"}
+                         for r in runs] for k, runs in arms.items()},
+            "loop_split": split, "hostio": hostio}
+
+
+def ckpt_image_phase(dev, card: str) -> dict:
+    """14b: ResNet-20 fp32 psum through cli.main with --checkpoint-dir and
+    --metrics-dir, stopped by request_stop after STOP_IMAGE and resumed:
+    the trace, parameters, velocity and BatchNorm state of the
+    uninterrupted run (bit-equal if two uninterrupted runs are, else
+    within twice their distance), and the metrics' tags."""
+    from mpi_tensorflow_torch.train import checkpoint, loop
+
+    cache = {}
+
+    def load(config, num_shards, verbose=True):
+        if "c" not in cache:
+            cache["c"] = resnet_avg50_splits(config, num_shards)
+        return cache["c"]
+
+    real_load = loop.load_dataset
+    loop.load_dataset = load
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    d = os.path.join(CKPT_DIR, "image")
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        full = [cli_run(CKPT_IMAGE_ARGS) for _ in range(2)]
+        with stopping(STOP_IMAGE) as hooks:
+            _, stop_lines = cli_run(CKPT_IMAGE_ARGS + [
+                "--checkpoint-dir", d, "--metrics-dir", d])
+        stop_hooks = hooks[0]
+        ckpt_bytes = _dir_bytes(checkpoint.step_path(d, STOP_IMAGE)
+                                + ".sharded")
+        with stopping(None) as hooks:
+            res, res_lines = cli_run(CKPT_IMAGE_ARGS + [
+                "--checkpoint-dir", d, "--metrics-dir", d, "--resume"])
+        res_hooks = hooks[0]
+    finally:
+        loop.load_dataset = real_load
+        torch.backends.cudnn.deterministic = saved
+        cache.clear()
+    want = [full[0][1], full[1][1]]
+    own = _apart(_image_state(full[0][0]), _image_state(full[1][0]))
+    got = _apart(_image_state(res), _image_state(full[0][0]))
+    tags = [json.loads(ln) for ln in open(os.path.join(d, "metrics.jsonl"))]
+    evals = [(m["step"]) for m in tags if m["tag"] == "eval/test_error_pct"]
+    want_steps = [t for t, _ in full[0][0].history]
+    problems = []
+    if want[0] != want[1]:
+        problems.append(f"two uninterrupted runs trace differently: {want}")
+    if _joined(stop_lines, res_lines) != want[0]:
+        problems.append(f"stopped + resumed trace {stop_lines} + "
+                        f"{res_lines} != {want[0]}")
+    if checkpoint.latest_step(d) != res.num_steps - 1 or not any(
+            f"checkpointed step {STOP_IMAGE}" in ln for ln in stop_lines):
+        problems.append(f"checkpoints {sorted(os.listdir(d))}")
+    if got > 2 * own or (own == 0.0 and got != 0.0):
+        problems.append(f"resumed state {got} from the uninterrupted "
+                        f"run's, which differ by {own} among themselves")
+    if evals != want_steps or tags[-1]["tag"] != "perf/images_per_sec":
+        problems.append(f"metrics {tags}")
+    if problems:
+        raise AssertionError(f"14b: {problems}")
+    out = {"card": card, "checkpoint_bytes": ckpt_bytes,
+           "save_async_stall_ms": [1e3 * s for s in stop_hooks.stalls
+                                   + res_hooks.stalls],
+           "preempt_flush_ms": [1e3 * s for s in stop_hooks.flush_s],
+           "restore_ms": 1e3 * res_hooks.restore_seconds,
+           "bit_equal": own == 0.0, "resumed_vs_full": got,
+           "full_vs_full": own, "trace_points": want_steps,
+           "metrics_tags": sorted({m["tag"] for m in tags})}
+    held = ("bit-equal (two uninterrupted runs are bit-equal)"
+            if own == 0.0 else f"within {got:.3e}, the uninterrupted runs "
+            f"{own:.3e} apart (bound: twice that)")
+    log(f"[checkpoint] 14b ResNet-20 fp32 psum, stopped after step "
+        f"{STOP_IMAGE} and resumed: trace identical; state {held}; "
+        f"{json.dumps(out)}")
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def ckpt_mlm_phase(dev, card: str, phase7: dict) -> dict:
+    """14c: phase 7's BERT_BASE bf16 S = 4096 run, uninterrupted, then
+    stopped at its trace point STOP_MLM (checkpointed) and resumed in a
+    fresh train_mlm: the resumed run's losses the uninterrupted run's,
+    its parameters within phase 8's 1e-5, and its flash launches counted
+    from 0."""
+    from mpi_tensorflow_torch.config import Config
+    from mpi_tensorflow_torch.models import bert
+    from mpi_tensorflow_torch.train import checkpoint, mlm_loop
+
+    cfg = dataclasses.replace(bert.BERT_BASE, dtype=torch.bfloat16,
+                              max_positions=TRAIN_SEQ)
+    d = os.path.join(CKPT_DIR, "mlm")
+    shutil.rmtree(d, ignore_errors=True)
+
+    def run(**kw):
+        config = Config(model="bert_base", dataset="mlm_synthetic", epochs=1,
+                        batch_size=TRAIN_BATCH, log_every=LOG_EVERY,
+                        precision="bf16", **kw)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = mlm_loop.train_mlm(config, cfg, seq_len=TRAIN_SEQ,
+                                     train_n=TRAIN_N, test_n=TEST_N,
+                                     device=dev)
+        torch.cuda.synchronize(dev)
+        return res, [ln for ln in out.getvalue().splitlines()
+                     if not ln.startswith("[timing]")]
+
+    def loss_of(mdir, step):
+        (v,) = [json.loads(ln)["value"] for ln in open(os.path.join(
+            mdir, "metrics.jsonl")) if json.loads(ln)["tag"] == "train/loss"
+            and json.loads(ln)["step"] == step]
+        return v
+
+    full, full_lines = run(metrics_dir=os.path.join(d, "full"))
+    full_params = {n: p.detach().clone()
+                   for n, p in full.state.model.named_parameters()}
+    del full
+    with stopping(STOP_MLM, at_trace=True) as hooks:
+        _, stop_lines = run(checkpoint_dir=os.path.join(d, "ck"),
+                            metrics_dir=os.path.join(d, "ck"))
+    stop_hooks = hooks[0]
+    ckpt_bytes = _dir_bytes(checkpoint.step_path(os.path.join(d, "ck"),
+                                                 STOP_MLM) + ".sharded")
+    saved = flash_counts()
+    set_flash_counts({k: 0 for k in FLASH})
+    with stopping(None) as hooks:
+        res, res_lines = run(checkpoint_dir=os.path.join(d, "ck"),
+                             metrics_dir=os.path.join(d, "ck"),
+                             resume=True)
+    launches = flash_counts()
+    set_flash_counts(saved)
+    res_hooks = hooks[0]
+    steps = res.num_steps - STOP_MLM - 1
+    evals = len(res.history) * -(-min(TEST_N, 4 * TRAIN_BATCH)
+                                 // TRAIN_BATCH)
+    want_launches = {"flash_fwd": cfg.layers * (steps + evals),
+                     "flash_dq": cfg.layers * steps,
+                     "flash_dkdv": cfg.layers * steps}
+    losses = {t: (loss_of(os.path.join(d, "ck"), t),
+                  loss_of(os.path.join(d, "full"), t))
+              for t in (STOP_MLM, res.num_steps - 1)}
+    param = 0.0
+    for n, p in res.state.model.named_parameters():
+        if not n.endswith(".bk"):
+            param = max(param, float((p.detach() - full_params[n])
+                                     .abs().max()))
+    problems = []
+    if _joined(stop_lines, res_lines) != full_lines:
+        problems.append(f"trace {stop_lines} + {res_lines} != {full_lines}")
+    if any(a != b for a, b in losses.values()):
+        problems.append(f"losses (resumed, uninterrupted) {losses}")
+    if param > 1e-5:
+        problems.append(f"parameters {param:.3e} apart")
+    if launches != want_launches:
+        problems.append(f"flash launches {launches} != {want_launches}")
+    if problems:
+        raise AssertionError(f"14c: {problems}")
+    out = {"card": card, "checkpoint_gib": ckpt_bytes / 2**30,
+           "save_async_stall_ms": [1e3 * s for s in stop_hooks.stalls],
+           "preempt_flush_ms": [1e3 * s for s in stop_hooks.flush_s],
+           "restore_ms": 1e3 * res_hooks.restore_seconds,
+           "resumed_save_ms": [1e3 * s for s in res_hooks.stalls],
+           "losses": losses, "param_apart": param,
+           "launches_resumed": launches, "phase7_step_ms": phase7["step_ms"]}
+    log(f"[checkpoint] 14c BERT_BASE bf16 S={TRAIN_SEQ} batch "
+        f"{TRAIN_BATCH}, stopped at step {STOP_MLM}, resumed for steps "
+        f"{STOP_MLM + 1}-{res.num_steps - 1}: losses equal, parameters "
+        f"within {param:.3e}; {json.dumps(out)}")
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def dp_bert_continue(dev, state, across: bool):
+    """The last of ``DP_STEPS`` steps from a restored replicated state on
+    the global batch: ``(loss, whole parameters)``."""
+    from mpi_tensorflow_torch.train import gspmd, optimizer
+
+    tokens, targets, mask = dp_bert_batches()
+    tx = optimizer.transformer_tx(DP_LR, DP_STEPS)
+    step = gspmd.make_train_step(tx, across_ranks=across)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    t = DP_STEPS - 1
+    state, m = step(state, {"tokens": put(tokens[t]), "mask": put(mask[t])},
+                    put(targets[t]))
+    return float(m["loss"]), {n: p.detach().clone()
+                              for n, p in state.model.named_parameters()}
+
+
+def dp_restore_check(dev, across: bool) -> dict:
+    """14d's restore: each saved layout into a fresh replicated state at
+    world 1, then the last step, against the one-process run of all
+    ``DP_STEPS`` steps."""
+    from mpi_tensorflow_torch.models import bert
+    from mpi_tensorflow_torch.train import checkpoint, gspmd, optimizer
+    from mpi_tensorflow_torch.train import state_io
+
+    plain = dp_bert_run(dev, "replicated", 1, np.arange(DP_GLOBAL_B), False)
+    out = {}
+    for kind in CKPT_DP_KINDS:
+        model = bert.BertMlm.from_seed(dp_bert_cfg(), 7).to(dev)
+        state = gspmd.init_state(model, optimizer.transformer_tx(DP_LR,
+                                                                 DP_STEPS))
+        t0 = time.perf_counter()
+        arrays, meta = checkpoint.restore_sharded(checkpoint.step_path(
+            os.path.join(CKPT_DIR, "dp", kind), DP_STEPS - 2),
+            state_io.parts(state))
+        state_io.load(state, arrays)
+        sec = time.perf_counter() - t0
+        loss, params = dp_bert_continue(dev, state, across)
+        param, bk = 0.0, 0.0
+        for n, p in params.items():
+            e = float((p - plain["params"][n]).abs().max())
+            if n.endswith(".bk"):
+                bk = max(bk, e)
+            else:
+                param = max(param, e)
+        out[kind] = {"loss": abs(loss - float(plain["losses"][-1])),
+                     "param": param, "bk": bk, "restore_ms": 1e3 * sec,
+                     "saved_world": meta["extra"].get("world")}
+    return out
+
+
+def worker_ckpt_save(backend: str) -> None:
+    """14d: ``DP_STEPS - 1`` steps of ``dp_bert_cfg`` from the seed-0
+    state in each of ``CKPT_DP_KINDS`` across the ranks, saved sharded
+    (each rank its slices)."""
+    from mpi_tensorflow_torch.parallel import mesh
+    from mpi_tensorflow_torch.train import checkpoint, gspmd, mlm_loop
+    from mpi_tensorflow_torch.train import optimizer, state_io
+    from mpi_tensorflow_torch.models import bert
+
+    dev, rank, world = join_world(backend)
+    tokens, targets, mask = dp_bert_batches()
+    rows = mlm_loop.rank_rows(0, DP_GLOBAL_B, 1, rank, world)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev)
+    saved = {}
+    for kind in CKPT_DP_KINDS:
+        model = bert.BertMlm.from_seed(dp_bert_cfg(), 0).to(dev)
+        tx = optimizer.transformer_tx(DP_LR, DP_STEPS)
+        state = gspmd.init_for(kind, model, tx)
+        step = gspmd.make_train_step(tx, across_ranks=True)
+        for t in range(DP_STEPS - 1):
+            state, _ = step(state, {"tokens": put(tokens[t]),
+                                    "mask": put(mask[t])}, put(targets[t]))
+        path = checkpoint.step_path(os.path.join(CKPT_DIR, "dp", kind),
+                                    DP_STEPS - 2)
+        t0 = time.perf_counter()
+        checkpoint.save_sharded(path, state_io.parts(state),
+                                step=DP_STEPS - 2, extra={"world": world})
+        # rank 0 returns once it has committed; the others may return
+        # while it writes meta.json, so rank 0 alone counts the bytes
+        saved[kind] = {"save_ms": 1e3 * (time.perf_counter() - t0),
+                       "bytes": _dir_bytes(path + ".sharded")
+                       if rank == 0 else None}
+    if rank == 0:
+        print(DP_RESULT + json.dumps({"case": "ckpt_save", "world": world,
+                                      "saved": saved}), flush=True)
+    mesh.shutdown()
+
+
+def worker_ckpt_restore(backend: str) -> None:
+    """14d: ``dp_restore_check`` in a world of one rank (NCCL)."""
+    from mpi_tensorflow_torch.parallel import mesh
+
+    dev, rank, world = join_world(backend)
+    out = dp_restore_check(dev, True)
+    print(DP_RESULT + json.dumps({"case": "ckpt_restore", "world": world,
+                                  "backend": backend, "diff": out}),
+          flush=True)
+    mesh.shutdown()
+
+
+WORKERS.update(ckpt_save=worker_ckpt_save,
+               ckpt_restore=worker_ckpt_restore)
+
+
+def ckpt_dp_phase(dev, card: str) -> dict:
+    """14d: zero1 and fsdp checkpoints of two gloo ranks on ``cuda:0``,
+    each restored at world 1 (no process group, in this process) and at
+    world 1 over NCCL (torchrun), the continued step within ``DP_TOL`` of
+    the uninterrupted one-process step."""
+    me = os.path.abspath(__file__)
+    shutil.rmtree(os.path.join(CKPT_DIR, "dp"), ignore_errors=True)
+    save = dp_result(torchrun(2, [me, "--worker", "ckpt_save", "gloo"], 600))
+    plain = dp_restore_check(dev, False)
+    nccl = dp_result(torchrun(1, [me, "--worker", "ckpt_restore", "nccl"],
+                              600))["diff"]
+    bad = {(w, k): v for w, res in (("world1", plain), ("nccl1", nccl))
+           for k, v in res.items()
+           if not (dp_bert_within(v) and v["saved_world"] == 2)}
+    out = {"card": card, "saved": save["saved"], "world1": plain,
+           "world1_nccl": nccl}
+    log(f"[checkpoint] 14d zero1 / fsdp of 2 gloo ranks restored at world "
+        f"1 and at world 1 over NCCL, the last of {DP_STEPS} steps against "
+        f"the uninterrupted one-process step (tolerance {DP_TOL}): "
+        f"{json.dumps(out)}")
+    if bad:
+        raise AssertionError(f"14d: {bad}")
+    shutil.rmtree(os.path.join(CKPT_DIR, "dp"), ignore_errors=True)
+    return out
+
+
+def ckpt_phase(dev, card: str, phase7: dict) -> dict:
+    """Phase 14: the long-run services (module note)."""
+    out = {}
+    for name, run in (("14a", lambda: prefetch_phase(card)),
+                      ("14b", lambda: ckpt_image_phase(dev, card)),
+                      ("14c", lambda: ckpt_mlm_phase(dev, card, phase7)),
+                      ("14d", lambda: ckpt_dp_phase(dev, card))):
+        phase(name)
+        out[name] = run()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda reports no card; nothing was run",
@@ -2909,19 +3505,25 @@ def main() -> int:
 
     resolve_device(dev)                  # TF32 off for float32 products
     torch.empty(0, device=dev)           # the allocator up, for its stats
+    phase("1 build")
     build()
+    phase("2 paged kernel")
     worst = check_kernel(dev)
     timing = time_decode(dev)
     quant_worst = check_kernel_quant(dev)
     quant_timing = time_decode_quant(dev)
+    phase("3 serving")
     launches, ref, engine, _ = serve_full_width(dev)
     del engine
     quant_launches = serve_quant(dev, ref)
+    phase("4 cross-checks")
     cross_check(dev)
     cross_check_quant(dev)
+    phase("5-6 flash kernels")
     flash_worst = check_flash(dev)
     check_flash_grads(dev)
     flash_timing = time_flash(dev)
+    phase("7-8 training")
     flash_launches, phase7 = train_full_width(dev)
     cross_check_train(dev)
     # no path runs the fused kernels: their counts stay at 0 through
@@ -2930,16 +3532,23 @@ def main() -> int:
     if any(fused_launches.values()):
         raise AssertionError(f"a main path launched a fused kernel: "
                              f"{fused_launches}")
+    phase("9 fused kernels")
     fused_worst = check_fused(dev)
     fused_timing = time_fused(dev)
     from mpi_tensorflow_torch.ops import fused
 
     fused.layer_norm_forward.launches = fused_launches["layer_norm"]
     fused.online_logsumexp.launches = fused_launches["logsumexp"]
+    phase("10 CNN trainer")
     cnn = cnn_phase(dev, card)
+    phase("11 data axis")
     dp_phase(card, cnn)
+    phase("12 data-parallel BERT")
     bert_dp = bert_dp_phase(card, phase7)["bert_train"]["runs"]
+    phase("13 ResNets")
     resnet_launches = resnet_phase(dev, card)["launches"]
+    long_run = ckpt_phase(dev, card, phase7)
+    phase("the kernels line")
     paged_src = "mpi_tensorflow_torch/ops/csrc/paged_attention.cu"
     paged_replaces = "mpi_tensorflow_tpu/ops/paged_attention_kernel.py:90"
     kernels = [{
@@ -2980,6 +3589,8 @@ def main() -> int:
             # grad_accum 2, each counted from 0
             "launches_dp": bert_dp["1"]["launches"][name],
             "launches_dp_accum2": bert_dp["2"]["launches"][name],
+            # phase 14c: the resumed BERT run, counted from 0
+            "launches_resumed": long_run["14c"]["launches_resumed"][name],
             "max_abs_err": max(flash_worst[name, torch.float32],
                                flash_worst[name, torch.bfloat16]),
             "max_abs_err_fp32": flash_worst[name, torch.float32],

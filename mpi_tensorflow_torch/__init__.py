@@ -10,8 +10,11 @@ Layout mirrors the reference so each counterpart is easy to find:
 
 - ``config``   — the run-config fields the ported paths read;
 - ``cli``      — ``python -m mpi_tensorflow_torch``, the trainer;
-- ``data``     — MNIST, CIFAR-10 and the ImageNet-shaped set (each with
-                 its synthetic stand-in), and the synthetic MLM stream;
+- ``data``     — MNIST, CIFAR-10 (its local archive extracted) and the
+                 ImageNet-shaped set (each with its synthetic stand-in;
+                 a JPEG tree ingested once, ``imagenet_jpeg``), the
+                 synthetic MLM stream, and the windows of the image loop
+                 assembled inline or on a thread (``prefetch``);
 - ``models``   — the MNIST CNN (``cnn``), ResNet-20/50 (``resnet``),
                  the transformer layer math and ``BertMlm`` (``bert``),
                  the causal LM with its paged forward (``gpt``), and the
@@ -27,9 +30,12 @@ Layout mirrors the reference so each counterpart is easy to find:
 - ``train``    — TF momentum and adamw, the image family's train/eval
                  steps and loop (``step``, ``loop``), the transformer's
                  (``gspmd``) and the MLM host loop ``train_mlm``;
+                 checkpoints in the reference's formats (``checkpoint``,
+                 ``state_io``), resume and preemption (``ckpt_hooks``,
+                 ``preemption``);
 - ``utils``    — device resolution, step timing and profile summaries,
-                 the console trace, model-FLOP accounting, and the
-                 metrics blocks the engine returns.
+                 the console trace, model-FLOP accounting, the trainers'
+                 metrics sink and the metrics blocks the engine returns.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for ``cuda`` without a card raises instead of falling back.

@@ -59,6 +59,24 @@ port's runs the trainer's optimizer, one global norm more a step:
         --model bert_base --seq-len 4096 --batch-size 4 --precision bf16 \\
         [--grad-accum 2] [--param-sharding zero1|fsdp]
 
+``--mode hostio``: the counterpart of ``bench.py --mode hostio``: the
+host's window assembly alone, for ResNet-50-shaped rows (224x224x3
+float32) in a memory-mapped ``.npy`` written under ``--hostio-dir``
+(the ``imagenet_npy`` storage format; removed after), through the
+inline gather (``prefetch.assemble_window``) and the background thread
+(``ThreadPrefetcher``, timed from its construction, since it starts
+assembling there): sustained images/sec each, the page cache warm (one
+inline pass first).  The native arm (the C++ worker) prints ``null``
+and names ROADMAP Queue 1 item 15c.  The rate to beat is the card's:
+``--demand-images-per-sec`` takes the ResNet-50 trainer's images/sec
+measured on this card in the same run (``chip_smoke.py`` phase 14a
+passes it); without it, and on the CPU, the demand and the headroom are
+``null``:
+
+    python -m mpi_tensorflow_torch.bench --mode hostio --device cpu
+    python -m mpi_tensorflow_torch.bench --mode hostio \\
+        --demand-images-per-sec 880 --batch-size 64 --window-k 11
+
 The reference's scanned arm (K steps per dispatch) and the ``serving``
 mode are not ported yet (ROADMAP Queue 1 item 6).
 """
@@ -70,6 +88,7 @@ import dataclasses
 import json
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -274,9 +293,86 @@ def measure_allreduce(payload_mb: float = 25.4, chain: int = 32,
     }
 
 
+def measure_hostio(batch_size: int = 32, window_k: int = 4,
+                   windows: int = 12, image_size: int = 224,
+                   train_n: int = 512, demand: Optional[float] = None,
+                   directory: str = "build",
+                   card: Optional[str] = None) -> dict:
+    """Host window-assembly images/sec, inline and on the thread, over a
+    memory-mapped ``.npy`` of ``train_n`` rows (module note)."""
+    import os
+    import shutil
+    import tempfile
+
+    from mpi_tensorflow_torch.data import prefetch as pf
+
+    if batch_size >= train_n:
+        # assemble_window's wraparound is offset % (local_n - batch)
+        raise ValueError(f"--batch-size {batch_size} must be < the hostio "
+                         f"dataset size {train_n}")
+    os.makedirs(directory, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="hostio-", dir=directory)
+    try:
+        path = os.path.join(d, "train_images.npy")
+        arr = np.lib.format.open_memmap(
+            path, mode="w+", dtype=np.float32,
+            shape=(1, train_n, image_size, image_size, 3))
+        row = np.linspace(0, 1, image_size * image_size * 3,
+                          dtype=np.float32).reshape(image_size, image_size,
+                                                    3)
+        for i in range(train_n):
+            arr[0, i] = row * ((i % 13) + 1)
+        arr.flush()
+        del arr
+        tr_d = np.load(path, mmap_mode="r")
+        tr_l = (np.arange(train_n, dtype=np.int64) % 1000)[None, :]
+        starts = np.arange(windows) * window_k
+        widths = np.full(windows, window_k)
+        n_imgs = windows * window_k * batch_size
+
+        def run(arm):
+            t0 = time.perf_counter()
+            if arm == "inline":
+                for t, w in zip(starts, widths):
+                    pf.assemble_window(tr_d, tr_l, int(t), int(w),
+                                       window_k, batch_size)
+                return n_imgs / (time.perf_counter() - t0)
+            p = pf.make_prefetcher(tr_d, tr_l, starts, widths, window_k,
+                                   batch_size, force=arm)
+            try:
+                while p.next() is not None:
+                    pass
+                return n_imgs / (time.perf_counter() - t0)
+            finally:
+                p.close()
+
+        run("inline")                        # the page cache warm
+        out = {"host_images_per_sec_inline": run("inline"),
+               "host_images_per_sec_thread": run("thread")}
+        try:
+            out["host_images_per_sec_native"] = run("native")
+        except RuntimeError as e:
+            out["host_images_per_sec_native"] = None
+            out["native_error"] = str(e)[:200]
+        best = max(v for k, v in out.items()
+                   if k.startswith("host_images") and v)
+        out.update(
+            host_images_per_sec=best, device_demand_img_s=demand,
+            device_demand_source=("the ResNet-50 trainer on this card, "
+                                  "passed in" if demand else None),
+            feed_headroom_x=best / demand if demand else None,
+            batch_size=batch_size, window_k=window_k, windows=windows,
+            image_size=image_size, card=card,
+            note="page-cache-warm mmap reads; steady-state epoch>1 bound")
+        return out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="mpi_tensorflow_torch.bench")
-    ap.add_argument("--mode", choices=["train", "allreduce", "serving"],
+    ap.add_argument("--mode", choices=["train", "allreduce", "hostio",
+                                       "serving"],
                     default="train")
     ap.add_argument("--model", default="mnist_cnn",
                     choices=["mnist_cnn", "resnet20", "resnet50", "vit",
@@ -304,7 +400,25 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the rank's own card under "
                          "torchrun) or cpu; cuda without a card fails")
+    ap.add_argument("--demand-images-per-sec", type=float, default=None,
+                    help="hostio: the card's images/sec to compare the "
+                         "feed with (none on the CPU)")
+    ap.add_argument("--window-k", type=int, default=4,
+                    help="hostio: steps a window")
+    ap.add_argument("--windows", type=int, default=12,
+                    help="hostio: windows assembled per arm")
+    ap.add_argument("--hostio-dir", default="build",
+                    help="hostio: where the temporary .npy is written")
     args = ap.parse_args(argv)
+    if args.mode == "hostio":
+        on_card = torch.device(args.device).type == "cuda"
+        print(json.dumps(measure_hostio(
+            args.batch_size or 32, args.window_k, args.windows,
+            demand=args.demand_images_per_sec if on_card else None,
+            directory=args.hostio_dir,
+            card=card_line(torch.device(args.device)) if on_card
+            else None)), flush=True)
+        return 0
     if args.mode == "serving":
         raise NotImplementedError("--mode serving is not ported yet: "
                                   "ROADMAP Queue 1 item 6")

@@ -45,6 +45,17 @@ group:
         --device cpu --tiny --epochs 1 --batch-size 2 --seq-len 32 \\
         --train-n 64 --test-n 16 --log-every 4 --param-sharding fsdp
 
+A long run checkpoints at every trace point, survives a SIGTERM (it
+checkpoints the step it is in and exits 0) and resumes; ``--metrics-dir``
+streams its scalars to ``metrics.jsonl``.  A class-per-directory JPEG
+tree in ``--data-dir`` is decoded once into ``imagenet_npy`` (rank 0
+writes, the other ranks wait):
+
+    python -m mpi_tensorflow_torch --model resnet50 \\
+        --dataset imagenet_synthetic --num-classes 1000 \\
+        --data-dir /data/imagenet --checkpoint-dir ckpt --metrics-dir m
+    python -m mpi_tensorflow_torch ... --checkpoint-dir ckpt --resume
+
 ``--batch-size`` is per rank (the global batch is it times the ranks);
 ``--grad-accum`` splits each step's global batch into that many
 microbatches, and ``--param-sharding`` zero1/fsdp shards the
@@ -120,15 +131,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "(activation-memory / batch-size trade)")
     p.add_argument("--prefetch", choices=["auto", "native", "thread", "off"],
                    default=d.prefetch,
-                   help="accepted for the reference's CLI; the port "
-                        "assembles each window inline (native: not "
-                        "ported yet)")
+                   help="image loop's window assembly: thread and auto "
+                        "assemble ahead on a background thread, off "
+                        "inline (native, the C++ worker: not ported yet)")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 15)")
+                   help="write a sharded checkpoint at every trace point; "
+                        "on SIGTERM checkpoint and exit cleanly")
     p.add_argument("--resume", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 15)")
+                   help="continue from the latest committed checkpoint in "
+                        "--checkpoint-dir")
     p.add_argument("--metrics-dir", default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 15)")
+                   help="write scalar metrics to <dir>/metrics.jsonl "
+                        "(rank 0)")
     p.add_argument("--model", default=d.model,
                    choices=["mnist_cnn", "resnet20", "resnet50", "vit",
                             *TRANSFORMER_MODELS])

@@ -51,15 +51,17 @@ class Config:
     fused_steps: int = 1          # steps per window of the loop (batches
                                   # uploaded once per window); the CLI
                                   # defaults it to --log-every for psum
-    prefetch: str = "auto"        # the reference's window assembly knob;
-                                  # the port assembles inline whatever
-                                  # it says ("native" is not ported yet)
+    prefetch: str = "auto"        # window assembly: thread / auto on a
+                                  # background thread, off inline
+                                  # ("native", the C++ worker: item 15c)
     mesh_shape: Optional[dict] = None  # {"data": n}: n must be the
                                        # torch.distributed world size
                                        # (checked when training starts)
-    checkpoint_dir: Optional[str] = None  # not ported yet (item 15)
-    resume: bool = False
-    metrics_dir: Optional[str] = None
+    checkpoint_dir: Optional[str] = None  # sharded checkpoints at each
+                                          # trace point; SIGTERM saves
+                                          # and stops
+    resume: bool = False          # restart from checkpoint_dir's latest
+    metrics_dir: Optional[str] = None   # metrics.jsonl (rank 0)
     optimizer: str = "adamw"      # transformer-family optimizer
     remat: bool = False           # recompute layer activations in backward
     grad_accum: int = 1           # microbatches per optimizer step: the
@@ -108,12 +110,8 @@ class Config:
             (any(v > 1 for k, v in (self.mesh_shape or {}).items()
                  if k != "data"),
              f"mesh_shape={self.mesh_shape}", "14 (model parallelism)"),
-            (self.checkpoint_dir is not None or self.resume,
-             "checkpoint_dir/resume", "15 (checkpointing)"),
-            (self.metrics_dir is not None, "metrics_dir",
-             "15 (the metrics sink)"),
             (self.prefetch == "native", "prefetch='native'",
-             "15 (the C++ window worker)"),
+             "15c (the C++ window worker)"),
         )
         for bad, what, item in not_ported:
             if bad:

@@ -11,17 +11,29 @@ The port's own copy of ``mpi_tensorflow_tpu/data/cifar.py``:
   one) as the validation split, when ``data_dir`` holds
   ``cifar-10-batches-bin``; otherwise the synthetic set of the same
   shapes (``data.synthetic.image_classification``: 32x32x3, 10 classes,
-  50 000 / 10 000 rows by default).
+  50 000 / 10 000 rows by default);
+- when ``cifar-10-batches-bin`` is absent and ``data_dir`` holds the
+  binary distribution's archive, ``cifar-10-binary.tar.gz``, it is
+  extracted first (``tarfile``'s ``extractall``, as the reference does
+  after its download) and parsed.  The archive goes into a directory of
+  this call's own in ``data_dir``, whose ``cifar-10-batches-bin`` is
+  then renamed into place: every rank of a ``torchrun`` job calls this
+  at once, and none may read a file a peer is still writing.  The first
+  rename wins; a later one finds the directory there and drops its own
+  copy.  An archive that does not open, or does not hold the binary
+  files, raises: real data was pointed at, so the synthetic set is never
+  served in its place.
 
-There is no network fetch: the reference downloads the binary
-distribution when the directory is absent, and the port reads it only
-from ``data_dir`` (the fetch waits for ROADMAP Queue 1 item 15, as
-MNIST's does).
+There is no network fetch: the reference downloads the archive when
+neither is present, and the port reads it only from ``data_dir``.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import tarfile
+import tempfile
 
 import numpy as np
 
@@ -29,6 +41,7 @@ from mpi_tensorflow_torch.data import synthetic
 from mpi_tensorflow_torch.data.mnist import Splits
 
 BIN_DIR = "cifar-10-batches-bin"
+ARCHIVE = "cifar-10-binary.tar.gz"
 _REC = 3073  # 1 label byte + 3072 pixel bytes
 
 
@@ -42,9 +55,34 @@ def _parse_bin(path: str) -> tuple[np.ndarray, np.ndarray]:
     return imgs, labels
 
 
+def _extract(tgz: str, data_dir: str, bin_dir: str) -> None:
+    """``tgz``'s ``BIN_DIR`` into ``bin_dir``, whole or not at all."""
+    tmp = tempfile.mkdtemp(prefix=".cifar-extract.", dir=data_dir)
+    try:
+        try:
+            with tarfile.open(tgz) as tf:
+                tf.extractall(tmp, filter="data")
+        except (tarfile.TarError, OSError, EOFError) as e:
+            raise RuntimeError(
+                f"{tgz} could not be extracted ({type(e).__name__}: {e}); "
+                f"refusing to train on synthetic data in its place") from e
+        if not os.path.isdir(os.path.join(tmp, BIN_DIR)):
+            raise RuntimeError(f"{tgz} holds no {BIN_DIR}/ directory")
+        try:
+            os.rename(os.path.join(tmp, BIN_DIR), bin_dir)
+        except OSError:
+            if not os.path.isdir(bin_dir):
+                raise                   # else a peer's rename came first
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def load_splits(data_dir: str = "./data", train_n: int | None = None,
                 test_n: int | None = None) -> Splits:
     bin_dir = os.path.join(data_dir, BIN_DIR)
+    tgz = os.path.join(data_dir, ARCHIVE)
+    if not os.path.isdir(bin_dir) and os.path.exists(tgz):
+        _extract(tgz, data_dir, bin_dir)
     if not os.path.isdir(bin_dir):
         return synthetic.image_classification(
             train_n or 50000, test_n or 10000, size=32, channels=3,

@@ -2,17 +2,23 @@
 
 The port's own copy of ``mpi_tensorflow_tpu/data/imagenet.py``:
 
-- ``data_dir/imagenet_npy`` (user-provided, pre-processed ``.npy``
-  shards: ``{train,val}_{images,labels}.npy``, NHWC float32): the
-  images mapped from disk, the first ``len(train) // 12`` train rows
-  (at least one) as the validation split, ``val_*`` as the test split.
-  Shards that the reference's JPEG ingest wrote (they carry its
+- ``data_dir/imagenet_npy`` (``.npy`` shards: ``{train,val}_{images,
+  labels}.npy``, NHWC float32, written by ``data.imagenet_jpeg.ingest``
+  or by the user): the images mapped from disk, the first ``len(train)
+  // 12`` train rows (at least one) as the validation split, ``val_*``
+  as the test split.  Shards that an ingest wrote (they carry its
   ``ingest_meta.json``) at another resolution than the run's are
   refused, not served;
 - a class-per-directory image tree in ``data_dir`` (or its ``train/``)
-  raises: decoding it is the reference's ``imagenet_jpeg`` ingest,
-  ROADMAP Queue 1 item 15.  It never falls back to synthetic data when
-  it was pointed at real images;
+  and no shards: rank 0 (``parallel.mesh.process_index()``) decodes it
+  once into ``imagenet_npy`` (``imagenet_jpeg.ingest``), which appears
+  by an atomic rename; the other ranks wait for it.  A failed ingest
+  leaves ``imagenet_npy.failed`` with its error, and a waiting rank
+  raises on it at once if it appears during the wait, or after
+  ``MARKER_GRACE_S`` if it was there before (a previous run's marker,
+  which rank 0 removes as it starts), polling every ``POLL_S`` up to
+  ``DEADLINE_S``.  A tree without Pillow raises: the port never trains
+  on synthetic data when pointed at real images;
 - otherwise the synthetic set (``data.synthetic.image_classification``,
   224x224x3, 1000 classes, 2048 / 512 rows by default).
 """
@@ -20,50 +26,80 @@ The port's own copy of ``mpi_tensorflow_tpu/data/imagenet.py``:
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 
-from mpi_tensorflow_torch.data import synthetic
+from mpi_tensorflow_torch.data import imagenet_jpeg, synthetic
 from mpi_tensorflow_torch.data.mnist import Splits
+from mpi_tensorflow_torch.parallel import mesh as meshlib
 
 IMAGE_SIZE = 224
 NUM_CLASSES = 1000
 NPY_DIR = "imagenet_npy"
-_IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
+# a waiting rank's poll of rank 0's ingest (the reference's values)
+POLL_S = 5.0
+MARKER_GRACE_S = 60.0
+DEADLINE_S = 8 * 3600.0
 
 
-def _image_class_dirs(base: str) -> list:
-    """Subdirectories of ``base`` that hold at least one image (the
-    reference's ``imagenet_jpeg._image_class_dirs``)."""
-    if not os.path.isdir(base):
-        return []
-    out = []
-    for d in sorted(os.listdir(base)):
-        cdir = os.path.join(base, d)
-        if not os.path.isdir(cdir) or d.startswith((".", NPY_DIR)):
-            continue
-        if any(f.lower().endswith(_IMAGE_EXTS) for f in os.listdir(cdir)):
-            out.append(d)
-    return out
-
-
-def looks_like_tree(root: str) -> bool:
-    """Whether ``root`` (or ``root/train``) is a class-per-directory
-    image tree: at least two image-bearing class directories (the
-    reference's ``imagenet_jpeg.looks_like_tree``)."""
-    return (len(_image_class_dirs(os.path.join(root, "train"))) >= 2
-            or len(_image_class_dirs(root)) >= 2)
+def _ingest_or_wait(data_dir: str, np_dir: str, image_size: int) -> None:
+    """Rank 0 ingests the tree into ``np_dir``; the others wait for it
+    (module note)."""
+    if not imagenet_jpeg.available():
+        raise RuntimeError(
+            f"{data_dir} holds a class-per-directory image tree but Pillow "
+            f"(PIL) is not installed — install it or pre-convert to "
+            f"{np_dir} (.npy shards)")
+    fail_marker = f"{np_dir}.failed"
+    if meshlib.process_index() == 0:
+        if os.path.exists(fail_marker):
+            os.unlink(fail_marker)      # a previous run's: retrying now
+        print(f"[imagenet] decoding JPEG tree under {data_dir} -> {np_dir} "
+              f"(one-time)", flush=True)
+        try:
+            imagenet_jpeg.ingest(data_dir, np_dir, image_size=image_size)
+        except BaseException as e:
+            # the waiting ranks fail at once instead of at the deadline
+            try:
+                with open(fail_marker, "w") as f:
+                    f.write(f"{type(e).__name__}: {e}\n")
+            except OSError:
+                pass
+            raise
+        if os.path.exists(fail_marker):
+            os.unlink(fail_marker)
+        return
+    wait_start = time.time()
+    marker_seen_absent = not os.path.exists(fail_marker)
+    while not os.path.isdir(np_dir):
+        # a marker that appears during the wait is this run's; one there
+        # from the start counts only after the grace (rank 0 unlinks a
+        # stale one when it starts).  The unlink races every read here:
+        # a vanished marker means keep waiting
+        try:
+            fresh = marker_seen_absent or \
+                time.time() - wait_start > MARKER_GRACE_S
+            if fresh and os.path.exists(fail_marker):
+                with open(fail_marker) as f:
+                    reason = f.read().strip()
+                raise RuntimeError(f"process 0's JPEG ingest failed: "
+                                   f"{reason}")
+        except OSError:
+            pass
+        if not os.path.exists(fail_marker):
+            marker_seen_absent = True
+        if time.time() - wait_start > DEADLINE_S:
+            raise RuntimeError(f"timed out waiting for process 0's JPEG "
+                               f"ingest commit at {np_dir}")
+        time.sleep(POLL_S)
 
 
 def load_splits(data_dir: str = "./data", train_n: int = 2048,
                 test_n: int = 512, image_size: int = IMAGE_SIZE) -> Splits:
     np_dir = os.path.join(data_dir, NPY_DIR)
-    if not os.path.isdir(np_dir) and looks_like_tree(data_dir):
-        raise NotImplementedError(
-            f"{data_dir} holds a class-per-directory image tree; decoding "
-            f"it into {np_dir} is not ported yet: ROADMAP Queue 1 item 15 "
-            f"(pre-convert it to .npy shards there; the port never "
-            f"trains on synthetic data when pointed at real images)")
+    if not os.path.isdir(np_dir) and imagenet_jpeg.looks_like_tree(data_dir):
+        _ingest_or_wait(data_dir, np_dir, image_size)
     if not os.path.isdir(np_dir):
         return synthetic.image_classification(
             train_n, test_n, size=image_size, channels=3,

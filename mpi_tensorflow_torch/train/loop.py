@@ -27,11 +27,15 @@ one process (``psum`` only):
   prints on a W-device mesh;
 - windows of K = ``fused_steps + 1`` steps (1 when ``fused_steps`` is
   1; always 1 under avg50, as in the reference) ending on the trace
-  cadence (``window_schedule``), assembled inline, uploaded once and
-  stepped through one step after another.  The reference runs each
-  window as one scanned dispatch; a CUDA graph per window would be the
-  counterpart and is not built yet (nor is the reference's background
-  assembly: ``prefetch`` is accepted and has no effect);
+  cadence (``window_schedule``, from the first step of the run or of a
+  resume), uploaded once and stepped through one step after another.
+  ``prefetch`` ``thread`` and ``auto`` assemble the windows ahead on a
+  background thread (``data.prefetch.ThreadPrefetcher``, closed in a
+  ``finally``); ``off`` assembles each inline, just before its upload.
+  The reference's ``auto`` takes its C++ worker when that loads; the
+  port's takes the thread (``native`` is ROADMAP Queue 1 item 15c).
+  The reference runs each window as one scanned dispatch; a CUDA graph
+  per window would be the counterpart and is not built yet;
 - early stopping on the validation split when ``early_stop_patience >
   0`` (every rank reaches the same verdict from the gathered
   predictions).
@@ -52,8 +56,20 @@ the one reported, as the JAX loop reports process 0's: under psum the
 per-step all-reduce keeps the ranks in step, under avg50 they meet only
 at the trace points.  ``images_per_sec`` counts the global batch, batch
 x shards.  Batches go to the device named by ``device`` (``cuda``
-unless the caller asks for the CPU); nothing falls back.  Checkpoints,
-preemption and the metrics sink are ROADMAP Queue 1 item 15.
+unless the caller asks for the CPU); nothing falls back.
+
+Checkpoints, resume and preemption (``train.ckpt_hooks``, at the
+reference's call sites): with ``checkpoint_dir`` each trace point
+queues a sharded checkpoint of its step after the average and the
+early-stopping verdict, and ``resume`` restarts from the latest
+committed one (``window_schedule`` from its step + 1).  A SIGTERM (or
+``request_stop``) stops one rank after the step it lands in, checkpointed;
+across ranks the stop is agreed at the next trace point.  Under avg50 the
+state is saved as the reference's stacked one, each rank its replica.
+The step's dropout generator is seeded by the step, so a resumed run
+repeats the uninterrupted one.  With ``metrics_dir`` rank 0 writes
+``eval/test_error_pct`` at each trace point and ``perf/images_per_sec``
+at the end (``utils.metrics_writer``).
 """
 
 from __future__ import annotations
@@ -71,8 +87,10 @@ from mpi_tensorflow_torch.data.idx import error_rate
 from mpi_tensorflow_torch.models import cnn, resnet
 from mpi_tensorflow_torch.parallel import mesh as meshlib
 from mpi_tensorflow_torch.train import evaluation, step as step_lib
+from mpi_tensorflow_torch.train.ckpt_hooks import CheckpointHooks
 from mpi_tensorflow_torch.train.gspmd import step_generator
 from mpi_tensorflow_torch.utils import logging as logs
+from mpi_tensorflow_torch.utils import metrics_writer
 from mpi_tensorflow_torch.utils.device import device_name, resolve_device
 from mpi_tensorflow_torch.utils.profiling import StepTimer
 
@@ -259,38 +277,74 @@ def train(config: Config, model=None, splits: Optional[mnist.Splits] = None,
     history = []
     metrics = {}
     pending = 0                 # steps queued since the span started
-
-    if say:
-        logs.session_start(0)
-    timer.start()
-    for t0, w in zip(*window_schedule(num_steps, config.log_every,
-                                      window_k)):
-        bs, ls = prefetch.assemble_window(tr_d, tr_l, t0, w, window_k, b)
-        bdev, ldev = put(bs[:w]), put(ls[:w])
-        for j in range(w):
-            state, metrics = train_step(state, bdev[j], ldev[j],
-                                        generator(t0 + j))
-        pending += w
-        t = t0 + w - 1
-        if not is_trace_step(t, config.log_every, num_steps):
-            continue
-        # close the timed span, evaluate off it, trace, average
-        timer.stop(pending)
-        pending = 0
-        preds = run_eval(splits.test_data)
-        history.append((t, error_rate(preds, splits.test_labels)))
+    hooks = CheckpointHooks(config.checkpoint_dir, verbose=verbose,
+                            device=dev, stacked=avg50)
+    mw = metrics_writer.for_process(config.metrics_dir, rank)
+    pf = None
+    try:
+        start_step = 0
+        if config.resume:
+            state, start_step = hooks.resume(state)
+        schedule = window_schedule(num_steps, config.log_every, window_k,
+                                   start_step)
+        if config.prefetch != "off":
+            pf = prefetch.make_prefetcher(tr_d, tr_l, *schedule, window_k,
+                                          b, force=config.prefetch)
         if say:
-            for r, e in enumerate(evaluation.shard_error_rates(
-                    preds, splits.test_labels, ndev)):
-                logs.step_trace(r, t, e)
-        if avg50 and t != num_steps - 1:           # mpipy.py:91
-            state = average(state)
-        if t != num_steps - 1 and check_early_stop():
-            break
+            logs.session_start(0)
         timer.start()
+        for t0, w in zip(*schedule):
+            if pf is not None:
+                bs, ls, _ = pf.next()
+            else:
+                bs, ls = prefetch.assemble_window(tr_d, tr_l, t0, w,
+                                                  window_k, b)
+            bdev, ldev = put(bs[:w]), put(ls[:w])
+            stopped = False
+            for j in range(w):
+                state, metrics = train_step(state, bdev[j], ldev[j],
+                                            generator(t0 + j))
+                pending += 1
+                if hooks.stop_now(t0 + j):
+                    hooks.preempt_save(state, t0 + j)
+                    stopped = True
+                    break
+            if stopped:
+                break
+            t = t0 + w - 1
+            if not is_trace_step(t, config.log_every, num_steps):
+                continue
+            # close the timed span, evaluate off it, trace, average
+            timer.stop(pending)
+            pending = 0
+            preds = run_eval(splits.test_data)
+            history.append((t, error_rate(preds, splits.test_labels)))
+            mw.scalar("eval/test_error_pct", history[-1][1], t)
+            if say:
+                for r, e in enumerate(evaluation.shard_error_rates(
+                        preds, splits.test_labels, ndev)):
+                    logs.step_trace(r, t, e)
+            last = t == num_steps - 1
+            if avg50 and not last:                 # mpipy.py:91
+                state = average(state)
+            stop_early = not last and check_early_stop()
+            hooks.save_async(state, t)
+            if stop_early:
+                break
+            if not last and hooks.stop_agreed(t):
+                hooks.preempt_save(state, t, already_queued=True)
+                break
+            timer.start()
+        ips = timer.images_per_sec(global_b)
+        if ips == ips:              # a run with no timed span reads NaN
+            mw.scalar("perf/images_per_sec", ips, num_steps)
+    finally:
+        if pf is not None:
+            pf.close()
+        hooks.close()               # every queued checkpoint on disk
+        mw.close()
 
     final_err = history[-1][1] if history else float("nan")
-    ips = timer.images_per_sec(global_b)
     if say:
         logs.timing_summary(ips, timer.mean_step_seconds * 1e3, ndev)
     return TrainResult(

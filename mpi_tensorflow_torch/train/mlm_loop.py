@@ -22,10 +22,19 @@ without a process group):
   reference counts it;
 - rank 0 prints (the reference's one process of a W-device mesh);
   ``tokens_per_sec = b*seq_len/sec`` with the global ``b``, and
-  ``num_devices = W``.
+  ``num_devices = W``;
+- checkpoints, resume and preemption at the reference's call sites
+  (``train.ckpt_hooks``): a sharded checkpoint queued at each trace
+  point (under zero1 and fsdp each rank writes its slices), ``resume``
+  from the latest committed one, a stop at the step a signal lands in
+  (one rank) or agreed at the next trace point (several).  Dropout is
+  seeded by the step, so a resumed run repeats the uninterrupted one;
+- with ``metrics_dir``, rank 0 writes ``eval/heldout_error_pct`` and
+  ``train/loss`` at each trace point and ``perf/tokens_per_sec`` at the
+  end.
 
-The other transformer families, checkpointing and the metrics sink are
-not ported yet (ROADMAP Queue 1 items 13 and 15).
+The other transformer families are not ported yet (ROADMAP Queue 1
+item 13).
 """
 
 from __future__ import annotations
@@ -42,7 +51,9 @@ from mpi_tensorflow_torch.models import bert
 from mpi_tensorflow_torch.parallel import collectives, mesh as meshlib
 from mpi_tensorflow_torch.train import gspmd
 from mpi_tensorflow_torch.train import optimizer as opt_lib
+from mpi_tensorflow_torch.train.ckpt_hooks import CheckpointHooks
 from mpi_tensorflow_torch.utils import logging as logs
+from mpi_tensorflow_torch.utils import metrics_writer
 from mpi_tensorflow_torch.utils.device import resolve_device
 from mpi_tensorflow_torch.utils.profiling import StepTimer
 
@@ -167,33 +178,57 @@ def train_mlm(config: Config, bert_cfg: Optional[bert.BertConfig] = None,
 
     timer = StepTimer(warmup_steps=1, device=dev)
     history = []
-    if say:
-        logs.session_start(0)
     pending = 0
     metrics = {}
-    timer.start()
-    for t in range(num_steps):
-        rows = rank_rows(window(t, b, train_n), b, accum, rank, world)
-        batch = {"tokens": put(tokens[rows]), "mask": put(mask[rows])}
-        gens = ([gspmd.step_generator(config.seed + 2, t, dev, rank, i)
-                 for i in range(accum)] if bert_cfg.dropout > 0.0 else None)
-        state, metrics = train_step(state, batch, put(targets[rows]), gens)
-        pending += 1
-        last = t == num_steps - 1
-        if (t > 0 and t % config.log_every == 0) or last:
-            timer.stop(pending)
-            pending = 0
-            err = masked_error()
-            history.append((t, err))
-            if say:
-                logs.step_trace(0, t, err)
-            timer.start()
+    hooks = CheckpointHooks(config.checkpoint_dir, verbose=verbose,
+                            device=dev)
+    mw = metrics_writer.for_process(config.metrics_dir, rank)
+    try:
+        start_step = 0
+        if config.resume:
+            state, start_step = hooks.resume(state)
+        if say:
+            logs.session_start(0)
+        timer.start()
+        for t in range(start_step, num_steps):
+            rows = rank_rows(window(t, b, train_n), b, accum, rank, world)
+            batch = {"tokens": put(tokens[rows]), "mask": put(mask[rows])}
+            gens = ([gspmd.step_generator(config.seed + 2, t, dev, rank, i)
+                     for i in range(accum)] if bert_cfg.dropout > 0.0
+                    else None)
+            state, metrics = train_step(state, batch, put(targets[rows]),
+                                        gens)
+            pending += 1
+            if hooks.stop_now(t):
+                hooks.preempt_save(state, t)
+                break
+            last = t == num_steps - 1
+            if (t > 0 and t % config.log_every == 0) or last:
+                timer.stop(pending)
+                pending = 0
+                err = masked_error()
+                history.append((t, err))
+                mw.scalar("eval/heldout_error_pct", err, t)
+                mw.scalar("train/loss", float(metrics["loss"]), t)
+                if say:
+                    logs.step_trace(0, t, err)
+                hooks.save_async(state, t)
+                if not last and hooks.stop_agreed(t):
+                    hooks.preempt_save(state, t, already_queued=True)
+                    break
+                timer.start()
+        sec = timer.mean_step_seconds
+        tps = b * seq_len / sec if sec == sec and sec > 0 else float("nan")
+        if tps == tps:
+            mw.scalar("perf/tokens_per_sec", tps, num_steps)
+    finally:
+        hooks.close()
+        mw.close()
     final_err = history[-1][1] if history else float("nan")
-    sec = timer.mean_step_seconds
-    tps = b * seq_len / sec if sec == sec and sec > 0 else float("nan")
     if say:
         logs.timing_summary(tps, sec * 1e3, world)
     return MlmResult(state=state, history=history, final_error=final_err,
-                     final_loss=float(metrics["loss"]), tokens_per_sec=tps,
+                     final_loss=float(metrics["loss"]) if metrics
+                     else float("nan"), tokens_per_sec=tps,
                      step_time_seconds=sec, num_devices=world,
                      num_steps=num_steps)

@@ -1,15 +1,82 @@
-"""The accounting blocks ``PagedDecodeEngine.run`` returns.
+"""The metrics sink of the trainers, and the accounting blocks
+``PagedDecodeEngine.run`` returns.
 
-Counterpart of the constructors of ``mpi_tensorflow_tpu/utils/
-metrics_writer.py`` that a serving run's result carries: ``faults_block``
-and ``kv_quant_block`` in full, and ``prefix_block``,
-``speculation_block`` and ``tier_block`` in the disabled form this slice
-produces (their features are ROADMAP Queue 1 items).  Same keys and
-value types as the reference, so results of the two engines compare key
-for key.
+Counterpart of ``mpi_tensorflow_tpu/utils/metrics_writer.py``:
+
+- ``MetricsWriter``: scalars to ``<dir>/metrics.jsonl``, one ``{"step",
+  "tag", "value", "time"}`` line per scalar, NaN and Inf written as
+  ``null`` (strict JSON readers stop at the first bare NaN), and to a
+  TensorBoard event file beside it when ``tensorboardX`` imports (the
+  JSONL stream is the contract; the event file is optional).  A writer
+  with no directory, or made disabled, does nothing;
+- ``for_process``: the writer of a rank, active on rank 0 only (the
+  loops pass scalars already reduced over the ranks), so call sites need
+  no rank guard.  The loops write the reference's tags:
+  ``eval/test_error_pct`` at each trace point and ``perf/images_per_sec``
+  at the end (``train.loop``); ``eval/heldout_error_pct`` and
+  ``train/loss`` at each trace point and ``perf/tokens_per_sec`` at the
+  end (``train.mlm_loop``);
+- the serving blocks: ``faults_block`` and ``kv_quant_block`` in full,
+  and ``prefix_block``, ``speculation_block`` and ``tier_block`` in the
+  disabled form the port's engine produces (their features are ROADMAP
+  Queue 1 items).  Same keys and value types as the reference, so
+  results of the two engines compare key for key.
 """
 
 from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Optional
+
+
+class MetricsWriter:
+    """Scalar sink; does nothing when ``log_dir`` is empty or
+    ``enabled`` is False."""
+
+    def __init__(self, log_dir: Optional[str], *, enabled: bool = True):
+        self._enabled = bool(log_dir) and enabled
+        self._tb = None
+        self._jsonl = None
+        if not self._enabled:
+            return
+        os.makedirs(log_dir, exist_ok=True)
+        self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a",
+                           buffering=1)
+        try:
+            from tensorboardX import SummaryWriter
+
+            self._tb = SummaryWriter(log_dir)
+        except Exception:
+            self._tb = None             # the JSONL stream alone
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        if not self._enabled:
+            return
+        v = float(value)
+        jv = v if v == v and abs(v) != float("inf") else None
+        self._jsonl.write(json.dumps(
+            {"step": int(step), "tag": tag, "value": jv,
+             "time": round(time.time(), 3)}) + "\n")
+        if self._tb is not None:
+            self._tb.add_scalar(tag, v, int(step))
+
+    def close(self) -> None:
+        """Flush and close; later scalars are dropped."""
+        self._enabled = False
+        if self._jsonl is not None:
+            self._jsonl.close()
+            self._jsonl = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
+
+
+def for_process(log_dir: Optional[str], process_index: int) -> MetricsWriter:
+    """The writer of rank ``process_index``: active on rank 0 only."""
+    return MetricsWriter(log_dir, enabled=process_index == 0)
+
 
 #: canonical serving fault-tolerance counters — THE shape of the
 #: ``faults`` block

@@ -29,6 +29,7 @@ import dataclasses
 import functools
 import gzip
 import io
+import json
 import os
 
 import jax
@@ -129,21 +130,29 @@ def test_cli_config_and_fused_steps_default(argv, fused):
     (["--mesh", "data=4"], ValueError, "needs 4 processes"),
     (["--sync", "avg50", "--mesh", "data=1", "--epochs", "1"], None,
      "0  process at  14 with test error"),
-    (["--prefetch", "native"], NotImplementedError, "item 15"),
-    (["--checkpoint-dir", "/x"], NotImplementedError, "item 15"),
-    (["--resume"], NotImplementedError, "item 15"),
-    (["--metrics-dir", "/x"], NotImplementedError, "item 15"),
+    (["--prefetch", "native"], NotImplementedError, "item 15"),  # 15c
+    # ported: checkpoints (written at the trace point), a resume from an
+    # empty directory (trains from step 0) and the metrics sink
+    (["--checkpoint-dir", "{tmp}/ck", "--epochs", "1"], None,
+     "0  process at  14 with test error"),
+    (["--resume", "--checkpoint-dir", "{tmp}/empty", "--epochs", "1"], None,
+     "0  process at  14 with test error"),
+    (["--metrics-dir", "{tmp}/m", "--epochs", "1"], None,
+     "0  process at  14 with test error"),
     (["--optimizer", "lamb"], NotImplementedError, "item 13"),
     (["--model", "vit", "--dataset", "cifar10"], NotImplementedError,
      "item 14"),
     (["--model", "vit"], NotImplementedError, "item 14")])
 def test_unported_values_raise_naming_their_item(argv, error, match,
-                                                 mnist_dir, monkeypatch):
+                                                 mnist_dir, monkeypatch,
+                                                 tmp_path):
     """Each value raises naming its ROADMAP item; a run that trains reads
-    the 1200/256-row synthetic MNIST (15 steps of 64, one trace point)."""
+    the 1200/256-row synthetic MNIST (15 steps of 64, one trace point)
+    and leaves the checkpoint or metrics it was asked for."""
     monkeypatch.setattr(mnist, "load_splits", functools.partial(
         mnist.load_splits, train_n=1200, test_n=256))
-    argv = argv + ["--device", "cpu", "--data-dir", mnist_dir]
+    argv = [a.format(tmp=tmp_path) for a in argv] + [
+        "--device", "cpu", "--data-dir", mnist_dir]
     if error is not None:
         with pytest.raises(error, match=match):
             cli.main(argv)
@@ -151,6 +160,16 @@ def test_unported_values_raise_naming_their_item(argv, error, match,
     with contextlib.redirect_stdout(io.StringIO()) as out:
         assert cli.main(argv) == 0
     assert match in out.getvalue() and "[timing]" in out.getvalue()
+    if "--checkpoint-dir" in argv:
+        ck = argv[argv.index("--checkpoint-dir") + 1]
+        assert os.path.exists(os.path.join(ck, "ckpt_14.sharded",
+                                           "meta.json"))
+    if "--metrics-dir" in argv:
+        tags = [json.loads(ln)["tag"] for ln in open(os.path.join(
+            argv[argv.index("--metrics-dir") + 1], "metrics.jsonl"))]
+        # one trace point: its span is the untimed first, so there is
+        # no images/sec to write (the reference skips the NaN too)
+        assert tags == ["eval/test_error_pct"]
 
 
 def test_zero_flag_run_without_a_card_raises(monkeypatch, tmp_path):

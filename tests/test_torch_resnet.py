@@ -6,9 +6,10 @@ CIFAR-10 and ImageNet sets, ``imagenet.load_splits`` on user-provided
 ``.npy`` shards (the resolution-marker refusal too), the parameter and
 state trees of ``resnet20`` and ``resnet50`` (names, shapes,
 ``l2_params``) against ``jax.eval_shape`` of the reference's ``init``,
-and the FLOP counts.  A class-per-directory image tree raises (item 15)
-rather than falling back to synthetic data, and so does a label the
-model cannot score.
+and the FLOP counts.  A class-per-directory image tree whose images do
+not decode raises, as the reference's ingest does, rather than falling
+back to synthetic data (``tests/test_torch_data_path.py`` ingests
+real ones), and so does a label the model cannot score.
 
 Float parity, from the reference's own parameters carried across by
 ``convert.resnet_params_from_jax`` (HWIO -> OIHW):
@@ -518,13 +519,21 @@ def test_imagenet_npy_shards_and_refusals(tmp_path):
     for load in (imagenet.load_splits, jax_imagenet.load_splits):
         with pytest.raises(ValueError, match="auto-ingested"):
             load(data_dir)
-    # a class-per-directory image tree: no synthetic fallback
-    tree = tmp_path / "jpeg"
-    for cls in ("n01", "n02"):
-        os.makedirs(tree / "train" / cls)
-        (tree / "train" / cls / "a.JPEG").write_bytes(b"\xff\xd8")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        imagenet.load_splits(str(tree))
+    # a class-per-directory image tree that does not decode: the ingest
+    # fails in both packages, leaves its failure marker, and there is no
+    # synthetic fallback
+    from PIL import UnidentifiedImageError
+
+    for load, name in ((imagenet.load_splits, "port"),
+                       (jax_imagenet.load_splits, "reference")):
+        tree = tmp_path / f"jpeg_{name}"
+        for cls in ("n01", "n02"):
+            os.makedirs(tree / "train" / cls)
+            (tree / "train" / cls / "a.JPEG").write_bytes(b"\xff\xd8")
+        with pytest.raises(UnidentifiedImageError):
+            load(str(tree))
+        assert os.path.exists(tree / "imagenet_npy.failed")
+        assert not os.path.exists(tree / "imagenet_npy")
 
 
 # ------------------------------------------------------- loop, CLI, bench
