@@ -13,7 +13,9 @@ fails:
 2. kernel against its plain version — ``paged_attention_kernel`` against
    ``paged_attention_reference`` at the serving shapes (H=12, D=64,
    bs=16, every S in 1, 2, 4, ..., 64, B in {1, 8}, NB up to 32, plus
-   BERT_TINY's H=4, D=16; float32 and bfloat16; ragged rows, a
+   BERT_TINY's H=4, D=16, and at both the widths 3, 5, 6 that do not
+   divide the 8-query tile (B=8; 5 is speculation's verify); float32 and
+   bfloat16; ragged rows, a
    bucket-slack row, poisoned null-block and dead lanes; and at S = 1 and
    8 the edge rows of ``EDGE_LENS``: live lengths that are not a multiple
    of bs, one live block, a query's own column on either side of a block
@@ -23,7 +25,8 @@ fails:
    yardstick only: the port never calls it) and its memory bound;
 2b. the same for the quantized modes — int8, int4 (g = 32; g = 16 at
    H=4, D=16) and int4 with the residual lane, float32 and bfloat16, the
-   null block's and dead lanes' scales poisoned to 1e30, the edge rows
+   widths 3, 5, 6 too, the null block's and dead lanes' scales poisoned
+   to 1e30, the edge rows
    too (in int4 + residual the self column at a block boundary) — then
    each mode timed at the decode shape beside its plain version, SDPA on a
    pre-gathered, pre-dequantized view, the fp-mode kernel on the same
@@ -33,8 +36,9 @@ fails:
    ``PagedDecodeEngine`` at ``BERT_BASE`` geometry in bfloat16 with
    ``kernel="cuda"``; the kernel's launch count must equal layers x
    forward dispatches;
-3b. the same run from an int8 and from an int4 pool (``kv_dtype``), each
-   with its launches counted alone; every request ``ok``, the
+3b. the same run from an int8 and from an int4 pool (``kv_dtype``; no
+   warmup replay), each with its launches counted alone; every request
+   ``ok``, the
    ``kv_quant`` block against phase 3's run (capacity multipliers
    exactly 1.8824 and 3.2; the token match rate is printed, not held:
    random weights cannot judge quality);
@@ -43,6 +47,24 @@ fails:
    tokens must be identical to each other and to ``CausalLm.generate``;
 4b. the same two lowerings from an int8 and from an int4 pool: identical
    greedy tokens;
+15. (run right after 4, beside phase 3's numbers) the serving features
+   at phase 3's setup (``BERT_BASE``, bf16, ``kernel="cuda"``, a warmup
+   replay before the timed one): every request ``ok``, and the paged
+   kernel's launches == layers x forward dispatches (+ the draft model's
+   layers x its feeds) — 15a: the prefix cache on phase 3's trace with
+   a shared 64-token prompt: hit tokens > 0 and fewer prefill dispatches
+   than the same trace with the cache off; 15b: prefix v2 and the host
+   tier on a 12-request trace with its follow-up turn through a 40-block
+   pool: gen-inserted blocks, demotions and promotions > 0, the landed
+   promotion ms printed; 15c: mixed batching on phase 3's trace, then
+   both loops replayed on one virtual clock: mixed dispatches per token
+   below the mixed-off loop's; 15d: ngram (phase 3's trace) and
+   draft-model speculation (8 requests; no warmup replay), acceptance
+   rate printed; 15e: float32, 2 layers
+   at full width, 2 slots, a 32-token shared prompt: prefix + mixed and
+   prefix + the target as its own drafter, served with ``cuda`` and
+   ``gather``: greedy tokens identical to each other and to the
+   feature-off ``cuda`` run;
 5. flash kernels against their plain versions — ``flash_fwd`` (out and
    lse), ``flash_dq`` and ``flash_dkdv`` against
    ``flash_forward_reference`` / ``flash_backward_reference`` at every S
@@ -102,16 +124,15 @@ fails:
    power limit; then one bf16 epoch the same way; 10c: every hand
    kernel's launch count (paged, flash, fused) set to 0 before 10b and
    still 0 after it; then ``python -m mpi_tensorflow_torch.bench --mode
-   train`` at fp32 and bf16, each line printed;
+   train`` at fp32 and bf16 (200 timed steps), each line printed;
 11. the data axis over ``torch.distributed`` (no hand kernel lies on it;
    each case runs in processes of its own, through ``torchrun`` or the
    bench, with this file as the worker: ``chip_smoke.py --worker NAME
    BACKEND``) — 11a: NCCL at world size 1 (the machine has one card):
    ``torchrun --nproc_per_node 1 -m mpi_tensorflow_torch --epochs 1``,
    781 steps, 16 trace lines in phase 10's format and cadence, final
-   error < 30 % and <= the first, images/sec and step ms beside 10b's
-   and beside the same run without torchrun, with and without its
-   ``OMP_NUM_THREADS=1``; then 20 psum steps of ``MnistCnn`` (dropout 0,
+   error < 30 % and <= the first, images/sec and step ms beside 10b's;
+   then 20 psum steps of ``MnistCnn`` (dropout 0,
    float32, cuDNN's deterministic algorithms), each from a common state,
    across the ranks against the plain step: loss and gradient within
    ``CNN_TOL``, bit-equality printed beside the plain step's own
@@ -183,18 +204,16 @@ fails:
    (their BatchNorm statistics too) apart before it, bit-identical
    after it, within 1 ulp of the gathered mean; 13e: ``python -m
    mpi_tensorflow_torch.bench --mode train --model resnet20|resnet50``
-   at fp32 and bf16, each line printed.
+   at fp32 and bf16 (30 and 8 timed steps), each line printed.
 14. the trainers' long-run services (no kernel is added; 14c runs the
    flash kernels) — 14a: 13b's ResNet-50 bf16 trainer, ResNet-20 fp32
-   and the CNN through ``cli.main``, each with ``--prefetch`` off,
-   thread, thread, off, in a process of their own (no
-   ``torch.profiler`` session before them; cuDNN's deterministic
-   algorithms in all), the trace lines identical in every run,
-   images/s and step ms of each run printed pair by pair; then
-   ``torch_train_profile.py --model resnet50 --precision bf16 --loop``
-   (assembly, upload and launches a step) and ``python -m
-   mpi_tensorflow_torch.bench --mode hostio`` with ResNet-50's thread
-   rate as the card's demand; 14b:
+   and the CNN through ``cli.main``, ResNet-50 with ``--prefetch``
+   off, thread, thread, off and the other two off, thread, in a process
+   of their own (no ``torch.profiler`` session before them; cuDNN's
+   deterministic algorithms in all), the trace lines identical in every
+   run, images/s and step ms of each run printed pair by pair; then
+   ``python -m mpi_tensorflow_torch.bench --mode hostio`` with
+   ResNet-50's thread rate as the card's demand; 14b:
    ResNet-20 fp32 psum through ``cli.main`` on 13d's 13 000 rows (93
    steps, a trace every 10; cuDNN deterministic) with
    ``--checkpoint-dir`` and ``--metrics-dir``, stopped by
@@ -367,6 +386,8 @@ def paged_case(rng, B: int, NB: int, S: int, dtype, dev, H=H, D=D,
 # boundary (12, 15) -- there each early query's own column lies in a
 # block before the last.
 EDGE_LENS = (37, 0, 15, 16, 5, 12, 47)
+# query widths that are not powers of two (the verify dispatch is 5 wide)
+ODD_WIDTHS = (3, 5, 6)
 EDGE_SHAPES = [(S, len(EDGE_LENS) + 1, 8, H, D) for S in (1, 8)]
 
 
@@ -380,6 +401,10 @@ def check_kernel(dev) -> dict:
     shapes = [(S, B, NB, H, D, None) for S in (1, 2, 4, 8, 16, 32, 64)
               for B, NB in ((1, 16), (8, 32))]
     shapes += [(S, 8, 8, 4, 16, None) for S in (1, 8, 64)]
+    # widths that do not divide the kernel's 8-query tile: speculation's
+    # verify dispatch (draft_k + 1 = 5) and mixed rows' chunks
+    shapes += [(S, 8, NB, h, d, None) for S in ODD_WIDTHS
+               for NB, h, d in ((32, H, D), (8, 4, 16))]
     shapes += [(*shape, EDGE_LENS) for shape in EDGE_SHAPES]
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -404,8 +429,9 @@ def check_kernel(dev) -> dict:
                     f"max|err|={float(err.max())} "
                     f"(tolerance {atol} + {rtol}*|want|)")
         log(f"[kernel] {str(dtype)[6:]}: max|kernel - plain| = "
-            f"{worst[dtype]:.3e} over {len(shapes)} shapes: S=1..64, "
-            f"B in (1, 8), H={H} D={D}, H=4 D=16, and the edge rows "
+            f"{worst[dtype]:.3e} over {len(shapes)} shapes: S=1..64 and "
+            f"{ODD_WIDTHS}, B in (1, 8), H={H} D={D}, H=4 D=16, and the "
+            f"edge rows "
             f"{EDGE_LENS} at S in (1, 8) (tolerance {atol} abs + {rtol} "
             f"rel)")
     return worst
@@ -600,6 +626,8 @@ def check_kernel_quant(dev) -> dict:
               for S in (1, 2, 4, 8, 16, 32, 64)
               for B, NB in ((1, 16), (8, 32))]
     shapes += [(S, 8, 8, 4, 16, 16, None) for S in (1, 8, 64)]
+    shapes += [(S, 8, NB, h, d, g, None) for S in ODD_WIDTHS
+               for NB, h, d, g in ((32, H, D, QUANT_GROUP), (8, 4, 16, 16))]
     shapes += [(*shape, QUANT_GROUP, EDGE_LENS) for shape in EDGE_SHAPES]
     worst = {}
     for mode in QUANT_MODES:
@@ -620,7 +648,8 @@ def check_kernel_quant(dev) -> dict:
                     f"H={h} D={d} g={g}"))
             log(f"[kernel {mode}] {str(dtype)[6:]}: max|kernel - plain| = "
                 f"{worst[mode, dtype]:.3e} over {len(shapes)} shapes: "
-                f"S=1..64, B in (1, 8), H={H} D={D} g={QUANT_GROUP}, "
+                f"S=1..64 and {ODD_WIDTHS}, B in (1, 8), H={H} D={D} "
+                f"g={QUANT_GROUP}, "
                 f"H=4 D=16 g=16, and the edge rows (tolerance {atol} abs "
                 f"+ {rtol} rel)")
     return worst
@@ -696,39 +725,88 @@ def time_decode_quant(dev) -> dict:
 
 # ---------------------------------------------------------------- phase 3
 
-def serve_full_width(dev, kv_dtype: str = "fp32"):
-    """BERT_BASE, bf16, the CUDA kernel, the bench's default trace, the
-    pool in ``kv_dtype``.  Returns ``(launches of the measured run, its
-    result, the engine, the trace)``."""
+def serve_features(dev, label: str, *, warm: bool = True,
+                   two_turn: bool = False, built=None,
+                   watch_tier: bool = False, **kw) -> dict:
+    """One serving run through ``build_serving`` (bf16, the CUDA kernel
+    unless ``kw`` says otherwise; phases 3 and 15): a warmup replay
+    (unless ``warm`` is False), then the replay whose paged-kernel
+    launches are counted from 0 and must equal layers x forward
+    dispatches, plus the draft model's layers x its feeds under
+    draft-model speculation.  Every request must end
+    ``ok`` with a full budget of in-vocabulary tokens.  ``two_turn``
+    replays ``harness.two_turn_requests`` (prefix v2's follow-up turn).
+    ``built`` serves a given ``(engine, trace)`` instead of building
+    one from ``kw``; ``watch_tier`` holds every promotion's bytes to
+    the block's bytes at its demotion (``TierWatch``).  Returns the
+    result with ``launches``, ``prefill_dispatches``, ``draft_feeds``,
+    the engine, the trace and the watch."""
     from mpi_tensorflow_torch.ops import paged_attention_kernel as pk
-    from mpi_tensorflow_torch.serving.harness import build_serving
+    from mpi_tensorflow_torch.serving import harness
 
-    engine, trace = build_serving(precision="bf16", kernel="cuda",
-                                  kv_dtype=kv_dtype, device=dev)
-    cfg = engine.model.cfg
-    engine.run(trace.requests())                    # warmup replay
+    kw = {"precision": "bf16", "kernel": "cuda", **kw}
+    engine, trace = built or harness.build_serving(device=dev, **kw)
+    watch = TierWatch(engine) if watch_tier else None
+    if two_turn:
+        turns = harness.two_turn_requests(engine, trace)
+        requests = lambda: [dataclasses.replace(r) for r in turns]
+    else:
+        requests = trace.requests
+    if warm:
+        engine.run(requests())
     engine.reset()
+    prefill = [0]
+    impl = engine._prefill_impl
+
+    def counted(*a):
+        prefill[0] += 1
+        return impl(*a)
+
+    engine._prefill_impl = counted
+    drafter = engine.drafter
+    feeds0 = getattr(drafter, "feeds", 0)
+    torch.cuda.synchronize(dev)
     pk.paged_attention_kernel.launches = 0
-    res = engine.run(trace.requests())
+    res = engine.run(requests())
     torch.cuda.synchronize(dev)
     launches = pk.paged_attention_kernel.launches
+    feeds = getattr(drafter, "feeds", 0) - feeds0
+    cfg = engine.model.cfg
     want = cfg.layers * res["forward_dispatches"]
+    if feeds:
+        want += drafter.model.cfg.layers * feeds
     if launches != want or launches == 0:
-        raise AssertionError(f"{kv_dtype}: kernel launches {launches} != "
-                             f"layers x forward dispatches = {want}")
-    bad = {i: s for i, s in res["statuses"].items() if s != "ok"}
-    if bad or len(res["outputs"]) != len(trace.prompts):
-        raise AssertionError(f"{kv_dtype}: requests not served: {bad}")
-    for i, toks in res["outputs"].items():
-        if len(toks) != int(trace.outputs[i]) or \
+        raise AssertionError(f"{label}: kernel launches {launches} != "
+                             f"layers x forward dispatches (+ the draft "
+                             f"model's layers x feeds) = {want}")
+    reqs = requests()
+    bad = {i: st for i, st in res["statuses"].items() if st != "ok"}
+    if bad or len(res["outputs"]) != len(reqs):
+        raise AssertionError(f"{label}: requests not served: {bad}")
+    for r in reqs:
+        toks = res["outputs"][r.id]
+        if len(toks) != r.max_new_tokens or \
                 not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"{kv_dtype} request {i}: bad output "
+            raise AssertionError(f"{label} request {r.id}: bad output "
                                  f"{toks[:8]}...")
+    return {**res, "launches": launches, "prefill_dispatches": prefill[0],
+            "draft_feeds": feeds, "engine": engine, "trace": trace,
+            "tier_watch": watch}
+
+
+def serve_full_width(dev, kv_dtype: str = "fp32", warm: bool = True):
+    """BERT_BASE, bf16, the CUDA kernel, the bench's default trace, the
+    pool in ``kv_dtype``, a warmup replay before the measured one unless
+    ``warm`` is False (``serve_features`` with no feature on).  Returns
+    ``(launches of the measured run, its result, the engine, the
+    trace)``."""
+    res = serve_features(dev, kv_dtype, warm=warm, kv_dtype=kv_dtype)
+    cfg = res["engine"].model.cfg
     log("[serve] " + json.dumps({
         "layers": cfg.layers, "hidden": cfg.hidden, "heads": cfg.heads,
         "vocab": cfg.vocab_size, "precision": "bf16",
         "kernel": res["kernel"], "kv_dtype": res["kv_dtype"],
-        "requests": len(trace.prompts),
+        "requests": len(res["statuses"]),
         "tokens": res["tokens"], "elapsed_s": res["elapsed_s"],
         "tokens_per_sec": res["tokens_per_sec"],
         "p50_token_latency_ms": res["p50_token_latency_ms"],
@@ -736,8 +814,8 @@ def serve_full_width(dev, kv_dtype: str = "fp32"):
         "forward_dispatches": res["forward_dispatches"],
         "dispatch_shapes": len(res["dispatch_shapes"]),
         "peak_live_blocks": res["peak_live_blocks"],
-        "launches": launches, "device": res["device"]}))
-    return launches, res, engine, trace
+        "launches": res["launches"], "device": res["device"]}))
+    return res["launches"], res, res["engine"], res["trace"]
 
 
 # --------------------------------------------------------------- phase 3b
@@ -763,8 +841,9 @@ def serve_quant(dev, ref: dict) -> dict:
     del engine
     launches = {}
     for kv_dtype in ("int8", "int4"):
+        # no warmup replay: phase 3's left nothing to build or grow
         launches[kv_dtype], res, engine, trace = serve_full_width(
-            dev, kv_dtype)
+            dev, kv_dtype, warm=False)
         block = kv_quant_report(ref, res, engine, trace)
         log(f"[serve {kv_dtype}] " + json.dumps({
             "tokens_per_sec": res["tokens_per_sec"],
@@ -841,6 +920,323 @@ def cross_check_quant(dev) -> None:
         log(f"[cross-check {kv_dtype}] fp32, 2 layers, "
             f"{len(trace.prompts)} requests: cuda == gather "
             f"({sum(len(v) for v in outs['cuda'].values())} tokens)")
+
+
+# --------------------------------------------------------------- phase 15
+
+def feature_line(label: str, res: dict, ref: dict, card: str) -> None:
+    """Log a phase 15 run beside phase 3's (``ref``)."""
+    log(f"[serve {label}] " + json.dumps({
+        "tokens_per_sec": res["tokens_per_sec"],
+        "p50_token_latency_ms": res["p50_token_latency_ms"],
+        "p99_token_latency_ms": res["p99_token_latency_ms"],
+        "tokens_per_sec_phase3": ref["tokens_per_sec"],
+        "p50_token_latency_ms_phase3": ref["p50_token_latency_ms"],
+        "p99_token_latency_ms_phase3": ref["p99_token_latency_ms"],
+        "tokens": res["tokens"], "requests": len(res["statuses"]),
+        "forward_dispatches": res["forward_dispatches"],
+        "prefill_dispatches": res["prefill_dispatches"],
+        "dispatches_per_token": res["dispatches_per_token"],
+        "dispatch_shapes": len(res["dispatch_shapes"]),
+        "launches": res["launches"], "draft_feeds": res["draft_feeds"],
+        "peak_live_blocks": res["peak_live_blocks"],
+        "evictions": res["evictions"],
+        "prefix": res["prefix"], "speculation": res["speculation"],
+        "tier": res["tier"]}) + f"; {card}")
+
+
+class TierWatch:
+    """Wraps an engine's tier hooks (before its ``reset``, which wires
+    them into the prefix cache): each demotion keeps a card-side clone
+    of the block beside the host copy it made, and each promotion holds
+    the block it landed in, byte for byte, to that clone.  So a
+    promotion is checked through the whole trip, card to host tensors in
+    the pool's dtype and back.  ``checked`` counts the promotions held;
+    ``host_dtypes`` the dtypes the host copies were kept in."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.kept = {}
+        self.checked = 0
+        self.host_dtypes = set()
+        fetch, put = engine._demote_fetch, engine._promote_put
+
+        def demote_fetch(block):
+            host = fetch(block)
+            self.host_dtypes |= {str(t.dtype) for layer in host
+                                 for t in layer.values()}
+            if any(t.device.type != "cpu" for layer in host
+                   for t in layer.values()):
+                raise AssertionError("15b: a demoted block left the card "
+                                     "for somewhere other than host RAM")
+            self.kept[id(host)] = (host, [
+                {k: leaf[block].clone() for k, leaf in layer.items()}
+                for layer in engine.pools])
+            return host
+
+        def promote_put(leaves, block):
+            put(leaves, block)
+            _host, want = self.kept.pop(id(leaves))
+            for layer, saved in zip(engine.pools, want):
+                for k, t in saved.items():
+                    got = layer[k][block]
+                    if not torch.equal(got.view(torch.uint8),
+                                       t.view(torch.uint8)):
+                        raise AssertionError(
+                            f"15b: promoted block {block} leaf {k} differs "
+                            f"from its bytes at demotion")
+            self.checked += 1
+
+        engine._demote_fetch = demote_fetch
+        engine._promote_put = promote_put
+
+
+class VirtualClock:
+    """A run clock that advances ``step_s`` at each reading, for replays
+    whose dispatch counts must not depend on how fast the host is."""
+
+    def __init__(self, step_s: float):
+        self.step_s = step_s
+        self.now = 0.0
+
+    def __call__(self) -> float:
+        self.now += self.step_s
+        return self.now
+
+
+# 15c: the engine loop reads the clock three times an iteration, so an
+# iteration is 30 ms of virtual time (a BERT_BASE dispatch takes ~18 ms
+# on the card: phase 3's 537 in 9.58 s); a longer iteration overlaps
+# more requests and so replays in fewer dispatches
+MIXED_STEP_S = 0.01
+# 15d: the draft model's run (a synchronised small forward a drafted
+# token) on an 8-request trace of phase 3's spec and seed
+DRAFT_TRACE = dict(num_requests=8)
+
+
+# 15b: a short trace whose follow-up turn meets a pool too small to keep
+# turn 1's trie: 12 requests at 32 rps (prompts <= 32, outputs <= 32),
+# sequences of up to 128 tokens (8 blocks), 40 blocks for 8 slots
+TIER_TRACE = dict(num_requests=12, rate_rps=32.0, prompt_max=32,
+                  output_max=32, pool_blocks=40)
+# 15e: phase 4's short trace, float32, 2 layers at full width, a 32-token
+# shared prompt (two blocks of 16), two slots so later requests find the
+# trie filled; the tier arm's pool of 12 blocks cannot keep turn 1's trie
+CROSS_TRACE = dict(num_requests=6, rate_rps=1000.0, prompt_max=32,
+                   output_max=16, precision="fp32", layers=2,
+                   prefix_tokens=32, max_slots=2)
+CROSS_SHARED = 32
+CROSS_TIER_BLOCKS = 12
+
+
+def cross_extra_requests(reqs: list, vocab: int) -> list:
+    """15e's two requests after ``reqs``: the shared prompt alone (a
+    fully cached exact block multiple: its last position is recomputed
+    into a shared block, the copy-on-write trigger) and the shared prompt
+    + the first 8 tokens of the third block of the last prompt in
+    ``reqs`` that fills it + 8 tokens of its own (a mid-block miss:
+    prefix v2 copies the 8 matching rows from the trie, where the tier
+    arm's recent blocks still are)."""
+    from mpi_tensorflow_torch.serving.scheduler import Request
+
+    shared = list(reqs[0].prompt[:CROSS_SHARED])
+    long = next(r.prompt for r in reversed(reqs)
+                if len(r.prompt) >= CROSS_SHARED + 16)
+    own = [int(t) for t in np.random.default_rng(15).integers(0, vocab, 8)]
+    arrival = max(r.arrival for r in reqs)
+    return [Request(len(reqs), shared, 8, arrival),
+            Request(len(reqs) + 1, list(long[:CROSS_SHARED + 8]) + own, 8,
+                    arrival)]
+
+
+def features_cross_check(dev) -> dict:
+    """15e: the features against the feature-off run, in float32 on the
+    cuda and gather lowerings: prefix + mixed batching (a prefill budget
+    below the chunk), prefix + speculation with the target as its own
+    drafter, and prefix v2 + the host tier on the follow-up turn through
+    a pool too small for turn 1's trie.  Each replays its requests, plus
+    ``cross_extra_requests``, on a ``VirtualClock`` (so the schedule,
+    and with it every cache decision, is the one the CPU makes).  The
+    greedy tokens must be identical across the lowerings and to the
+    feature-off ``cuda`` run of the same model (rope under speculation,
+    as the harness serves it); every arm must copy-on-write, and the
+    tier arm must also copy partial blocks, demote and promote."""
+    from mpi_tensorflow_torch.serving.engine import PagedDecodeEngine
+    from mpi_tensorflow_torch.serving.harness import (build_serving,
+                                                      two_turn_requests)
+
+    arms = {"prefix+mixed": dict(prefix_cache="on", mixed_batch="on",
+                                 prefill_budget=32),
+            "prefix+self-draft": dict(prefix_cache="on",
+                                      speculative="draft-model"),
+            "prefix v2+host tier": dict(prefix_cache="on", prefix_gen="on",
+                                        kv_tier="host",
+                                        pool_blocks=CROSS_TIER_BLOCKS)}
+    out = {}
+    for name, feat in arms.items():
+        engine, trace = build_serving(kernel="cuda", device=dev,
+                                      **CROSS_TRACE, **feat)
+        model, serve = engine.model, engine.serve
+        reqs = (two_turn_requests(engine, trace) if "prefix_gen" in feat
+                else trace.requests())
+        reqs += cross_extra_requests(reqs, model.cfg.vocab_size)
+        requests = lambda: [dataclasses.replace(r) for r in reqs]
+        del engine
+        draft = model if "speculative" in feat else None
+        off = PagedDecodeEngine(model, dataclasses.replace(
+            serve, prefix_cache="off", prefix_gen="off", kv_tier="off",
+            mixed_batch="off", speculative="off"), device=dev)
+        want = off.run(requests(), time_fn=VirtualClock(MIXED_STEP_S))
+        want = want["outputs"]
+        del off
+        for kernel in ("cuda", "gather"):
+            engine = PagedDecodeEngine(
+                model, dataclasses.replace(serve, kernel=kernel),
+                device=dev, draft_model=draft)
+            res = engine.run(requests(), time_fn=VirtualClock(MIXED_STEP_S))
+            if res["outputs"] != want:
+                raise AssertionError(
+                    f"15e {name} {kernel}: tokens differ from the "
+                    f"feature-off cuda run: {res['outputs']} vs {want}")
+            pb, tb = res["prefix"], res["tier"]
+            if pb["cow_copies"] < 1 or "prefix_gen" in feat and not (
+                    pb["partial_copy_tokens"] > 0 and tb["demotions"] > 0
+                    and tb["promotions"] > 0):
+                raise AssertionError(f"15e {name} {kernel}: the arm's "
+                                     f"copies did not run: prefix {pb}, "
+                                     f"tier {tb}")
+            out[name, kernel] = {"prefix": pb, "tier": tb,
+                                 "speculation": res["speculation"]}
+            del engine
+        log(f"[cross-check {name}] fp32, 2 layers, {len(want)} requests "
+            f"with a {CROSS_SHARED}-token shared prompt, 2 slots: cuda == "
+            f"gather == feature off "
+            f"({sum(len(v) for v in want.values())} tokens); "
+            f"{json.dumps(out[name, 'cuda'])}")
+    return out
+
+
+def feature_phase(dev, card: str, ref: dict, ref_engine, trace) -> dict:
+    """Phase 15: the serving features at full width (``BERT_BASE``,
+    bf16, the CUDA kernel), each beside phase 3's run ``ref`` (of
+    ``ref_engine`` on ``trace``).  15a: the prefix cache on phase 3's
+    trace with a shared 64-token system prompt, against the same trace
+    with the cache off (hit tokens > 0, fewer prefill dispatches); 15b:
+    prefix v2 and the host tier (a follow-up turn, a tight pool:
+    demotions and promotions > 0); 15c: mixed batching on phase 3's
+    trace (dispatches per token below the mixed-off loop's, both on one
+    virtual clock); 15d: ngram and draft-model speculation (the
+    acceptance rate printed); 15e: the float32 cross-check.  Returns each
+    run's paged kernel launches."""
+    launches = {}
+    phase("15a")
+    on = serve_features(dev, "prefix", prefix_cache="on", prefix_tokens=64)
+    off = serve_features(dev, "prefix off", warm=False, prefix_tokens=64)
+    feature_line("prefix", on, ref, card)
+    # bf16 tokens may part where a request's batch differs (arrivals are
+    # wall-clock), so they are counted, not held: 15e holds float32
+    same = sum(on["outputs"][i] == off["outputs"][i] for i in off["outputs"])
+    log(f"[serve prefix off] the same trace with the cache off: "
+        f"{off['prefill_dispatches']} prefill dispatches, "
+        f"{off['forward_dispatches']} forward dispatches, "
+        f"{off['tokens_per_sec']} tokens/s; {same} of {len(off['outputs'])} "
+        f"requests' bf16 tokens identical to the cache-on run")
+    if not (on["prefix"]["hit_tokens"] > 0
+            and on["prefill_dispatches"] < off["prefill_dispatches"]):
+        raise AssertionError(
+            f"15a: hits {on['prefix']['hit_tokens']}, prefill dispatches "
+            f"{on['prefill_dispatches']} vs {off['prefill_dispatches']} "
+            f"with the cache off")
+    launches["15a"] = on["launches"]
+    del on, off
+    phase("15b")
+    tier = serve_features(dev, "prefix v2 + host tier", two_turn=True,
+                          watch_tier=True, prefix_cache="on",
+                          prefix_gen="on", kv_tier="host", **TIER_TRACE)
+    feature_line("prefix v2 + host tier", tier, ref, card)
+    t, watch = tier["tier"], tier["tier_watch"]
+    if not (t["demotions"] > 0 and t["promotions"] > 0
+            and tier["prefix"]["gen_inserted_blocks"] > 0):
+        raise AssertionError(f"15b: tier {t}, prefix {tier['prefix']}")
+    if watch.checked < t["promotions"] or \
+            watch.host_dtypes != {"torch.bfloat16"}:
+        raise AssertionError(f"15b: {watch.checked} promotions held to "
+                             f"their demoted bytes of {t['promotions']}, "
+                             f"host copies in {watch.host_dtypes}")
+    log(f"[serve tier] {t['promotions']} promotions, "
+        f"{t['promote_latency_ms_total']} ms of landed host-to-card "
+        f"copies in all ({t['promote_latency_ms_mean']} ms each, the "
+        f"stream synchronised around each); {watch.checked} promotions "
+        f"(discovery, warmup and measured replays) bit-equal to the "
+        f"block at its demotion, host copies in "
+        f"{sorted(watch.host_dtypes)}; {card}")
+    launches["15b"] = tier["launches"]
+    del tier
+    phase("15c")
+    mixed = serve_features(dev, "mixed", mixed_batch="on")
+    feature_line("mixed", mixed, ref, card)
+    launches["15c"] = mixed["launches"]
+    # dispatches per token follow the step time on a wall-clock trace
+    # (a slower step overlaps more requests), so the two loops are held
+    # to each other on phase 3's trace replayed against one virtual
+    # clock: the same arrivals for both, whatever each step costs
+    virtual = {}
+    for arm, engine in (("off", ref_engine), ("mixed", mixed["engine"])):
+        engine.reset()
+        res = engine.run(trace.requests(), time_fn=VirtualClock(
+            MIXED_STEP_S))
+        virtual[arm] = res["dispatches_per_token"]
+    log(f"[serve mixed] dispatches per token on the wall clock "
+        f"(the card's effect, not held): {mixed['dispatches_per_token']} "
+        f"(phase 3, mixed off: {ref['dispatches_per_token']}); the "
+        f"host-logic check on a virtual clock of {MIXED_STEP_S * 1e3} ms "
+        f"a call: mixed {virtual['mixed']}, off {virtual['off']}")
+    if not virtual["mixed"] < virtual["off"]:
+        raise AssertionError(f"15c: dispatches per token on the virtual "
+                             f"clock {virtual}")
+    del mixed
+    phase("15d")
+    from mpi_tensorflow_torch.serving.engine import PagedDecodeEngine
+    from mpi_tensorflow_torch.serving.harness import build_serving
+
+    for mode, trace_kw in (("ngram", {}), ("draft-model", DRAFT_TRACE)):
+        # no warmup replay: phase 3 left nothing to build or grow, and
+        # the draft model's feeds are one forward each.  The control is
+        # the same rope model on the same trace with speculation off,
+        # served just before
+        engine, trace15 = build_serving(precision="bf16", kernel="cuda",
+                                        speculative=mode, device=dev,
+                                        **trace_kw)
+        control = serve_features(dev, f"{mode} control", warm=False, built=(
+            PagedDecodeEngine(engine.model, dataclasses.replace(
+                engine.serve, speculative="off"), device=dev), trace15))
+        del control["engine"]
+        spec = serve_features(dev, mode, warm=False,
+                              built=(engine, trace15))
+        del engine
+        feature_line(f"speculative {mode}", spec, ref, card)
+        sb = spec["speculation"]
+        log(f"[serve speculative {mode}] acceptance rate "
+            f"{sb['accept_rate']} ({sb['accepted_tokens']} of "
+            f"{sb['draft_tokens']} drafted), {sb['verify_forwards']} "
+            f"verify forwards for {sb['emitted_tokens']} tokens; "
+            f"{spec['tokens_per_sec']} tokens/s, p50 "
+            f"{spec['p50_token_latency_ms']} ms, p99 "
+            f"{spec['p99_token_latency_ms']} ms against the control (the "
+            f"same rope model and trace, speculation off): "
+            f"{control['tokens_per_sec']} tokens/s, p50 "
+            f"{control['p50_token_latency_ms']} ms, p99 "
+            f"{control['p99_token_latency_ms']} ms, "
+            f"{control['forward_dispatches']} forward dispatches against "
+            f"{spec['forward_dispatches']}; {card}")
+        if not (sb["enabled"] and sb["verify_forwards"] > 0):
+            raise AssertionError(f"15d {mode}: {sb}")
+        launches["15d " + mode] = spec["launches"]
+        launches["15d control " + mode] = control["launches"]
+        del spec, control
+    phase("15e")
+    cross = features_cross_check(dev)
+    return {"launches": launches, "cross_check": cross}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1643,7 +2039,8 @@ def cnn_bench(precision: str) -> dict:
     root = os.path.dirname(os.path.abspath(__file__))
     out = subprocess.run(
         [sys.executable, "-m", "mpi_tensorflow_torch.bench", "--mode",
-         "train", "--precision", precision], cwd=root, check=True,
+         "train", "--precision", precision, "--steps", "200",
+         "--warmup", "20"], cwd=root, check=True,
         capture_output=True, text=True, timeout=300).stdout
     line = out.strip().splitlines()[-1]
     res = json.loads(line)
@@ -2027,19 +2424,6 @@ def dp_phase(card: str, cnn: dict) -> dict:
         f" phase 10b's {ref['images_per_sec']:.1f} images/s, "
         f"{ref['step_ms']:.3f} ms (no process group); wall {wall:.1f} s; "
         f"{card}")
-    # controls for the torchrun process: the same run without a process
-    # group, with and without torchrun's OMP_NUM_THREADS=1
-    plain_env = {k: v for k, v in os.environ.items()
-                 if k != "OMP_NUM_THREADS"}
-    controls = {}
-    for name, env in (("no group", plain_env),
-                      ("no group, OMP_NUM_THREADS=1",
-                       {**plain_env, "OMP_NUM_THREADS": "1"})):
-        controls[name] = trainer_timing(run_sub(
-            [sys.executable, "-m", "mpi_tensorflow_torch", "--data-dir",
-             CNN_DATA_DIR, "--epochs", "1"], 600, env).splitlines())
-    log(f"[dp] one epoch each, the same run without torchrun: "
-        f"{json.dumps(controls)}; {card}")
     nccl_steps = dp_result(torchrun(1, [me, "--worker", "psum_steps",
                                         "nccl"], 300))
     check_psum_steps(nccl_steps)
@@ -2079,8 +2463,7 @@ def dp_phase(card: str, cnn: dict) -> dict:
             and "nccl" in bench["backend"]):
         raise AssertionError(f"allreduce bench: {bench}")
     log(f"[dp bench] {json.dumps(bench)}")
-    return {"nccl_world1": one, "controls": controls,
-            "nccl_steps": nccl_steps,
+    return {"nccl_world1": one, "nccl_steps": nccl_steps,
             "gloo_steps": gloo_steps, "avg50": avg, "bench": bench}
 
 
@@ -2923,8 +3306,8 @@ def resnet_phase(dev, card: str) -> dict:
         f"test error {trace[0][1]} -> {trace[-1][1]} %; {card}")
     phase("13e")
     benches = {}
-    for name, extra in (("resnet20", ["--steps", "100", "--warmup", "10"]),
-                        ("resnet50", ["--steps", "20", "--warmup", "3"])):
+    for name, extra in (("resnet20", ["--steps", "30", "--warmup", "3"]),
+                        ("resnet50", ["--steps", "8", "--warmup", "2"])):
         for prec in ("fp32", "bf16"):
             out = run_sub([sys.executable, "-m", "mpi_tensorflow_torch.bench",
                            "--mode", "train", "--model", name,
@@ -2951,12 +3334,15 @@ def resnet_phase(dev, card: str) -> dict:
 # session.  13b's ResNet-50 bf16 epoch (29 steps), ResNet-20 fp32 on
 # 13d's 13 000 rows (93 steps) and phase 10's CNN fp32 epoch (781 steps)
 PREFETCH_ARGS = RESNET50_ARGS + ["--precision", "bf16"]
-PREFETCH_TRAINERS = (("resnet50_bf16", PREFETCH_ARGS),
+# ResNet-50 runs both pairs; ResNet-20 and the CNN, whose earlier pairs
+# left unresolved within the host's drift, run one pair each
+PREFETCH_PAIRS = ("off", "thread", "thread", "off")
+PREFETCH_TRAINERS = (("resnet50_bf16", PREFETCH_ARGS, PREFETCH_PAIRS),
                      ("resnet20_fp32", RESNET20_ARGS + ["--precision",
-                                                        "fp32"]),
+                                                        "fp32"],
+                      PREFETCH_PAIRS[:2]),
                      ("cnn_fp32", ["--data-dir", CNN_DATA_DIR, "--epochs",
-                                   "1"]))
-PREFETCH_ORDER = ("off", "thread", "thread", "off")
+                                   "1"], PREFETCH_PAIRS[:2]))
 # then the host feed alone: 64 rows a step, windows of 11 (the trainer's)
 HOSTIO_ARGS = ["--batch-size", "64", "--window-k", "11", "--windows", "6",
                "--hostio-dir", "build"]
@@ -3091,9 +3477,8 @@ def _apart(a: list, b: list) -> float:
 
 def worker_prefetch_arms(_backend: str) -> None:
     """14a's runs in a process of their own (no torch.profiler session
-    before them): each of ``PREFETCH_TRAINERS`` through cli.main in the
-    ``--prefetch`` order ``PREFETCH_ORDER``, each synthetic set made
-    once."""
+    before them): each of ``PREFETCH_TRAINERS`` through cli.main in its
+    ``--prefetch`` order, each synthetic set made once."""
     from mpi_tensorflow_torch.data import mnist
     from mpi_tensorflow_torch.train import loop
     from mpi_tensorflow_torch.utils.device import resolve_device
@@ -3113,9 +3498,9 @@ def worker_prefetch_arms(_backend: str) -> None:
     torch.backends.cudnn.deterministic = True
     loop.load_dataset = cached_load
     arms = {}
-    for name, argv in PREFETCH_TRAINERS:
+    for name, argv, order in PREFETCH_TRAINERS:
         arms[name] = []
-        for mode in PREFETCH_ORDER:
+        for mode in order:
             with contextlib.redirect_stdout(io.StringIO()):
                 res, lines = cli_run(argv + ["--prefetch", mode])
             arms[name].append({
@@ -3133,9 +3518,8 @@ WORKERS.update(prefetch_arms=worker_prefetch_arms)
 def prefetch_phase(card: str) -> dict:
     """14a: each image trainer with --prefetch off and thread, alternated,
     in a child process (the trace identical in every run; images/s and
-    step ms of each run, the two pairs side by side), the --loop split
-    of scripts/torch_train_profile.py in another, then the hostio bench
-    with this card's ResNet-50 thread rate as the demand."""
+    step ms of each run, pair by pair), then the hostio bench with this
+    card's ResNet-50 thread rate as the demand."""
     me = os.path.abspath(__file__)
     arms = dp_result(run_sub([sys.executable, me, "--worker",
                               "prefetch_arms", "none"], 600))["arms"]
@@ -3153,14 +3537,6 @@ def prefetch_phase(card: str) -> dict:
                     f"{r['prefetch']} {r['step_ms']:.3f} ms a step "
                     f"({r['images_per_sec']:.1f} images/s)" for r in pair)
                 for k, pair in enumerate(pairs)) + f"; {card}")
-    out = run_sub([sys.executable, "scripts/torch_train_profile.py",
-                   "--model", "resnet50", "--precision", "bf16", "--loop"],
-                  600)
-    split = json.loads(out.strip().splitlines()[-1])
-    log(f"[prefetch] torch_train_profile.py --model resnet50 --precision "
-        f"bf16 --loop: the loop {split['loop']['step_ms']:.3f} ms a step "
-        f"(host ms a step: {json.dumps(split['loop']['host_ms_per_step'])})"
-        f", on the card {split['on_card']['step_ms']:.3f} ms; {card}")
     thread = [r["images_per_sec"] for r in arms["resnet50_bf16"]
               if r["prefetch"] == "thread"]
     demand = sum(thread) / len(thread)
@@ -3176,7 +3552,7 @@ def prefetch_phase(card: str) -> dict:
     log(f"[prefetch] bench --mode hostio: {json.dumps(hostio)}")
     return {"arms": {k: [{kk: v for kk, v in r.items() if kk != "lines"}
                          for r in runs] for k, runs in arms.items()},
-            "loop_split": split, "hostio": hostio}
+            "hostio": hostio}
 
 
 def ckpt_image_phase(dev, card: str) -> dict:
@@ -3513,12 +3889,14 @@ def main() -> int:
     quant_worst = check_kernel_quant(dev)
     quant_timing = time_decode_quant(dev)
     phase("3 serving")
-    launches, ref, engine, _ = serve_full_width(dev)
-    del engine
+    launches, ref, engine, trace = serve_full_width(dev)
     quant_launches = serve_quant(dev, ref)
     phase("4 cross-checks")
     cross_check(dev)
     cross_check_quant(dev)
+    phase("15 serving features")
+    features = feature_phase(dev, card, ref, engine, trace)
+    del engine
     phase("5-6 flash kernels")
     flash_worst = check_flash(dev)
     check_flash_grads(dev)
@@ -3560,6 +3938,9 @@ def main() -> int:
         "max_abs_err": max(worst.values()),
         "max_abs_err_fp32": worst[torch.float32],
         "max_abs_err_bf16": worst[torch.bfloat16],
+        # phase 15: each feature's timed run, counted from 0 (15d
+        # draft-model: the target's and the draft model's launches)
+        "launches_features": features["launches"],
         **timing,
     }]
     for kv_dtype, modes, timed in (("int8", ("int8",), "int8"),

@@ -5,8 +5,9 @@ script's knobs and the image-family fields ``train.loop.train`` reads
 (the CNN and the ResNets, the momentum optimizer and staircase decay,
 the trace and early-stop cadence, the windowed loop), the training fields
 ``train.mlm_loop.train_mlm`` and ``cli`` read, the precision knob and
-its compute dtype, and the ``serve_*`` pool, kernel and fault-policy
-knobs ``serving.engine.ServeConfig.from_config`` bridges to the engine.
+its compute dtype, and the ``serve_*`` pool, kernel, feature and
+fault-policy knobs ``serving.engine.ServeConfig.from_config`` bridges to
+the engine.
 Defaults equal the reference's.  A value whose path is not ported yet
 raises at construction and names its ROADMAP item.
 """
@@ -90,6 +91,30 @@ class Config:
                                   # fp-residual self lane)
     serve_kv_group: int = 32      # int4 scale-group size along head_dim
                                   # (clamped to head_dim, must divide it)
+    serve_kv_tier: str = "off"    # host-RAM block tier: "host" demotes
+                                  # evicted prefix-cache blocks to host
+                                  # memory and promotes them back on a
+                                  # later match (needs the prefix cache)
+    serve_prefix_cache: str = "off"  # radix prefix cache: "on" shares
+                                  # cached full prompt blocks across
+                                  # requests (copy-on-write, LRU trie
+                                  # eviction)
+    serve_prefix_gen: str = "off"  # prefix cache v2: "on" also caches a
+                                  # finished request's generated blocks
+                                  # and copies partial tail blocks
+    serve_speculative: str = "off"  # speculative decoding: "ngram" or
+                                  # "draft-model"; greedy outputs stay
+                                  # those of "off"
+    serve_draft_k: int = 4        # tokens proposed per verify forward
+                                  # (its width is draft_k + 1)
+    serve_draft_auto: str = "off"  # "on" tunes the draft window by an
+                                  # EWMA of the accepted length, within
+                                  # [1, serve_draft_k]
+    serve_mixed_batch: str = "off"  # "on" fuses budget-capped prefill
+                                  # chunks of several sequences into the
+                                  # decode dispatch: one forward a step
+    serve_prefill_budget: int = 64  # mixed batching: prefill tokens a
+                                  # step may fuse across all sequences
     # fault-tolerance policy (serving/engine.ServeConfig; None = off)
     serve_deadline_ms: Optional[float] = None  # default per-request TTL
     serve_queue_depth: Optional[int] = None    # bound on the waiting queue

@@ -1,17 +1,24 @@
 """Continuous-batching serving over a paged KV cache (PyTorch + CUDA).
 
-Counterpart of ``mpi_tensorflow_tpu/serving`` for its default path:
+Counterpart of ``mpi_tensorflow_tpu/serving`` for one engine:
 
-- ``paged_cache`` — the refcounted block allocator and the device pools;
-- ``scheduler``   — request queue, admit-on-free-blocks, eviction under
-                    pressure, fault policy, one terminal status per
-                    request (ported whole);
-- ``iteration``   — the per-iteration body (submit stamping, deadline
-                    sweep, latency cadence) and the drain state machine;
-- ``engine``      — chunked prefill + one-token decode at bucketed
-                    shapes through ``models/gpt.CausalLm.forward_paged``;
-- ``loadgen``     — seeded synthetic traces, byte-identical to the
-                    reference's for the same spec.
+- ``paged_cache``  — the refcounted block allocator, the device pools,
+                     the partial block copy and the host-RAM tier;
+- ``prefix_cache`` — the radix trie of cached full blocks (LRU eviction,
+                     demotion to and promotion from the host tier);
+- ``scheduler``    — request queue, admit-on-free-blocks, eviction under
+                     pressure, fault policy, one terminal status per
+                     request (ported whole);
+- ``iteration``    — the per-iteration body (submit stamping, deadline
+                     sweep, latency cadence) and the drain state machine;
+- ``speculative``  — the ngram and draft-model drafters;
+- ``engine``       — chunked prefill + one-token decode at bucketed
+                     shapes through ``models/gpt.CausalLm.forward_paged``,
+                     with copy-on-write, mixed batching and the verify
+                     step of speculation;
+- ``loadgen``      — seeded synthetic traces, byte-identical to the
+                     reference's for the same spec;
+- ``harness``      — the seeded serving run the entry point times.
 
 ``python -m mpi_tensorflow_torch.serving`` serves one such trace and
 prints one JSON line (see ``__main__``).

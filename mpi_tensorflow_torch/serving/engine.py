@@ -7,22 +7,40 @@ mid-prefill sequence, and decodes ONE token for every live sequence.
 
 Dispatches run at the reference's small fixed set of bucketed shapes —
 decode at (slot bucket, table-width bucket), prefill at (1, chunk
-bucket) with the full table width, all powers of two — and the engine
-records the same ``dispatch_shapes`` and ``forward_dispatches``, so the
-two engines can be compared shape for shape.  PyTorch runs eagerly:
-there is no jit and so no compile count yet (a CUDA-graph capture count
-takes its place in a later slice).  The pools are updated in place by
-``ops/paged_attention.write_kv``, which replaces the reference's pool
-donation.  The host waits on the device once per decode dispatch (the
-next tokens) and once per admission (the token a prompt's final chunk
-emits).
+bucket) with the full table width, verify at (slot bucket, table
+bucket) x ``draft_k + 1`` lanes, mixed at (slot bucket, chunk bucket,
+table bucket), all buckets powers of two — and the engine records the
+same ``dispatch_shapes`` and ``forward_dispatches``, so the two engines
+can be compared shape for shape.  PyTorch runs eagerly: there is no jit,
+so nothing is compiled ahead and the reference's pre-warm dispatches
+(into the null block, outside ``dispatch_shapes``) have no counterpart;
+a CUDA-graph capture count is later work.  The pools are updated in
+place by ``ops/paged_attention.write_kv`` and by the block copies below,
+which replaces the reference's pool donation.  The host waits on the
+device once per decode, verify or mixed dispatch (the next tokens) and
+once per admission (the token a prompt's final chunk emits).
 
 Served here: the pool in the compute dtype or quantized (``kv_dtype``
 int8, or int4 with ``kv_group`` and the fp-residual self lane), greedy
 decoding, the fault policy (deadlines, bounded queue, eviction cap,
-graceful drain).  The prefix cache, speculation, mixed batching, host
-tier, tensor parallelism and tracing are later slices: ``ServeConfig``
-raises for them, naming the ROADMAP item.
+graceful drain), and the reference's features:
+
+- ``prefix_cache``: admission maps a prompt's cached full blocks
+  (``serving/prefix_cache``) into the new sequence; a write into a
+  shared block first copies it (copy-on-write, ``_ensure_private``);
+  ``prefix_gen`` adds generated blocks to the trie and the partial
+  tail-block copy; ``kv_tier="host"`` demotes evicted trie blocks to a
+  ``HostBlockStore`` and promotes them back on a later match;
+- ``mixed_batch``: decode rows and budget-capped prefill chunks of
+  several sequences in ONE forward a step (``_step_mixed``);
+- ``speculative``: a drafter (``serving/speculative``) proposes up to
+  ``draft_k`` tokens a row, one ``draft_k + 1``-lane forward verifies
+  them, the rejected tail's blocks roll back (``_step_verify``);
+  ``draft_auto`` tunes the window by an EWMA of the accepted length.
+
+Every feature keeps greedy outputs token-identical to the feature off.
+Tensor parallelism, the fleet router and tracing are later slices:
+``ServeConfig`` raises for them, naming ROADMAP item 6.
 """
 
 from __future__ import annotations
@@ -35,7 +53,10 @@ import numpy as np
 import torch
 
 from mpi_tensorflow_torch.ops import paged_attention as paged_ops
-from mpi_tensorflow_torch.serving import paged_cache, scheduler as sched_lib
+from mpi_tensorflow_torch.serving import paged_cache
+from mpi_tensorflow_torch.serving import prefix_cache as prefix_lib
+from mpi_tensorflow_torch.serving import scheduler as sched_lib
+from mpi_tensorflow_torch.serving import speculative as spec_lib
 from mpi_tensorflow_torch.utils import metrics_writer
 from mpi_tensorflow_torch.utils.device import device_name, resolve_device
 
@@ -85,8 +106,16 @@ class ServeConfig:
                     max_slots=config.serve_max_slots,
                     max_seq_len=config.serve_max_seq_len,
                     kernel=config.serve_kernel,
+                    prefix_cache=config.serve_prefix_cache,
+                    prefix_gen=config.serve_prefix_gen,
+                    speculative=config.serve_speculative,
+                    draft_k=config.serve_draft_k,
+                    draft_auto=config.serve_draft_auto,
+                    mixed_batch=config.serve_mixed_batch,
+                    prefill_budget=config.serve_prefill_budget,
                     kv_dtype=config.serve_kv_dtype,
                     kv_group=config.serve_kv_group,
+                    kv_tier=config.serve_kv_tier,
                     deadline_ms=config.serve_deadline_ms,
                     queue_depth=config.serve_queue_depth,
                     max_evictions=config.serve_max_evictions,
@@ -161,13 +190,9 @@ class ServeConfig:
                 f"pool of {self.num_blocks - 1} usable blocks cannot hold "
                 f"one max_seq_len={self.max_seq_len} sequence "
                 f"({self.max_blocks_per_seq} blocks of {self.block_size})")
-        # valid values this slice does not serve yet
+        # valid values the port does not serve yet
         for name, off, item in (
-                ("prefix_cache", "off", "Queue 1 item 2 (prefix cache)"),
-                ("kv_tier", "off", "Queue 1 item 2 (prefix cache)"),
-                ("mixed_batch", "off", "Queue 1 item 3 (mixed batching)"),
-                ("speculative", "off", "Queue 1 item 4 (speculation)"),
-                ("prefix_route", "off", "Queue 1 item 6 (fleet)"),
+                ("prefix_route", "off", "Queue 1 item 6 (fleet routing)"),
                 ("tp", 1, "Queue 1 item 6 (tensor parallelism)"),
                 ("trace", "off", "Queue 1 item 6 (tracing)")):
             if getattr(self, name) != off:
@@ -195,10 +220,14 @@ class PagedDecodeEngine:
 
     ``model`` (a ``models.gpt.CausalLm``) is moved to ``device``, which
     is ``cuda`` unless the caller asks for the CPU; ``cuda`` without a
-    card raises.  ``run(requests)`` returns ``{request id: generated
-    token list}`` plus latency/throughput stats and the fault blocks."""
+    card raises.  ``draft_model`` is the drafter's ``CausalLm`` under
+    ``speculative="draft-model"`` (None: ``speculative.
+    default_draft_model``).  ``run(requests)`` returns ``{request id:
+    generated token list}`` plus latency/throughput stats, the fault
+    blocks and the prefix, speculation and tier blocks."""
 
-    def __init__(self, model, serve: ServeConfig, *, device="cuda"):
+    def __init__(self, model, serve: ServeConfig, *, device="cuda",
+                 draft_model=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.serve = serve
@@ -211,22 +240,50 @@ class PagedDecodeEngine:
         # resolved ONCE: the run serves through exactly one lowering
         self.kernel = paged_ops.resolve_kernel(serve.kernel, self.device)
         self.tracer = None             # tracing is a later slice
+        # built once, like the reference's (its pool resets with ours)
+        self.drafter = spec_lib.make_drafter(
+            serve.speculative, serve, self.model, device=self.device,
+            draft_model=draft_model)
+        # draft_auto's EWMA of the accepted length per verify row drives
+        # the EFFECTIVE window; it starts at the full window and, as in
+        # the reference, survives reset(): it can change how much is
+        # drafted, never the tokens
+        self._accept_ewma = float(serve.draft_k)
+        self._draft_k_eff = serve.draft_k
         self.reset()
 
     def reset(self) -> None:
-        """Fresh pools and scheduler (a trace replay starts clean)."""
+        """Fresh pools, trie, host tier, draft pool and scheduler (a
+        trace replay starts clean)."""
         cfg = self.model.cfg
         self.pools = paged_cache.init_pools(
             cfg, self.serve.num_blocks, self.serve.block_size, self.device,
             self.serve.kv_dtype, self.serve.kv_group)
         self.allocator = paged_cache.BlockAllocator(self.serve.num_blocks)
+        # the trie indexes pool content, so it resets with the pools
+        self.prefix_cache = (
+            prefix_lib.PrefixCache(self.allocator, self.serve.block_size)
+            if self.serve.prefix_cache == "on" else None)
+        # the host tier's bytes index device content that just went
+        self.tier = (paged_cache.HostBlockStore()
+                     if self.serve.kv_tier == "host" else None)
+        if self.tier is not None:
+            self.prefix_cache.tier = self.tier
+            self.prefix_cache.demote_fetch = self._demote_fetch
+            self.prefix_cache.promote_put = self._promote_put
+        if self.drafter is not None:
+            self.drafter.reset()
         self.sched = sched_lib.Scheduler(
             self.allocator, self.serve.max_slots, self.serve.block_size,
             self.serve.max_blocks_per_seq,
             queue_depth=self.serve.queue_depth,
-            max_evictions=self.serve.max_evictions)
-        # pool-occupancy high-water marks: raw = every referenced block;
-        # live = distinct blocks mapped by live sequences
+            max_evictions=self.serve.max_evictions,
+            prefix_cache=self.prefix_cache,
+            prefix_gen=self.serve.prefix_gen == "on",
+            on_terminal=self._on_terminal)
+        # pool-occupancy high-water marks: raw = every referenced block
+        # (trie-held blocks included); live = distinct blocks mapped by
+        # live sequences (two sequences on one block count it once)
         self.peak_blocks_in_use = 0
         self.peak_live_blocks = 0
         self._progressed = False        # did the last step() do any work
@@ -236,7 +293,15 @@ class PagedDecodeEngine:
         # queued — a stale entry must not prefill the NEW occupant
         self._prefill_queue: List[tuple] = []
         self.dispatch_shapes: set = set()
-        self.forward_dispatches = 0     # model forwards this run
+        # model forwards this run (prefill + decode + verify + mixed;
+        # the block copies move cache rows, not tokens)
+        self.forward_dispatches = 0
+
+    def _on_terminal(self, req, status: str) -> None:
+        """The scheduler's per-request exit hook: release the drafter's
+        state for the request."""
+        if self.drafter is not None:
+            self.drafter.release(req.id)
 
     # ---------------- device steps ----------------
 
@@ -267,7 +332,103 @@ class PagedDecodeEngine:
                                           kernel=self.kernel)
         return torch.argmax(logits[0, max(n_real - 1, 0)], dim=-1)
 
+    def _lanes_impl(self, tokens, lengths, n_valid, tables):
+        """The verify and the mixed dispatch (the reference's
+        ``_verify_impl`` and ``_mixed_impl``, one function here): row
+        ``b`` feeds ``n_valid[b]`` real lanes at positions ``lengths[b]
+        + lane`` through ONE forward, and the greedy argmax of EVERY
+        lane comes back, (B, S) on the device.  A decode row is the
+        one-lane case; a verify row is the pending token plus its draft;
+        a mixed prefill row is a chunk of its prompt.  Padding lanes
+        (past ``n_valid`` or in bucket-slack rows) write into the null
+        block and their argmax is discarded on the host."""
+        S = tokens.shape[1]
+        live = tables[:, 0] != paged_ops.NULL_BLOCK
+        valid = ((torch.arange(S, device=self.device)[None]
+                  < n_valid[:, None]) & live[:, None])
+        logits = self.model.forward_paged(tokens, self.pools, tables,
+                                          lengths, valid,
+                                          kernel=self.kernel)
+        return torch.argmax(logits, dim=-1)
+
+    def _cow_impl(self, src: int, dst: int) -> None:
+        """Copy one pool block, every layer and leaf (codes and, in a
+        quantized pool, the scale siblings on the same block axis), in
+        place: the device half of copy-on-write."""
+        for p in self.pools:
+            for leaf in p.values():
+                leaf[dst].copy_(leaf[src])
+
+    def _demote_fetch(self, block: int) -> list:
+        """Copy pool block ``block`` to the host, per-layer dicts of CPU
+        tensors: the prefix cache calls this just before eviction
+        releases the device block.  A copy, never a view: the block is
+        recycled right after."""
+        return [{key: leaf[block].to("cpu", copy=True)
+                 for key, leaf in p.items()} for p in self.pools]
+
+    def _promote_put(self, leaves: list, block: int) -> None:
+        """Land demoted host bytes in freshly allocated device block
+        ``block``, during the admission walk, before the sequence's
+        first dispatch reads it.  ``tier.promote_ms_total`` measures the
+        LANDED copies: on the card the stream is drained before the
+        clock starts and synchronised before it stops."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        for p, host in zip(self.pools, leaves):
+            for key, leaf in p.items():
+                leaf[block].copy_(host[key])
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        self.tier.promote_ms_total += (time.perf_counter() - t0) * 1e3
+
     # ---------------- host-side step assembly ----------------
+
+    def _ensure_private(self, slot: int, start: int, end: int) -> bool:
+        """Copy-on-write guard: before a dispatch writes cache positions
+        ``[start, end)`` of ``slot``, every backing block another reader
+        holds (allocator refcount > 1: other sequences or the trie) is
+        replaced by a private copy — allocate (evicting under pressure),
+        copy on the device, release the shared reference, repoint the
+        table.  The structural trigger is a fully cached prompt whose
+        length is an exact block multiple; decode, verify and mixed rows
+        run the same guard.  Returns False when the pool cannot supply a
+        copy target: the caller fails this one request."""
+        if self.prefix_cache is None or start >= end:
+            return True
+        seq = self.sched.slots[slot]
+        bs = self.serve.block_size
+        for j in range(start // bs, (end - 1) // bs + 1):
+            if j >= len(seq.block_ids):
+                continue            # growth handled by ensure_block
+            src = seq.block_ids[j]
+            if self.allocator.refcount(src) <= 1:
+                continue            # exclusive: in-place write is safe
+            dst = self.sched.alloc_for(slot)
+            if dst is None:
+                return False
+            self._cow_impl(src, dst)
+            self.allocator.release([src])
+            seq.block_ids[j] = dst
+            self.sched.counters["prefix_cow_copies"] += 1
+        return True
+
+    def _apply_partial_copies(self) -> None:
+        """Land every pending partial tail-block copy (prefix v2):
+        admission matched ``partial_rows`` leading tokens of a slot's
+        tail block against cached block ``partial_src`` and charged them
+        as prefilled, so the rows must be in place before the first
+        prefill chunk reads past them.  Runs right after admit(), so no
+        eviction intervenes; the scheduler then drops the source pin."""
+        for seq in self.sched.slots:
+            if seq is None or seq.partial_src is None:
+                continue
+            paged_cache.partial_copy_block(self.pools, seq.partial_src,
+                                           seq.partial_dst,
+                                           seq.partial_rows)
+            self.sched._release_partial(seq)
 
     def _track_occupancy(self) -> None:
         """Advance the pool-occupancy high-water marks."""
@@ -282,6 +443,17 @@ class PagedDecodeEngine:
         ids = seq.block_ids[:width]
         row[:len(ids)] = ids
         return row
+
+    def _finish_prefill(self, slot: int, seq, tok: int) -> tuple:
+        """A prompt's final chunk landed: register its full blocks in the
+        trie BEFORE record_token can finish the request and release them
+        (the trie's own reference keeps a cached block alive past its
+        donor), then record the first output token."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(seq.request.prompt, seq.block_ids)
+        self._last_token[slot] = tok
+        self.sched.record_token(slot, tok, self.serve.eos_id)
+        return (seq.request.id, tok)
 
     def _advance_prefill(self) -> List[Tuple[int, int]]:
         """Advance the oldest mid-prefill sequence by ONE chunk.  Returns
@@ -298,6 +470,13 @@ class PagedDecodeEngine:
         prompt = seq.request.prompt
         self._progressed = True          # a chunk enters the pool
         chunk = prompt[seq.prefilled:seq.prefilled + self.serve.prefill_chunk]
+        if not self._ensure_private(slot, seq.prefilled,
+                                    seq.prefilled + len(chunk)):
+            # no pool room for a private copy of a shared block this
+            # chunk writes into: fail this one request, keep serving
+            self._prefill_queue.pop(0)
+            self.sched.fail_live(slot, "rejected")
+            return []
         sb = _bucket(len(chunk), self.serve.prefill_chunk)
         toks = np.zeros((1, sb), np.int32)
         toks[0, :len(chunk)] = chunk
@@ -312,16 +491,30 @@ class PagedDecodeEngine:
         self._prefill_queue.pop(0)
         # the prompt's last position yields the first output token, so
         # the slot enters the decode pool one token ahead
-        tok = int(nxt)                   # one host sync per admission
-        self._last_token[slot] = tok
-        self.sched.record_token(slot, tok, self.serve.eos_id)
-        return [(seq.request.id, tok)]
+        return [self._finish_prefill(slot, seq, int(nxt))]  # one sync
+
+    def _decode_ready(self, slot: int):
+        """A fully prefilled live slot that can take its next write (a
+        block for position ``length - 1`` that no one else reads), or
+        None; a slot that cannot grow fails alone."""
+        seq = self.sched.slots[slot]
+        if seq is None or seq.prefilled < len(seq.request.prompt):
+            return None             # mid-prefill: not in the decode pool
+        if not self.sched.ensure_block(slot) \
+                or not self._ensure_private(slot, seq.length - 1,
+                                            seq.length):
+            # pool exhausted with nothing left to evict: fail THIS
+            # request alone; every other stream keeps serving
+            self.sched.fail_live(slot, "rejected")
+            return None
+        return seq
 
     @torch.no_grad()
     def step(self) -> List[Tuple[int, int]]:
-        """One engine iteration: admit, advance one prefill chunk, decode
-        every live slot once.  Returns the ``(request id, token)`` pairs
-        emitted."""
+        """One engine iteration: admit, land partial copies, then either
+        the fused mixed step, or one prefill chunk followed by the
+        verify step (speculation) or one decode token for every live
+        slot.  Returns the ``(request id, token)`` pairs emitted."""
         self._progressed = False
         admitted = self.sched.admit()
         self._track_occupancy()
@@ -329,20 +522,16 @@ class PagedDecodeEngine:
             self._progressed = True
         self._prefill_queue.extend(
             (slot, self.sched.slots[slot]) for slot in admitted)
+        self._apply_partial_copies()
+        if self.serve.mixed_batch == "on":
+            return self._step_mixed()
         emitted = self._advance_prefill()
+        if self.drafter is not None:
+            return self._step_verify(emitted)
 
-        live = []
-        for slot in self.sched.live_slots():
-            seq = self.sched.slots[slot]
-            if seq is None or seq.prefilled < len(seq.request.prompt):
-                continue            # mid-prefill: not in the decode pool
-            if not self.sched.ensure_block(slot):
-                # pool exhausted with nothing left to evict: fail THIS
-                # request alone; every other stream keeps serving
-                self.sched.fail_live(slot, "rejected")
-                continue
-            live.append(slot)
-        # eviction inside ensure_block may have retired a later slot
+        live = [s for s in self.sched.live_slots()
+                if self._decode_ready(s) is not None]
+        # eviction inside ensure_block / CoW may have retired a later slot
         live = [s for s in live if self.sched.slots[s] is not None]
         self._track_occupancy()
         if not live:
@@ -372,6 +561,196 @@ class PagedDecodeEngine:
             self._last_token[slot] = tok
             emitted.append((self.sched.slots[slot].request.id, tok))
             self.sched.record_token(slot, tok, self.serve.eos_id)
+        return emitted
+
+    def _dispatch_lanes(self, rows, width: int):
+        """Assemble and run one verify or mixed dispatch over ``rows``,
+        each ``(slot, seq, lane tokens, start position)``, at ``width``
+        lanes a row: returns the (B, width) greedy tokens on the host and
+        the table bucket."""
+        serve = self.serve
+        Bb = _bucket(len(rows), serve.max_slots)
+        nb = max(len(r[1].block_ids) for r in rows)
+        NBb = _bucket(nb, serve.max_blocks_per_seq)
+        tokens = np.zeros((Bb, width), np.int32)
+        lengths = np.zeros((Bb,), np.int32)
+        n_valid = np.zeros((Bb,), np.int32)
+        tables = np.zeros((Bb, NBb), np.int32)
+        for j, (_slot, seq, lanes, start) in enumerate(rows):
+            tokens[j, :len(lanes)] = lanes
+            n_valid[j] = len(lanes)
+            lengths[j] = start
+            tables[j] = self._table_row(seq, NBb)
+        self.forward_dispatches += 1
+        out = self._lanes_impl(self._to_device(tokens),
+                               self._to_device(lengths),
+                               self._to_device(n_valid),
+                               self._to_device(tables))
+        return out.cpu().numpy(), Bb, NBb   # the one host sync a dispatch
+
+    def _step_mixed(self) -> List[Tuple[int, int]]:
+        """The fused replacement for the prefill-then-decode phases
+        (``mixed_batch="on"``): the decode row of every live prefilled
+        slot PLUS budget-capped prefill chunks of every mid-prefill
+        sequence the step's token budget reaches, in ONE forward.
+
+        Packing: decode rows first (one pending token each), then the
+        prefill queue in FIFO order, each sequence contributing
+        ``min(prefill_chunk, remaining prompt, remaining budget)``
+        tokens.  Per row the unfused invariants hold: the stale-slot
+        guard, ensure_block + CoW over the row's write range, and trie
+        insertion at full prefill before record_token."""
+        serve = self.serve
+        emitted: List[Tuple[int, int]] = []
+        rows = []                       # (slot, seq, lanes, start)
+        prefill = set()                 # ids of the prefill rows' seqs
+        for slot in self.sched.live_slots():
+            seq = self._decode_ready(slot)
+            if seq is not None:
+                rows.append((slot, seq, [self._last_token[slot]],
+                             seq.length - 1))
+        budget = serve.prefill_budget
+        for slot, seq in list(self._prefill_queue):
+            if budget <= 0:
+                break
+            if self.sched.slots[slot] is not seq:
+                self._drop_queued(seq)
+                continue
+            prompt = seq.request.prompt
+            take = min(serve.prefill_chunk,
+                       len(prompt) - seq.prefilled, budget)
+            chunk = prompt[seq.prefilled:seq.prefilled + take]
+            if not self._ensure_private(slot, seq.prefilled,
+                                        seq.prefilled + len(chunk)):
+                self._drop_queued(seq)
+                self.sched.fail_live(slot, "rejected")
+                continue
+            budget -= len(chunk)
+            rows.append((slot, seq, list(chunk), seq.prefilled))
+            prefill.add(id(seq))
+        # eviction inside ensure_block / CoW may have retired ANY earlier
+        # row's slot: keep rows whose slot still holds the same sequence
+        rows = [r for r in rows if self.sched.slots[r[0]] is r[1]]
+        self._track_occupancy()
+        if not rows:
+            return emitted
+        self._progressed = True
+
+        Sb = _bucket(max(len(r[2]) for r in rows), serve.prefill_chunk)
+        out, Bb, NBb = self._dispatch_lanes(rows, Sb)
+        self.dispatch_shapes.add(("mixed", Bb, Sb, NBb))
+        for j, (slot, seq, lanes, _start) in enumerate(rows):
+            # lane n_valid-1 is what the unfused dispatch consumes
+            tok = int(out[j, len(lanes) - 1])
+            if id(seq) in prefill:
+                seq.prefilled += len(lanes)
+                if seq.prefilled < len(seq.request.prompt):
+                    continue        # still mid-prefill: no token emitted
+                self._drop_queued(seq)
+                emitted.append(self._finish_prefill(slot, seq, tok))
+                continue
+            self._last_token[slot] = tok
+            emitted.append((seq.request.id, tok))
+            self.sched.record_token(slot, tok, serve.eos_id)
+        return emitted
+
+    def _drop_queued(self, seq) -> None:
+        self._prefill_queue = [e for e in self._prefill_queue
+                               if e[1] is not seq]
+
+    def _step_verify(self, emitted: List[Tuple[int, int]]) \
+            -> List[Tuple[int, int]]:
+        """The speculative replacement for the decode phase: draft up to
+        the window per live slot, verify every slot's window in ONE
+        batched forward, accept the longest argmax-matching draft prefix
+        plus the model's own token at the first mismatch, then roll back
+        the blocks the rejected tail was parked in.  A slot whose
+        drafter proposes nothing rides the same dispatch with one lane,
+        an exact one-token decode step."""
+        serve = self.serve
+        cap = serve.max_blocks_per_seq * serve.block_size
+        # the step's window: the configured k, or the EWMA-tuned one
+        # (floor 1); the dispatch width stays draft_k + 1 either way
+        k_cap = (self._draft_k_eff if serve.draft_auto == "on"
+                 else serve.draft_k)
+        rows = []
+        full_window: dict = {}
+        for slot in self.sched.live_slots():
+            seq = self.sched.slots[slot]
+            if seq is None or seq.prefilled < len(seq.request.prompt):
+                continue            # mid-prefill: not in the decode pool
+            if not self.sched.ensure_block(slot):
+                self.sched.fail_live(slot, "rejected")
+                continue
+            # bounded so a full accept busts neither the request's
+            # budget nor the table capacity
+            remaining = seq.request.max_new_tokens - len(seq.generated)
+            k = min(k_cap, remaining - 1, cap - seq.length)
+            # a row truncated by budget, capacity or pool pressure says
+            # nothing about the drafter: the EWMA skips it
+            window_full = k >= k_cap
+            draft: List[int] = []
+            if k > 0:
+                ctx = list(seq.request.prompt) + seq.generated
+                draft = list(self.drafter.draft(
+                    seq.request.id, ctx, k))[:k]
+            if draft:
+                # cover the window's writes [length-1, length+|d|) with
+                # free blocks only: speculation never preempts
+                covered = self.sched.extend_for(slot,
+                                                seq.length + len(draft))
+                if covered - seq.length < len(draft):
+                    window_full = False
+                draft = draft[:max(0, covered - seq.length)]
+            full_window[slot] = window_full
+            if not self._ensure_private(slot, seq.length - 1,
+                                        seq.length + len(draft)):
+                self.sched.fail_live(slot, "rejected")
+                continue
+            rows.append((slot, seq, [self._last_token[slot]] + draft,
+                         seq.length - 1))
+        # eviction inside ensure_block / CoW may have retired a later slot
+        rows = [r for r in rows if self.sched.slots[r[0]] is not None]
+        self._track_occupancy()
+        if not rows:
+            return emitted
+        self._progressed = True
+
+        out, Bb, NBb = self._dispatch_lanes(rows, serve.draft_k + 1)
+        self.dispatch_shapes.add(("verify", Bb, NBb))
+        counters = self.sched.counters
+        for j, (slot, seq, lanes, _start) in enumerate(rows):
+            draft = lanes[1:]
+            n_acc = 0
+            while n_acc < len(draft) and int(out[j, n_acc]) == draft[n_acc]:
+                n_acc += 1
+            emit = draft[:n_acc] + [int(out[j, n_acc])]
+            if serve.eos_id is not None and serve.eos_id in emit:
+                emit = emit[:emit.index(serve.eos_id) + 1]
+            counters["spec_drafted"] += len(draft)
+            counters["spec_accepted"] += min(n_acc, len(emit))
+            counters["spec_verify_forwards"] += 1
+            counters["spec_emitted"] += len(emit)
+            counters["spec_k_sum"] += k_cap
+            counters["spec_k_steps"] += 1
+            if serve.draft_auto == "on" and draft \
+                    and full_window.get(slot, False):
+                a = 0.2
+                self._accept_ewma = ((1 - a) * self._accept_ewma
+                                     + a * n_acc)
+            self._last_token[slot] = emit[-1]
+            rid = seq.request.id
+            emitted.extend((rid, tok) for tok in emit)
+            self.sched.record_tokens(slot, emit, serve.eos_id)
+            if self.sched.slots[slot] is seq:
+                # the rejected tail's KV sits in blocks past the accepted
+                # length: release them
+                self.sched.rollback_blocks(slot, seq.length)
+        if serve.draft_auto == "on":
+            # one past the recent mean accepted length, in [1, draft_k];
+            # round, not ceil, so a near-zero EWMA reaches the floor
+            self._draft_k_eff = max(1, min(
+                serve.draft_k, int(round(self._accept_ewma)) + 1))
         return emitted
 
     # ---------------- request loop ----------------
@@ -422,6 +801,8 @@ class PagedDecodeEngine:
         elapsed = time_fn() - t0
         # pool-leak invariant: every terminal request released its blocks
         self.sched.check_quiescent()
+        if self.drafter is not None:
+            self.drafter.check_quiescent()
         outputs = {s.request.id: list(s.generated)
                    for s in self.sched.finished}
         total = sum(len(v) for v in outputs.values())
@@ -436,9 +817,9 @@ class PagedDecodeEngine:
             "kernel": self.kernel,
             "kv_dtype": serve.kv_dtype,
             "device": device_name(self.device),
-            "prefix": metrics_writer.prefix_block(),
-            "speculation": metrics_writer.speculation_block(serve.draft_k),
-            "tier": metrics_writer.tier_block(),
+            "prefix": self.prefix_block(),
+            "speculation": self.speculation_block(),
+            "tier": self.tier_block(),
             "peak_blocks_in_use": self.peak_blocks_in_use,
             "peak_live_blocks": self.peak_live_blocks,
             "tokens": total,
@@ -471,3 +852,30 @@ class PagedDecodeEngine:
             "prefill_backlog": (self.sched.prefill_backlog_tokens
                                 / max(1, self.serve.prefill_chunk)),
         }
+
+    def prefix_block(self) -> dict:
+        """The run's ``prefix`` block (``metrics_writer.prefix_block``)."""
+        return metrics_writer.prefix_block(
+            self.sched.counters, enabled=self.prefix_cache is not None,
+            trie_blocks=(self.prefix_cache.num_blocks
+                         if self.prefix_cache is not None else 0))
+
+    def speculation_block(self) -> dict:
+        """The run's ``speculation`` block."""
+        return metrics_writer.speculation_block(
+            self.sched.counters, enabled=self.drafter is not None,
+            mode=self.serve.speculative, draft_k=self.serve.draft_k,
+            draft_auto=self.serve.draft_auto)
+
+    def tier_block(self) -> dict:
+        """The run's ``tier`` block (all zero with tiering off)."""
+        if self.tier is None:
+            return metrics_writer.tier_block()
+        s = self.tier.stats()
+        return metrics_writer.tier_block(
+            enabled=True, mode=self.serve.kv_tier,
+            demotions=s["demotions"], promotions=s["promotions"],
+            host_blocks=s["host_blocks"],
+            host_blocks_peak=s["host_blocks_peak"],
+            promote_ms_total=s["promote_ms_total"],
+            block_size=self.serve.block_size)

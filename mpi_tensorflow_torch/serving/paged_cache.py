@@ -2,10 +2,9 @@
 
 Counterpart of ``mpi_tensorflow_tpu/serving/paged_cache.py``: the
 refcounted ``BlockAllocator``, ``blocks_for`` and ``init_pools`` for the
-three pool formats (compute dtype, int8, int4).  ``HostBlockStore`` and
-``partial_copy_block``
-(host tiering and prefix sharing v2) wait for the prefix-cache slice
-(ROADMAP Queue 1).
+three pool formats (compute dtype, int8, int4), ``partial_copy_block``
+(the device half of prefix sharing v2) and ``HostBlockStore`` (the host
+tier of ``kv_tier="host"``).
 
 The device side is a fixed pool of ``(num_blocks, heads, block_size,
 head_dim)`` K and V blocks per layer; the host side — this module's
@@ -145,3 +144,77 @@ def init_pools(cfg, num_blocks: int, block_size: int, device: torch.device,
                           for key in ("k_scale", "v_scale")})
         pools.append(layer)
     return pools
+
+
+def partial_copy_block(pools: list, src: int, dst: int, n: int) -> None:
+    """Copy the first ``n`` token-slot rows of block ``src`` into block
+    ``dst`` across every pool leaf, IN PLACE, leaving rows ``>= n`` of
+    ``dst`` untouched: the device half of partial tail-block sharing
+    (prefix v2).  The slot axis is axis 2 of every leaf, the 4-d code
+    pools and the 3-d int8 or 4-d int4 scale siblings alike, so
+    quantized pools copy codes and scales together.  The reference
+    returns new pools (``jnp.where`` over a row mask); the bytes that
+    land are the same."""
+    if n <= 0:
+        return
+    for p in pools:
+        for leaf in p.values():
+            leaf[dst, :, :n].copy_(leaf[src, :, :n])
+
+
+class HostBlockStore:
+    """Host-RAM tier for demoted KV blocks (``kv_tier="host"``).
+
+    When the prefix cache evicts an unreferenced trie leaf under pool
+    pressure, the block's bytes are copied here instead of being lost; a
+    later prompt that walks the same trie path PROMOTES them back into a
+    freshly allocated device block before its first dispatch.
+
+    Keys are full trie TOKEN PATHS (a tuple of per-block token tuples,
+    root first), so an entry can only re-admit for the token stream that
+    produced it.  Values are per-layer dicts of CPU ``torch.Tensor``
+    leaves, one block row of each pool leaf (codes and scales): torch
+    tensors rather than the reference's numpy arrays, because numpy has
+    no bfloat16 and a bf16 pool is the one the card serves.
+
+    Pure host bookkeeping, as the reference's engine uses it: an
+    insertion-ordered dict with no bound (host RAM is the budget), and
+    the counters of the metrics ``tier`` block.  ``promote_ms_total`` is
+    added by the engine's promote path."""
+
+    def __init__(self):
+        self._store: Dict[tuple, list] = {}
+        self.demotions = 0
+        self.promotions = 0
+        self.host_blocks_peak = 0
+        self.promote_ms_total = 0.0
+
+    def __len__(self) -> int:
+        return len(self._store)
+
+    def __contains__(self, key: tuple) -> bool:
+        return key in self._store
+
+    def put(self, key: tuple, leaves: list) -> None:
+        """Admit a demoted block's host leaves under its trie path key;
+        a re-demotion of the same path overwrites (the same bytes)."""
+        self._store.pop(key, None)
+        self._store[key] = leaves
+        self.demotions += 1
+        self.host_blocks_peak = max(self.host_blocks_peak,
+                                    len(self._store))
+
+    def pop(self, key: tuple):
+        """Take a block's leaves out for promotion (None on a miss): the
+        trie node owns the canonical copy again, on the device."""
+        leaves = self._store.pop(key, None)
+        if leaves is not None:
+            self.promotions += 1
+        return leaves
+
+    def stats(self) -> dict:
+        return {"host_blocks": len(self._store),
+                "host_blocks_peak": self.host_blocks_peak,
+                "demotions": self.demotions,
+                "promotions": self.promotions,
+                "promote_ms_total": self.promote_ms_total}

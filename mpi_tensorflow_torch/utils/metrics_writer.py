@@ -16,11 +16,10 @@ Counterpart of ``mpi_tensorflow_tpu/utils/metrics_writer.py``:
   at the end (``train.loop``); ``eval/heldout_error_pct`` and
   ``train/loss`` at each trace point and ``perf/tokens_per_sec`` at the
   end (``train.mlm_loop``);
-- the serving blocks: ``faults_block`` and ``kv_quant_block`` in full,
-  and ``prefix_block``, ``speculation_block`` and ``tier_block`` in the
-  disabled form the port's engine produces (their features are ROADMAP
-  Queue 1 items).  Same keys and value types as the reference, so
-  results of the two engines compare key for key.
+- the serving blocks: ``faults_block``, ``prefix_block``,
+  ``speculation_block``, ``tier_block`` and ``kv_quant_block``, with the
+  reference's keys, value types and rounding, so results of the two
+  engines compare key for key.
 """
 
 from __future__ import annotations
@@ -91,35 +90,88 @@ def faults_block(counters) -> dict:
     return {k: int(counters.get(k, 0)) for k in SERVING_FAULT_KEYS}
 
 
-def prefix_block() -> dict:
-    """The ``prefix`` (radix prefix cache) block with the cache off."""
+def prefix_block(counters, *, enabled: bool, trie_blocks: int = 0) -> dict:
+    """Scheduler counters -> the ``prefix`` (radix prefix cache) block.
+
+    ``hit_rate`` counts FULL-BLOCK sharing only; partial tail-block rows
+    ride separately as ``partial_copy_tokens``, and
+    ``prefill_tokens_saved`` is every prompt position served out of the
+    cache (full blocks + partial rows) instead of recomputed.
+    ``router_prefix_hits`` stays 0 until the fleet router (ROADMAP item
+    6) places requests."""
+    hit = int(counters.get("prefix_hit_tokens", 0))
+    total = int(counters.get("prefix_prompt_tokens", 0))
+    partial = int(counters.get("prefix_partial_copy_tokens", 0))
     return {
-        "enabled": False, "hit_tokens": 0, "prompt_tokens": 0,
-        "hit_rate": 0.0, "shared_blocks": 0, "cow_copies": 0,
-        "trie_evictions": 0, "trie_blocks": 0, "hit_admissions": 0,
-        "gen_inserted_blocks": 0, "partial_copy_tokens": 0,
-        "prefill_tokens_saved": 0, "router_prefix_hits": 0,
+        "enabled": bool(enabled),
+        "hit_tokens": hit,
+        "prompt_tokens": total,
+        "hit_rate": round(hit / total, 4) if total else 0.0,
+        "shared_blocks": int(counters.get("prefix_shared_blocks", 0)),
+        "cow_copies": int(counters.get("prefix_cow_copies", 0)),
+        "trie_evictions": int(counters.get("prefix_trie_evictions", 0)),
+        "trie_blocks": int(trie_blocks),
+        "hit_admissions": int(counters.get("prefix_hit_admissions", 0)),
+        "gen_inserted_blocks":
+            int(counters.get("prefix_gen_inserted_blocks", 0)),
+        "partial_copy_tokens": partial,
+        "prefill_tokens_saved": hit + partial,
+        "router_prefix_hits": 0,
     }
 
 
-def speculation_block(draft_k: int = 4) -> dict:
-    """The ``speculation`` block with speculative decoding off."""
+def speculation_block(counters, *, enabled: bool, mode: str = "off",
+                      draft_k: int = 0, draft_auto: str = "off") -> dict:
+    """Scheduler counters -> the ``speculation`` block.
+
+    ``effective_k`` is the draft window the policy offered, averaged
+    over verify rows (``draft_k`` with ``draft_auto`` off);
+    ``steps_saved`` is tokens emitted through the verify path minus
+    verify forwards run: the decode passes speculation avoided."""
+    drafted = int(counters.get("spec_drafted", 0))
+    accepted = int(counters.get("spec_accepted", 0))
+    forwards = int(counters.get("spec_verify_forwards", 0))
+    emitted = int(counters.get("spec_emitted", 0))
+    k_sum = int(counters.get("spec_k_sum", 0))
+    k_steps = int(counters.get("spec_k_steps", 0))
     return {
-        "enabled": False, "mode": "off", "draft_k": int(draft_k),
-        "draft_auto": "off", "effective_k": int(draft_k),
-        "draft_tokens": 0, "accepted_tokens": 0, "accept_rate": 0.0,
-        "verify_forwards": 0, "emitted_tokens": 0,
-        "mean_accepted_len": 0.0, "steps_saved": 0,
+        "enabled": bool(enabled),
+        "mode": mode,
+        "draft_k": int(draft_k),
+        "draft_auto": draft_auto,
+        "effective_k": (round(k_sum / k_steps, 2) if k_steps
+                        else int(draft_k)),
+        "draft_tokens": drafted,
+        "accepted_tokens": accepted,
+        "accept_rate": round(accepted / drafted, 4) if drafted else 0.0,
+        "verify_forwards": forwards,
+        "emitted_tokens": emitted,
+        "mean_accepted_len": (round(accepted / forwards, 4)
+                              if forwards else 0.0),
+        "steps_saved": emitted - forwards,
     }
 
 
-def tier_block() -> dict:
-    """The ``tier`` (host-RAM block tier) block with tiering off."""
+def tier_block(*, enabled: bool = False, mode: str = "off",
+               demotions: int = 0, promotions: int = 0,
+               host_blocks: int = 0, host_blocks_peak: int = 0,
+               promote_ms_total: float = 0.0,
+               block_size: int = 0) -> dict:
+    """Host-tier counters -> the ``tier`` block (all zero with tiering
+    off).  ``prefill_tokens_saved_tier`` =
+    promotions x block_size, the prefill the re-admissions avoided."""
     return {
-        "enabled": False, "mode": "off", "demotions": 0, "promotions": 0,
-        "host_blocks": 0, "host_blocks_peak": 0,
-        "promote_latency_ms_total": 0.0, "promote_latency_ms_mean": 0.0,
-        "prefill_tokens_saved_tier": 0,
+        "enabled": bool(enabled),
+        "mode": mode,
+        "demotions": int(demotions),
+        "promotions": int(promotions),
+        "host_blocks": int(host_blocks),
+        "host_blocks_peak": int(host_blocks_peak),
+        "promote_latency_ms_total": round(float(promote_ms_total), 3),
+        "promote_latency_ms_mean": (
+            round(float(promote_ms_total) / promotions, 3)
+            if promotions else 0.0),
+        "prefill_tokens_saved_tier": int(promotions * block_size),
     }
 
 

@@ -12,16 +12,15 @@ with the pool in the compute dtype, and quantized to int8 and to int4
 (quantization is per token row or group, so an eviction replay writes
 the same bytes and the tokens stay identical).
 
-Also pinned: ``ServeConfig`` refuses what this slice does not serve,
-naming the ROADMAP item; ``cuda`` without a card raises instead of
-running on the CPU; ``python -m mpi_tensorflow_torch.serving`` prints
+Also pinned: ``ServeConfig`` takes the features the port serves with
+the reference's validation and refuses the fleet's (ROADMAP item 6);
+``cuda`` without a card raises instead of running on the CPU; ``python -m mpi_tensorflow_torch.serving`` prints
 its JSON line; and no module of the port, nor ``chip_smoke.py``, imports
 JAX or the JAX package (an AST scan: this image imports JAX at start-up,
 so an import check would prove nothing).
 """
 
 import ast
-import contextlib
 import dataclasses
 import json
 import os
@@ -35,7 +34,9 @@ import numpy as np
 import pytest
 import torch
 
-from mpi_tensorflow_tpu.models import bert as jax_bert
+from _torch_serving_cases import COMPARED, JAX_TINY
+from _torch_serving_cases import fast_compile as _fast_compile
+from _torch_serving_cases import np_params as _np_params
 from mpi_tensorflow_tpu.models import gpt as jax_gpt
 from mpi_tensorflow_tpu.serving import engine as jax_engine
 from mpi_tensorflow_tpu.serving import loadgen as jax_loadgen
@@ -46,7 +47,6 @@ from mpi_tensorflow_torch.serving import engine, loadgen, paged_cache
 from mpi_tensorflow_torch.serving import scheduler as sched
 
 REPO = Path(__file__).resolve().parents[1]
-JAX_TINY = dataclasses.replace(jax_bert.BERT_TINY, ce_positions="all")
 
 
 # ---------------------------------------------------------------- loadgen
@@ -163,25 +163,6 @@ def test_scheduler_decisions_identical(seed):
 
 # ---------------------------------------------------------------- engine
 
-def _np_params(seed):
-    """Seeded weights under which greedy tokens vary from step to step
-    (LayerNorm scales near 1; with scales near 0 every step emits the
-    output bias's argmax).  Under them the int4 pool's tokens differ
-    from the compute-dtype pool's, so identical tokens show the two
-    engines' quantized paths agree."""
-    rng = np.random.default_rng(seed)
-
-    def leaf(path, x):
-        if jax.tree_util.keystr(path).endswith("['scale']"):
-            return (1.0 + 0.1 * rng.normal(size=x.shape)).astype(np.float32)
-        return (0.1 * rng.normal(size=x.shape)).astype(np.float32)
-
-    # only the tree's shapes are read
-    shapes = jax.eval_shape(jax_gpt.CausalLm(JAX_TINY).init,
-                            jax.random.key(0))
-    return jax.tree_util.tree_map_with_path(leaf, shapes)
-
-
 ENGINE_CASES = {
     # five mixed requests through 3 slots: chunked prefill, recycling
     "mixed": dict(serve=dict(num_blocks=40, block_size=4, max_slots=3,
@@ -192,27 +173,10 @@ ENGINE_CASES = {
                                 max_seq_len=12, prefill_chunk=2),
                      requests=[(2, 10), (11, 1)]),
 }
-COMPARED = ("outputs", "statuses", "dispatch_shapes", "forward_dispatches",
-            "evictions", "faults", "drain", "prefix", "speculation", "tier",
-            "peak_blocks_in_use", "peak_live_blocks", "tokens")
-
-
 def _requests(mod, lens, seed):
     rng = np.random.default_rng(seed)
     return [mod.Request(i, [int(t) for t in rng.integers(0, 1024, n)], m)
             for i, (n, m) in enumerate(lens)]
-
-
-@contextlib.contextmanager
-def _fast_compile():
-    """XLA's optimisation passes off while the reference engine compiles
-    its steps: they only slow the compile; the arithmetic is the same."""
-    saved = jax.config.read("jax_disable_most_optimizations")
-    jax.config.update("jax_disable_most_optimizations", True)
-    try:
-        yield
-    finally:
-        jax.config.update("jax_disable_most_optimizations", saved)
 
 
 @pytest.fixture(scope="module")
@@ -303,22 +267,39 @@ def test_pow2_ceil_and_bucket_match_reference():
 # ------------------------------------------------------------ ServeConfig
 
 @pytest.mark.parametrize("field,value,item", [
-    ("prefix_cache", "on", "prefix cache"),
-    ("speculative", "ngram", "speculation"),
-    ("mixed_batch", "on", "mixed batching"),
+    ("prefix_route", "on", "fleet routing"),
     ("tp", 2, "tensor parallelism"),
     ("trace", "on", "tracing"),
 ])
 def test_serve_config_refuses_what_is_not_ported(field, value, item):
-    with pytest.raises(ValueError, match=rf"not ported yet: ROADMAP .*{item}"):
-        engine.ServeConfig(**{field: value})
-    jax_engine.ServeConfig(**{field: value})      # valid in the reference
+    kw = {field: value}
+    if field == "prefix_route":
+        kw["prefix_cache"] = "on"              # its own precondition
+    with pytest.raises(ValueError, match=rf"not ported yet: ROADMAP "
+                                         rf"Queue 1 item 6 \({item}\)"):
+        engine.ServeConfig(**kw)
+    jax_engine.ServeConfig(**kw)               # valid in the reference
+
+
+@pytest.mark.parametrize("kw", [
+    dict(prefix_cache="on"), dict(prefix_cache="on", prefix_gen="on"),
+    dict(prefix_cache="on", kv_tier="host"), dict(mixed_batch="on"),
+    dict(mixed_batch="on", prefill_budget=8), dict(speculative="ngram"),
+    dict(speculative="draft-model", draft_k=2, draft_auto="on"),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_serve_config_accepts_the_ported_features(kw):
+    got = dataclasses.asdict(engine.ServeConfig(**kw))
+    want = dataclasses.asdict(jax_engine.ServeConfig(**kw))
+    assert got.pop("kernel") == "auto" and want.pop("kernel") == "auto"
+    assert got == want
 
 
 @pytest.mark.parametrize("bad", [
     dict(block_size=0), dict(num_blocks=1), dict(kv_dtype="fp8"), dict(deadline_ms=0.0), dict(queue_depth=0),
     dict(num_blocks=10, max_seq_len=512), dict(prefix_gen="on"),
-    dict(trace_out="t.json"),
+    dict(trace_out="t.json"), dict(kv_tier="host"), dict(draft_auto="on"),
+    dict(mixed_batch="on", speculative="ngram"), dict(prefill_budget=0),
+    dict(draft_k=0), dict(prefix_route="on"), dict(speculative="eagle"),
 ])
 def test_serve_config_validation_matches_reference(bad):
     with pytest.raises(ValueError):
@@ -356,6 +337,24 @@ def test_serve_config_from_config_bridges_kv_knobs():
         == ("int4", 16)
     with pytest.raises(ValueError, match="kv_group"):
         engine.ServeConfig(kv_group=0)
+
+
+def test_serve_config_from_config_bridges_feature_knobs():
+    from mpi_tensorflow_torch.config import Config
+
+    from mpi_tensorflow_tpu.config import Config as JaxConfig
+
+    kw = dict(serve_prefix_cache="on", serve_prefix_gen="on",
+              serve_kv_tier="host", serve_speculative="draft-model",
+              serve_draft_k=3, serve_draft_auto="on",
+              serve_prefill_budget=16)
+    got = dataclasses.asdict(engine.ServeConfig.from_config(Config(**kw)))
+    want = dataclasses.asdict(
+        jax_engine.ServeConfig.from_config(JaxConfig(**kw)))
+    assert got.pop("kernel") == "auto" and want.pop("kernel") == "auto"
+    assert got == want
+    mixed = engine.ServeConfig.from_config(Config(serve_mixed_batch="on"))
+    assert mixed.mixed_batch == "on"
 
 
 # ---------------------------------------------------- device + entry point
