@@ -14,8 +14,9 @@ fails:
    ``paged_attention_reference`` at the serving shapes (H=12, D=64,
    bs=16, every S in 1, 2, 4, ..., 64, B in {1, 8}, NB up to 32, plus
    BERT_TINY's H=4, D=16, and at both the widths 3, 5, 6 that do not
-   divide the 8-query tile (B=8; 5 is speculation's verify); float32 and
-   bfloat16; ragged rows, a
+   divide the 8-query tile (B=8; 5 is speculation's verify), and at H=6
+   and H=3 (a tensor-parallel rank's heads of BERT_BASE under tp 2 and
+   4) at S in 1, 5, 16; float32 and bfloat16; ragged rows, a
    bucket-slack row, poisoned null-block and dead lanes; and at S = 1 and
    8 the edge rows of ``EDGE_LENS``: live lengths that are not a multiple
    of bs, one live block, a query's own column on either side of a block
@@ -47,9 +48,10 @@ fails:
    tokens must be identical to each other and to ``CausalLm.generate``;
 4b. the same two lowerings from an int8 and from an int4 pool: identical
    greedy tokens;
-15. (run right after 4, beside phase 3's numbers) the serving features
-   at phase 3's setup (``BERT_BASE``, bf16, ``kernel="cuda"``, a warmup
-   replay before the timed one): every request ``ok``, and the paged
+15. (run after 16, before phase 2's timing and any ``torch.profiler``
+   session, as phase 3 is; no warmup replays) the serving features
+   at phase 3's setup (``BERT_BASE``, bf16, ``kernel="cuda"``): every
+   request ``ok``, and the paged
    kernel's launches == layers x forward dispatches (+ the draft model's
    layers x its feeds) — 15a: the prefix cache on phase 3's trace with
    a shared 64-token prompt: hit tokens > 0 and fewer prefill dispatches
@@ -57,9 +59,11 @@ fails:
    tier on a 12-request trace with its follow-up turn through a 40-block
    pool: gen-inserted blocks, demotions and promotions > 0, the landed
    promotion ms printed; 15c: mixed batching on phase 3's trace, then
-   both loops replayed on one virtual clock: mixed dispatches per token
-   below the mixed-off loop's; 15d: ngram (phase 3's trace) and
-   draft-model speculation (8 requests; no warmup replay), acceptance
+   both loops replayed on one virtual clock (the trace's first 12
+   requests): mixed dispatches per token
+   below the mixed-off loop's; 15d: ngram (12 requests) and
+   draft-model speculation (4 requests), each beside a control with
+   speculation off, acceptance
    rate printed; 15e: float32, 2 layers
    at full width, 2 slots, a 32-token shared prompt: prefix + mixed and
    prefix + the target as its own drafter, served with ``cuda`` and
@@ -123,8 +127,7 @@ fails:
    ms, MFU and the test-error history printed beside the card's name and
    power limit; then one bf16 epoch the same way; 10c: every hand
    kernel's launch count (paged, flash, fused) set to 0 before 10b and
-   still 0 after it; then ``python -m mpi_tensorflow_torch.bench --mode
-   train`` at fp32 and bf16 (200 timed steps), each line printed;
+   still 0 after it (its bench lines: 13e);
 11. the data axis over ``torch.distributed`` (no hand kernel lies on it;
    each case runs in processes of its own, through ``torchrun`` or the
    bench, with this file as the worker: ``chip_smoke.py --worker NAME
@@ -144,9 +147,10 @@ fails:
    390 steps, 8 trace points of 2 lines, every average watched: the
    replicas apart before it, bit-identical after it, and within 1 ulp of
    the mean of the gathered replicas; final error < 30 % and <= the
-   first; 11c: ``python -m mpi_tensorflow_torch.bench --mode allreduce``
-   (a world of one over NCCL: a launch and a copy on the card, not a
-   link), its line printed;
+   first (both worlds side by side with 13d's two); 11c: ``python -m
+   mpi_tensorflow_torch.bench --mode allreduce`` (a world of one over
+   NCCL: a launch and a copy on the card, not a link), its line printed
+   (run through ``bench.main`` in 13e's bench child);
 12. data-parallel BERT-base MLM training (``train.gspmd`` across the
    ranks; each case in processes of its own, as in phase 11) — 12a: NCCL
    at world size 1, ``cli.main`` in a torchrun rank as ``torchrun
@@ -168,8 +172,8 @@ fails:
    parameters + moments 0.50-0.51 of a replica's, every leaf that stays
    whole under 1024 elements; 12c: ``python -m mpi_tensorflow_torch.bench
    --mode train --model bert_base --seq-len 4096 --batch-size 4
-   --precision bf16``, plain and under ``torchrun --nproc_per_node 1``,
-   each line printed.
+   --precision bf16`` under ``torchrun --nproc_per_node 1``, its line
+   printed (plain: 13e).
 
 13. ResNet-20 and ResNet-50 training (no hand kernel lies on it: conv,
    pool, BatchNorm and the fc are PyTorch's) — 13a: single float32
@@ -202,17 +206,20 @@ fails:
    state within ``RESNET_DP_TOL``), and an avg50 run (the first 13 000
    rows, 46 steps, 4 averages) with every average watched: replicas
    (their BatchNorm statistics too) apart before it, bit-identical
-   after it, within 1 ulp of the gathered mean; 13e: ``python -m
-   mpi_tensorflow_torch.bench --mode train --model resnet20|resnet50``
-   at fp32 and bf16 (30 and 8 timed steps), each line printed.
+   after it, within 1 ulp of the gathered mean (the two gloo worlds
+   run beside 11b's); 13e: the bench's
+   one-card lines, ``python -m mpi_tensorflow_torch.bench --mode train``
+   through ``bench.main`` in one child process (``--worker
+   bench_lines``, no profiler session before it): the CNN (200 timed
+   steps), BERT_BASE at S = 4096 bf16 (10), ResNet-20 (30) and ResNet-50
+   (8), fp32 and bf16, each line printed.
 14. the trainers' long-run services (no kernel is added; 14c runs the
    flash kernels) — 14a: 13b's ResNet-50 bf16 trainer, ResNet-20 fp32
-   and the CNN through ``cli.main``, ResNet-50 with ``--prefetch``
-   off, thread, thread, off and the other two off, thread, in a process
-   of their own (no ``torch.profiler`` session before them; cuDNN's
-   deterministic algorithms in all), the trace lines identical in every
-   run, images/s and step ms of each run printed pair by pair; then
-   ``python -m mpi_tensorflow_torch.bench --mode hostio`` with
+   and the CNN through ``cli.main``, each with ``--prefetch`` off, then
+   thread, in a process of their own (no ``torch.profiler`` session
+   before them; cuDNN's deterministic algorithms in all), the trace
+   lines identical in every run, images/s and step ms of each run
+   printed; then, in that process, ``bench --mode hostio`` with
    ResNet-50's thread rate as the card's demand; 14b:
    ResNet-20 fp32 psum through ``cli.main`` on 13d's 13 000 rows (93
    steps, a trace every 10; cuDNN deterministic) with
@@ -230,9 +237,36 @@ fails:
    run counted from 0 (the ``launches_resumed`` of the kernels line);
    the checkpoint's GiB, save and restore ms printed; 14d: zero1 and
    fsdp checkpoints of ``dp_bert_cfg`` after 2 steps on two gloo ranks
-   on ``cuda:0`` (each rank its slices), each restored at world 1 in
-   this process and at world 1 over NCCL (torchrun), the third step
-   within ``DP_TOL`` of the uninterrupted one-process step.
+   on ``cuda:0`` (each rank its slices; that world runs beside 12b's),
+   each restored at world 1 in this process and, at once, at world 1
+   over NCCL (torchrun), the third step within ``DP_TOL`` of the
+   uninterrupted one-process step.
+16. (run right after 4, before any ``torch.profiler`` session: 15 and
+   then phase 2's timing follow it) the serving fleet (``serving/router``,
+   ``recovery``, ``tracing``, ``tp``), each fleet run's paged-kernel
+   launches counted from 0 and equal to layers x forward dispatches
+   summed over the replicas, every request ``ok`` — 16a: two replicas of
+   phase 3's engine on ``cuda:0`` (one CUDA stream each, the model
+   shared), phase 3's trace sequentially and then a thread a replica:
+   tokens/s, p50, p99 and ``speedup_vs_single_replica`` beside phase 3's
+   run; then float32, 2 layers at full width, 6 requests at once: the
+   fleet's tokens (both modes) == the single engine's; 16b: that check
+   with a transient fault at replica 0's tick 3 (outputs == the
+   unfaulted fleet's, one failover, the replica probed back to
+   ``healthy``) and with a permanent one (``dead``, every request still
+   served); 16c: a child ``python -m mpi_tensorflow_torch.bench --mode
+   serving --precision fp32 --requests 8 --arrival-rate 8
+   --serve-journal`` SIGKILLed once its journal holds 8 token records,
+   relaunched on the journal: its outputs == an unfaulted run's; 16d:
+   phase 3's trace through a traced fleet (tokens/s beside 16a's
+   untraced sequential run: the tracer's cost; every span's phases sum
+   to its wall time within 1e-6 s; the Chrome trace parses, one pid a
+   replica), and 16a's float32 check traced: the untraced tokens; 16e:
+   16a's float32 check through a tensor-parallel engine, ``torchrun
+   --nproc_per_node 2 chip_smoke.py --worker tp_serve gloo`` (two gloo
+   ranks on ``cuda:0``; NCCL refuses two ranks on one card) and at
+   world 1 over NCCL: the single engine's tokens, the pools at H / tp
+   heads, launches == layers x dispatches on rank 0.
 
 Prints one ``kernels`` JSON line, then the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a card it
@@ -309,6 +343,35 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout
     return out.strip().splitlines()[0]
+
+
+def host_line() -> str:
+    """The host: its CPU (``/proc/cpuinfo``'s model name, or its
+    implementer and part codes where there is none), the cores this
+    process may use, and the ms a fixed pure-Python loop takes here.  The
+    script's time follows the host (the trainers' steps are host-paced),
+    so each run records the host it had."""
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    cpu = fields.get("model name") or (
+        f"implementer {fields.get('CPU implementer', '?')} part "
+        f"{fields.get('CPU part', '?')}")
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(2_000_000):
+        acc += i & 7
+    loop_ms = 1e3 * (time.perf_counter() - t0)
+    return (f"{platform.machine()} {cpu}; {len(os.sched_getaffinity(0))} "
+            f"of {os.cpu_count()} cores usable; a 2e6-step Python loop "
+            f"{loop_ms:.1f} ms")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -388,6 +451,8 @@ def paged_case(rng, B: int, NB: int, S: int, dtype, dev, H=H, D=D,
 EDGE_LENS = (37, 0, 15, 16, 5, 12, 47)
 # query widths that are not powers of two (the verify dispatch is 5 wide)
 ODD_WIDTHS = (3, 5, 6)
+# BERT_BASE's heads on one rank under tp 2 and 4 (phase 16e)
+TP_HEADS = (H // 2, H // 4)
 EDGE_SHAPES = [(S, len(EDGE_LENS) + 1, 8, H, D) for S in (1, 8)]
 
 
@@ -405,6 +470,8 @@ def check_kernel(dev) -> dict:
     # verify dispatch (draft_k + 1 = 5) and mixed rows' chunks
     shapes += [(S, 8, NB, h, d, None) for S in ODD_WIDTHS
                for NB, h, d in ((32, H, D), (8, 4, 16))]
+    # a tensor-parallel rank's head shard of BERT_BASE: H / 2 and H / 4
+    shapes += [(S, 8, 16, h, D, None) for h in TP_HEADS for S in (1, 5, 16)]
     shapes += [(*shape, EDGE_LENS) for shape in EDGE_SHAPES]
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -430,8 +497,8 @@ def check_kernel(dev) -> dict:
                     f"(tolerance {atol} + {rtol}*|want|)")
         log(f"[kernel] {str(dtype)[6:]}: max|kernel - plain| = "
             f"{worst[dtype]:.3e} over {len(shapes)} shapes: S=1..64 and "
-            f"{ODD_WIDTHS}, B in (1, 8), H={H} D={D}, H=4 D=16, and the "
-            f"edge rows "
+            f"{ODD_WIDTHS}, B in (1, 8), H={H} D={D}, H=4 D=16, the head "
+            f"shards H in {TP_HEADS} at S in (1, 5, 16), and the edge rows "
             f"{EDGE_LENS} at S in (1, 8) (tolerance {atol} abs + {rtol} "
             f"rel)")
     return worst
@@ -1009,9 +1076,15 @@ class VirtualClock:
 # on the card: phase 3's 537 in 9.58 s); a longer iteration overlaps
 # more requests and so replays in fewer dispatches
 MIXED_STEP_S = 0.01
+# ... over the trace's first 12 requests (cut for the script's time)
+MIXED_VIRTUAL_REQUESTS = 12
 # 15d: the draft model's run (a synchronised small forward a drafted
-# token) on an 8-request trace of phase 3's spec and seed
-DRAFT_TRACE = dict(num_requests=8)
+# token) on a 4-request trace of phase 3's spec and seed (cut for the
+# script's time)
+DRAFT_TRACE = dict(num_requests=4)
+# 15d: ngram speculation and its control on a 12-request trace of phase
+# 3's spec and seed (cut for the script's time)
+NGRAM_TRACE = dict(num_requests=12)
 
 
 # 15b: a short trace whose follow-up turn meets a pool too small to keep
@@ -1130,7 +1203,10 @@ def feature_phase(dev, card: str, ref: dict, ref_engine, trace) -> dict:
     run's paged kernel launches."""
     launches = {}
     phase("15a")
-    on = serve_features(dev, "prefix", prefix_cache="on", prefix_tokens=64)
+    # no warmup replays in phase 15 (cut for the script's time): phase 3
+    # left nothing to build
+    on = serve_features(dev, "prefix", warm=False, prefix_cache="on",
+                        prefix_tokens=64)
     off = serve_features(dev, "prefix off", warm=False, prefix_tokens=64)
     feature_line("prefix", on, ref, card)
     # bf16 tokens may part where a request's batch differs (arrivals are
@@ -1151,7 +1227,7 @@ def feature_phase(dev, card: str, ref: dict, ref_engine, trace) -> dict:
     del on, off
     phase("15b")
     tier = serve_features(dev, "prefix v2 + host tier", two_turn=True,
-                          watch_tier=True, prefix_cache="on",
+                          warm=False, watch_tier=True, prefix_cache="on",
                           prefix_gen="on", kv_tier="host", **TIER_TRACE)
     feature_line("prefix v2 + host tier", tier, ref, card)
     t, watch = tier["tier"], tier["tier_watch"]
@@ -1173,7 +1249,7 @@ def feature_phase(dev, card: str, ref: dict, ref_engine, trace) -> dict:
     launches["15b"] = tier["launches"]
     del tier
     phase("15c")
-    mixed = serve_features(dev, "mixed", mixed_batch="on")
+    mixed = serve_features(dev, "mixed", warm=False, mixed_batch="on")
     feature_line("mixed", mixed, ref, card)
     launches["15c"] = mixed["launches"]
     # dispatches per token follow the step time on a wall-clock trace
@@ -1183,8 +1259,8 @@ def feature_phase(dev, card: str, ref: dict, ref_engine, trace) -> dict:
     virtual = {}
     for arm, engine in (("off", ref_engine), ("mixed", mixed["engine"])):
         engine.reset()
-        res = engine.run(trace.requests(), time_fn=VirtualClock(
-            MIXED_STEP_S))
+        res = engine.run(trace.requests()[:MIXED_VIRTUAL_REQUESTS],
+                         time_fn=VirtualClock(MIXED_STEP_S))
         virtual[arm] = res["dispatches_per_token"]
     log(f"[serve mixed] dispatches per token on the wall clock "
         f"(the card's effect, not held): {mixed['dispatches_per_token']} "
@@ -1199,7 +1275,8 @@ def feature_phase(dev, card: str, ref: dict, ref_engine, trace) -> dict:
     from mpi_tensorflow_torch.serving.engine import PagedDecodeEngine
     from mpi_tensorflow_torch.serving.harness import build_serving
 
-    for mode, trace_kw in (("ngram", {}), ("draft-model", DRAFT_TRACE)):
+    for mode, trace_kw in (("ngram", NGRAM_TRACE),
+                           ("draft-model", DRAFT_TRACE)):
         # no warmup replay: phase 3 left nothing to build or grow, and
         # the draft model's feeds are one forward each.  The control is
         # the same rope model on the same trace with speculation off,
@@ -2033,21 +2110,43 @@ def cnn_zero_flag(dev, card: str, argv, want_steps: int,
     return summary
 
 
-def cnn_bench(precision: str) -> dict:
-    """``python -m mpi_tensorflow_torch.bench --mode train`` in its own
-    process; its JSON line."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    out = subprocess.run(
-        [sys.executable, "-m", "mpi_tensorflow_torch.bench", "--mode",
-         "train", "--precision", precision, "--steps", "200",
-         "--warmup", "20"], cwd=root, check=True,
-        capture_output=True, text=True, timeout=300).stdout
-    line = out.strip().splitlines()[-1]
-    res = json.loads(line)
-    if not (res["images_per_sec"] > 0 and np.isfinite(res["final_loss"])):
-        raise AssertionError(f"bench {precision}: {line}")
-    log(f"[cnn bench] {line}")
-    return res
+def bench_main_line(argv) -> dict:
+    """``python -m mpi_tensorflow_torch.bench`` with ``argv``, run in this
+    process (``bench.main``): its JSON line."""
+    from mpi_tensorflow_torch import bench
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench.main(list(argv))
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+# the bench's one-card lines, all in one child process with no
+# torch.profiler session before it (13e; one launch for phases 10, 11c,
+# 12c and 13e, for the script's time): the zero-flag CNN's step (200
+# timed after 20), BERT_BASE at S = 4096 (10 after 3), ResNet-20 (30
+# after 3) and ResNet-50 (8 after 2), fp32 and bf16 (BERT bf16); after
+# them 11c's allreduce bench
+BENCH_LINES = tuple(
+    [(f"cnn {p}", ["--precision", p, "--steps", "200", "--warmup", "20"])
+     for p in ("fp32", "bf16")]
+    + [("bert_base bf16", ["--model", "bert_base", "--seq-len", "4096",
+                           "--batch-size", "4", "--precision", "bf16",
+                           "--steps", "10", "--warmup", "3"])]
+    + [(f"{m} {p}", ["--model", m, "--precision", p, "--steps", n,
+                     "--warmup", w])
+       for m, n, w in (("resnet20", "30", "3"), ("resnet50", "8", "2"))
+       for p in ("fp32", "bf16")])
+
+
+def worker_bench_lines(_backend: str) -> None:
+    """13e: each of ``BENCH_LINES`` through ``bench.main``, then 11c's
+    allreduce bench (a world of one made and ended in this process)."""
+    lines = {label: bench_main_line(["--mode", "train", *argv])
+             for label, argv in BENCH_LINES}
+    lines["allreduce"] = bench_main_line(["--mode", "allreduce"])
+    print(DP_RESULT + json.dumps({"case": "bench_lines", "lines": lines}),
+          flush=True)
 
 
 def cnn_phase(dev, card: str) -> dict:
@@ -2055,7 +2154,7 @@ def cnn_phase(dev, card: str) -> dict:
     training against the CPU's; 10b runs ``python -m
     mpi_tensorflow_torch``'s zero-flag path (2 epochs, 1562 steps, 32
     trace lines) and one bf16 epoch; 10c checks that no hand kernel
-    launched on either run; then the bench at fp32 and bf16."""
+    launched on either run (its bench lines: 13e)."""
     cross = cnn_cross_check(dev)
     phase("10b")
     saved = hand_kernel_counts()
@@ -2075,9 +2174,7 @@ def cnn_phase(dev, card: str) -> dict:
         raise AssertionError(f"the CNN path launched hand kernels: {moved}")
     log("[cnn] no hand kernel launched on the CNN path (paged, flash and "
         "fused counts all 0)")
-    phase("10 bench")
-    bench = {p: cnn_bench(p) for p in ("fp32", "bf16")}
-    return {"cross_check": cross, "runs": runs, "bench": bench}
+    return {"cross_check": cross, "runs": runs}
 
 
 # --------------------------------------------------------------- phase 11
@@ -2116,6 +2213,68 @@ def torchrun(nproc: int, args, timeout: float) -> str:
     return run_sub([sys.executable, "-m", "torch.distributed.run",
                     f"--nproc_per_node={nproc}", "--master_addr=127.0.0.1",
                     f"--master_port={mesh.free_port()}", *args], timeout)
+
+
+def start_torchruns(jobs) -> list:
+    """Each ``(nproc, args)`` of ``jobs`` under torchrun, all started at
+    once, each on a localhost port of its own, their output to files (a
+    blocked pipe could stall a world): worlds that only check, run side
+    by side to save the script's time.  ``finish_torchruns`` collects
+    them."""
+    import tempfile
+
+    from mpi_tensorflow_torch.parallel import mesh
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ports, started = set(), []
+    try:
+        for nproc, args in jobs:
+            port = mesh.free_port()
+            while port in ports:
+                port = mesh.free_port()
+            ports.add(port)
+            out = tempfile.TemporaryFile("w+")
+            started.append((subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run",
+                 f"--nproc_per_node={nproc}", "--master_addr=127.0.0.1",
+                 f"--master_port={port}", *args], cwd=root, stdout=out,
+                stderr=subprocess.STDOUT, text=True,
+                start_new_session=True), out, args))
+    except BaseException:
+        finish_torchruns(started, 0.0)
+        raise
+    return started
+
+
+def finish_torchruns(started, timeout: float) -> list:
+    """The standard outputs of ``start_torchruns``' worlds, in order,
+    once each has exited.  At ``timeout`` seconds from now every process
+    group still running is killed; a nonzero exit raises with the end of
+    its output."""
+    try:
+        deadline = time.monotonic() + timeout
+        for proc, _, _ in started:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for proc, _, _ in started:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    outs = []
+    for proc, out, args in started:
+        out.seek(0)
+        text = out.read()
+        out.close()
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun {args} exited "
+                                 f"{proc.returncode}:\n{text[-6000:]}")
+        outs.append(text)
+    return outs
+
+
+def torchrun_all(jobs, timeout: float) -> list:
+    """``start_torchruns(jobs)``, then their outputs, in order."""
+    return finish_torchruns(start_torchruns(jobs), timeout)
 
 
 def dp_result(out: str) -> dict:
@@ -2403,7 +2562,8 @@ def dp_phase(card: str, cnn: dict) -> dict:
     and the psum step across the ranks against the plain one; 11b: two
     ranks on ``cuda:0`` over gloo — psum steps against the in-process
     two-shard step, and one avg50 epoch with every average watched;
-    11c: the allreduce bench at world size 1 over NCCL."""
+    11c: the allreduce bench at world size 1 over NCCL (in 13e's bench
+    child).  Returns, besides, 13d's two gloo worlds' results."""
     every50 = lambda n: [t for t in range(1, n) if t % 50 == 0] + [n - 1]
     me = os.path.abspath(__file__)
     phase("11a")
@@ -2428,11 +2588,14 @@ def dp_phase(card: str, cnn: dict) -> dict:
                                         "nccl"], 300))
     check_psum_steps(nccl_steps)
     phase("11b")
-    gloo_steps = dp_result(torchrun(2, [me, "--worker", "psum_steps",
-                                        "gloo"], 300))
+    # the check-only gloo worlds side by side, 13d's two ResNet worlds
+    # with them (for the script's time): 13d reads their results
+    gloo_steps, avg, *resnet_worlds = map(dp_result, torchrun_all(
+        [(2, [me, "--worker", "psum_steps", "gloo"]),
+         (2, [me, "--worker", "avg50_epoch", "gloo"]),
+         (2, [me, "--worker", "resnet_psum_steps", "gloo"]),
+         (2, [me, "--worker", "resnet_avg50", "gloo"])], 900))
     check_psum_steps(gloo_steps)
-    out = torchrun(2, [me, "--worker", "avg50_epoch", "gloo"], 600)
-    avg = dp_result(out)
     trace = check_trace(avg["lines"], 2, every50(390), "avg50, 2 ranks")
     errs = [e for _, e in avg["history"]]
     checks = avg["averages"]
@@ -2454,17 +2617,12 @@ def dp_phase(card: str, cnn: dict) -> dict:
         f"{max(c['max_ulp'] for c in checks)} ulp of the gathered mean; "
         f"test error {errs[0]} -> {errs[-1]} %; rank 0: "
         f"{avg['images_per_sec']:.1f} images/s, step {avg['step_ms']:.3f} "
-        f"ms (two ranks share the card); {card}")
-    phase("11c")
-    out = run_sub([sys.executable, "-m", "mpi_tensorflow_torch.bench",
-                   "--mode", "allreduce"], 300)
-    bench = json.loads(out.strip().splitlines()[-1])
-    if not (bench["num_devices"] == 1 and bench["allreduce_ms"] > 0
-            and "nccl" in bench["backend"]):
-        raise AssertionError(f"allreduce bench: {bench}")
-    log(f"[dp bench] {json.dumps(bench)}")
+        f"ms (two ranks share the card, beside the psum check's world); "
+        f"{card}")
+    # 11c, the allreduce bench, runs in 13e's bench child
     return {"nccl_world1": one, "nccl_steps": nccl_steps,
-            "gloo_steps": gloo_steps, "avg50": avg, "bench": bench}
+            "gloo_steps": gloo_steps, "avg50": avg,
+            "resnet_worlds": resnet_worlds}
 
 
 # --------------------------------------------------------------- phase 12
@@ -2717,8 +2875,12 @@ def bert_dp_phase(card: str, phase7: dict) -> dict:
     if problems:
         raise AssertionError(f"phase 12a: {problems}")
     phase("12b")
-    steps = dp_result(torchrun(2, [me, "--worker", "bert_steps", "gloo"],
-                               600))
+    # 14d's two-rank save runs beside this check-only world (for the
+    # script's time); 14d restores what it saved
+    shutil.rmtree(os.path.join(CKPT_DIR, "dp"), ignore_errors=True)
+    steps, ckpt_save = map(dp_result, torchrun_all(
+        [(2, [me, "--worker", "bert_steps", "gloo"]),
+         (2, [me, "--worker", "ckpt_save", "gloo"])], 600))
     bad = {n: d for n, d in {**steps["vs_plain"],
                              **{f"{n} vs replicated": d for n, d in
                                 steps["vs_replicated"].items()}}.items()
@@ -2756,21 +2918,18 @@ def bert_dp_phase(card: str, phase7: dict) -> dict:
     if bad:
         raise AssertionError(f"phase 12b: {bad}")
     phase("12c")
-    bench_args = ["-m", "mpi_tensorflow_torch.bench", "--mode", "train",
-                  "--model", "bert_base", "--seq-len", str(TRAIN_SEQ),
-                  "--batch-size", str(TRAIN_BATCH), "--precision", "bf16",
-                  "--steps", "10", "--warmup", "3"]
-    benches = {}
-    for name, out in (("plain", lambda: run_sub(
-            [sys.executable, *bench_args], 300)),
-                      ("torchrun", lambda: torchrun(1, bench_args, 300))):
-        line = json.loads(out().strip().splitlines()[-1])
-        if not (line["num_devices"] == 1 and line["step_time_ms"] > 0
-                and np.isfinite(line["final_loss"])):
-            raise AssertionError(f"phase 12c, {name}: {line}")
-        benches[name] = line
-        log(f"[dp bert bench] {name}: {json.dumps(line)}")
-    return {"bert_train": res, "bert_steps": steps, "bench": benches}
+    # the BERT bench under torchrun (plain: 13e's bench child)
+    line = json.loads(torchrun(1, [
+        "-m", "mpi_tensorflow_torch.bench", "--mode", "train", "--model",
+        "bert_base", "--seq-len", str(TRAIN_SEQ), "--batch-size",
+        str(TRAIN_BATCH), "--precision", "bf16", "--steps", "10",
+        "--warmup", "3"], 300).strip().splitlines()[-1])
+    if not (line["num_devices"] == 1 and line["step_time_ms"] > 0
+            and np.isfinite(line["final_loss"])):
+        raise AssertionError(f"phase 12c, torchrun: {line}")
+    log(f"[dp bert bench] torchrun: {json.dumps(line)}")
+    return {"bert_train": res, "bert_steps": steps,
+            "bench": {"torchrun": line}, "ckpt_save": ckpt_save}
 
 
 # --------------------------------------------------------------- phase 13
@@ -3216,14 +3375,15 @@ WORKERS.update(resnet_psum_steps=worker_resnet_psum_steps,
                    backend, RESNET_AVG50_ARGS, load=resnet_avg50_splits))
 
 
-def resnet_phase(dev, card: str) -> dict:
+def resnet_phase(dev, card: str, resnet_worlds) -> dict:
     """Phase 13: ResNet-20 and ResNet-50 training.  13a: single steps on
     the card against the CPU's; 13b: one epoch of each through
     ``cli.main``, fp32 and bf16; 13c: no hand kernel launched on 13b's
     runs; 13d: ResNet-20 through torchrun at world 1 over NCCL, then two
     gloo ranks on ``cuda:0``: psum steps against the in-process two-shard
-    step, and an avg50 run with every average watched; 13e: the bench's
-    ResNet lines."""
+    step, and an avg50 run with every average watched (``resnet_worlds``,
+    their results: the worlds ran beside 11b's); 13e: the bench's lines
+    and 11c's allreduce line."""
     from mpi_tensorflow_torch.train import loop
 
     phase("13a")
@@ -3275,8 +3435,8 @@ def resnet_phase(dev, card: str) -> dict:
         f"{trace[0][1]} -> {trace[-1][1]} %; {json.dumps(world1)} beside "
         f"13b's {runs['resnet20', 'fp32']['images_per_sec']:.1f} images/s "
         f"(no process group); {card}")
-    psum = dp_result(torchrun(2, [me, "--worker", "resnet_psum_steps",
-                                  "gloo"], 300))
+    # the two check-only worlds ran beside 11b's
+    psum, avg = resnet_worlds
     log(f"[resnet dp] psum, 2 ranks on cuda:0 over gloo, ResNet-20 float32, "
         f"{RESNET_DP_STEPS} steps of {RESNET_DP_ROWS} rows a rank from the "
         f"seed-0 state against the in-process two-shard step: "
@@ -3284,8 +3444,6 @@ def resnet_phase(dev, card: str) -> dict:
         f"{psum['losses']}")
     if any(psum["diff"][k] > RESNET_DP_TOL[k] for k in RESNET_DP_TOL):
         raise AssertionError(f"ResNet psum across ranks: {psum}")
-    avg = dp_result(torchrun(2, [me, "--worker", "resnet_avg50", "gloo"],
-                             600))
     want_trace = every(avg["steps"], 10)
     trace = check_trace(avg["lines"], 2, want_trace, "ResNet avg50, 2 ranks")
     checks = avg["averages"]
@@ -3305,19 +3463,19 @@ def resnet_phase(dev, card: str) -> dict:
         f"(the statistics {max(c['state_max_ulp'] for c in checks)} ulp); "
         f"test error {trace[0][1]} -> {trace[-1][1]} %; {card}")
     phase("13e")
-    benches = {}
-    for name, extra in (("resnet20", ["--steps", "30", "--warmup", "3"]),
-                        ("resnet50", ["--steps", "8", "--warmup", "2"])):
-        for prec in ("fp32", "bf16"):
-            out = run_sub([sys.executable, "-m", "mpi_tensorflow_torch.bench",
-                           "--mode", "train", "--model", name,
-                           "--precision", prec, *extra], 300)
-            line = json.loads(out.strip().splitlines()[-1])
-            if not (line["images_per_sec"] > 0
-                    and np.isfinite(line["final_loss"])):
-                raise AssertionError(f"bench {name} {prec}: {line}")
-            benches[name, prec] = line
-            log(f"[resnet bench] {json.dumps(line)}")
+    me = os.path.abspath(__file__)
+    benches = dp_result(run_sub([sys.executable, me, "--worker",
+                                 "bench_lines", "none"], 600))["lines"]
+    allreduce = benches.pop("allreduce")
+    if not (allreduce["num_devices"] == 1 and allreduce["allreduce_ms"] > 0
+            and "nccl" in allreduce["backend"]):
+        raise AssertionError(f"allreduce bench: {allreduce}")
+    log(f"[dp bench] 11c: {json.dumps(allreduce)}")
+    for label, line in benches.items():
+        rate = line.get("images_per_sec", line.get("tokens_per_sec"))
+        if not (rate and rate > 0 and np.isfinite(line["final_loss"])):
+            raise AssertionError(f"bench {label}: {line}")
+        log(f"[bench] {label}: {json.dumps(line)}")
     return {"cross_check": cross, "runs": runs, "launches": launched,
             "world1": world1, "psum": psum, "avg50": avg,
             "bench": benches}
@@ -3325,24 +3483,23 @@ def resnet_phase(dev, card: str) -> dict:
 
 # --------------------------------------------------------------- phase 14
 
-# 14a: each image trainer through cli.main, --prefetch off and thread in
-# the order off, thread, thread, off (the first run of a trainer pays
-# its warm-up: cuDNN plans, the allocator's growth), every pair
-# reported; cuDNN's deterministic algorithms in every run (the trace
-# lines are compared: the default algorithms move ResNet-50's test error
-# by a row between runs), all in a process with no torch.profiler
-# session.  13b's ResNet-50 bf16 epoch (29 steps), ResNet-20 fp32 on
-# 13d's 13 000 rows (93 steps) and phase 10's CNN fp32 epoch (781 steps)
+# 14a: each image trainer through cli.main, --prefetch off, then thread
+# (the first run of a trainer pays its warm-up: cuDNN plans, the
+# allocator's growth, so the pair leans toward thread); cuDNN's
+# deterministic algorithms in every run (the trace lines are compared:
+# the default algorithms move ResNet-50's test error by a row between
+# runs), all in a process with no torch.profiler session: 13b's
+# ResNet-50 bf16 epoch (29 steps), ResNet-20 fp32 on 13d's 13 000 rows
+# (93 steps) and phase 10's CNN fp32 epoch (781 steps)
 PREFETCH_ARGS = RESNET50_ARGS + ["--precision", "bf16"]
-# ResNet-50 runs both pairs; ResNet-20 and the CNN, whose earlier pairs
-# left unresolved within the host's drift, run one pair each
-PREFETCH_PAIRS = ("off", "thread", "thread", "off")
+# one pair each (cut for the script's time)
+PREFETCH_PAIRS = ("off", "thread")
 PREFETCH_TRAINERS = (("resnet50_bf16", PREFETCH_ARGS, PREFETCH_PAIRS),
                      ("resnet20_fp32", RESNET20_ARGS + ["--precision",
                                                         "fp32"],
-                      PREFETCH_PAIRS[:2]),
+                      PREFETCH_PAIRS),
                      ("cnn_fp32", ["--data-dir", CNN_DATA_DIR, "--epochs",
-                                   "1"], PREFETCH_PAIRS[:2]))
+                                   "1"], PREFETCH_PAIRS))
 # then the host feed alone: 64 rows a step, windows of 11 (the trainer's)
 HOSTIO_ARGS = ["--batch-size", "64", "--window-k", "11", "--windows", "6",
                "--hostio-dir", "build"]
@@ -3508,21 +3665,31 @@ def worker_prefetch_arms(_backend: str) -> None:
                 "step_ms": res.step_time_seconds * 1e3,
                 "steps": res.num_steps, "history": res.history,
                 "final_loss": res.final_loss, "lines": lines})
-    print(DP_RESULT + json.dumps({"case": "prefetch_arms", "arms": arms}),
+    # the host feed alone (``bench --mode hostio`` run in this process),
+    # with ResNet-50's thread rate as the card's demand
+    thread = [r["images_per_sec"] for r in arms["resnet50_bf16"]
+              if r["prefetch"] == "thread"]
+    demand = sum(thread) / len(thread)
+    hostio = bench_main_line(["--mode", "hostio", "--demand-images-per-sec",
+                              repr(demand), *HOSTIO_ARGS])
+    print(DP_RESULT + json.dumps({"case": "prefetch_arms", "arms": arms,
+                                  "demand": demand, "hostio": hostio}),
           flush=True)
 
 
-WORKERS.update(prefetch_arms=worker_prefetch_arms)
+WORKERS.update(prefetch_arms=worker_prefetch_arms,
+               bench_lines=worker_bench_lines)
 
 
 def prefetch_phase(card: str) -> dict:
-    """14a: each image trainer with --prefetch off and thread, alternated,
-    in a child process (the trace identical in every run; images/s and
-    step ms of each run, pair by pair), then the hostio bench with this
-    card's ResNet-50 thread rate as the demand."""
+    """14a: each image trainer with --prefetch off and thread in a child
+    process (the trace identical in every run; images/s and step ms of
+    each run), then, in the same child, the hostio bench with this card's
+    ResNet-50 thread rate as the demand."""
     me = os.path.abspath(__file__)
-    arms = dp_result(run_sub([sys.executable, me, "--worker",
-                              "prefetch_arms", "none"], 600))["arms"]
+    res = dp_result(run_sub([sys.executable, me, "--worker",
+                             "prefetch_arms", "none"], 600))
+    arms, demand, hostio = res["arms"], res["demand"], res["hostio"]
     for name, runs in arms.items():
         if any(r["lines"] != runs[0]["lines"]
                or not np.isfinite(r["final_loss"]) for r in runs):
@@ -3537,13 +3704,6 @@ def prefetch_phase(card: str) -> dict:
                     f"{r['prefetch']} {r['step_ms']:.3f} ms a step "
                     f"({r['images_per_sec']:.1f} images/s)" for r in pair)
                 for k, pair in enumerate(pairs)) + f"; {card}")
-    thread = [r["images_per_sec"] for r in arms["resnet50_bf16"]
-              if r["prefetch"] == "thread"]
-    demand = sum(thread) / len(thread)
-    out = run_sub([sys.executable, "-m", "mpi_tensorflow_torch.bench",
-                   "--mode", "hostio", "--demand-images-per-sec",
-                   repr(demand), *HOSTIO_ARGS], 300)
-    hostio = json.loads(out.strip().splitlines()[-1])
     if not (hostio["host_images_per_sec_inline"] > 0
             and hostio["host_images_per_sec_thread"] > 0
             and hostio["host_images_per_sec_native"] is None
@@ -3829,17 +3989,22 @@ WORKERS.update(ckpt_save=worker_ckpt_save,
                ckpt_restore=worker_ckpt_restore)
 
 
-def ckpt_dp_phase(dev, card: str) -> dict:
-    """14d: zero1 and fsdp checkpoints of two gloo ranks on ``cuda:0``,
-    each restored at world 1 (no process group, in this process) and at
-    world 1 over NCCL (torchrun), the continued step within ``DP_TOL`` of
-    the uninterrupted one-process step."""
+def ckpt_dp_phase(dev, card: str, save: dict) -> dict:
+    """14d: zero1 and fsdp checkpoints of two gloo ranks on ``cuda:0``
+    (``save``: their world's result; it ran beside 12b's), each restored
+    at world 1 (no process group, in this process) and at world 1 over
+    NCCL (torchrun), the continued step within ``DP_TOL`` of the
+    uninterrupted one-process step."""
     me = os.path.abspath(__file__)
-    shutil.rmtree(os.path.join(CKPT_DIR, "dp"), ignore_errors=True)
-    save = dp_result(torchrun(2, [me, "--worker", "ckpt_save", "gloo"], 600))
-    plain = dp_restore_check(dev, False)
-    nccl = dp_result(torchrun(1, [me, "--worker", "ckpt_restore", "nccl"],
-                              600))["diff"]
+    # the world-1 NCCL restore in its child while this process restores
+    # (both only check)
+    started = start_torchruns([(1, [me, "--worker", "ckpt_restore",
+                                    "nccl"])])
+    try:
+        plain = dp_restore_check(dev, False)
+    finally:
+        (out,) = finish_torchruns(started, 600)
+    nccl = dp_result(out)["diff"]
     bad = {(w, k): v for w, res in (("world1", plain), ("nccl1", nccl))
            for k, v in res.items()
            if not (dp_bert_within(v) and v["saved_world"] == 2)}
@@ -3855,16 +4020,308 @@ def ckpt_dp_phase(dev, card: str) -> dict:
     return out
 
 
-def ckpt_phase(dev, card: str, phase7: dict) -> dict:
-    """Phase 14: the long-run services (module note)."""
+def ckpt_phase(dev, card: str, phase7: dict, save: dict) -> dict:
+    """Phase 14: the long-run services (module note); ``save``: 14d's
+    two-rank save, run beside 12b."""
     out = {}
     for name, run in (("14a", lambda: prefetch_phase(card)),
                       ("14b", lambda: ckpt_image_phase(dev, card)),
                       ("14c", lambda: ckpt_mlm_phase(dev, card, phase7)),
-                      ("14d", lambda: ckpt_dp_phase(dev, card))):
+                      ("14d", lambda: ckpt_dp_phase(dev, card, save))):
         phase(name)
         out[name] = run()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return out
+
+
+# --------------------------------------------------------------- phase 16
+
+FLEET_DIR = "build/fleet16"
+# the fp32 checks (16a-16e): phase 4's short trace, 2 layers at full
+# width, every request arriving at once, so the first routing pass
+# splits the burst 3 / 3 and a fault at replica 0's tick 3 lands
+# mid-decode
+FLEET_CHECK = dict(num_requests=6, rate_rps=1e6, prompt_max=32,
+                   output_max=16, precision="fp32", layers=2, kernel="cuda")
+# 16b: a 5 ms backoff, so the faulted replica is probed back mid-run
+FLEET_BACKOFF_MS = 5.0
+# 16c: the journaled child's trace (float32: the replayed prefill of
+# prompt + delivered must give the tokens the lost decode steps would)
+RECOVERY = dict(num_requests=8, rate_rps=8.0, prompt_max=32,
+                output_max=64, precision="fp32")
+RECOVERY_KILL_TOKS = 8
+
+
+def fleet_run(r, requests, label: str, exact: bool = True, **kw) -> dict:
+    """``r.run(requests, **kw)`` with the paged kernel's launches counted
+    from 0: they must equal layers x forward dispatches summed over the
+    replicas, and every request must end ``ok``.  ``exact`` False: a
+    replica was reset mid-run (a transient fault's probe), and its
+    dispatches before the reset are not in the sum, so the launches may
+    exceed it by whole layers' worth."""
+    from mpi_tensorflow_torch.serving import harness
+
+    res, launches = harness.counted(lambda: r.run(requests, **kw))
+    layers = r.engines[0].model.cfg.layers
+    want = layers * res["forward_dispatches"]
+    if (launches != want if exact else
+            launches < want or launches % layers) or launches == 0:
+        raise AssertionError(f"{label}: kernel launches {launches} != "
+                             f"layers x forward dispatches "
+                             f"{layers} x {res['forward_dispatches']}")
+    bad = {i: s for i, s in res["statuses"].items() if s != "ok"}
+    if bad or len(res["statuses"]) != len(requests):
+        raise AssertionError(f"{label}: requests not served: {bad}")
+    return {**res, "launches": launches}
+
+
+def fleet_line(label: str, res: dict, single: dict) -> None:
+    log(f"[fleet {label}] " + json.dumps({
+        "replicas": len(res["replicas"]), "parallel": res["parallel"],
+        "tokens_per_sec": res["tokens_per_sec"],
+        "p50_token_latency_ms": res["p50_token_latency_ms"],
+        "p99_token_latency_ms": res["p99_token_latency_ms"],
+        "single_tokens_per_sec": single["tokens_per_sec"],
+        "single_p50_token_latency_ms": single["p50_token_latency_ms"],
+        "single_p99_token_latency_ms": single["p99_token_latency_ms"],
+        "speedup_vs_single_replica":
+            res["tokens_per_sec"] / single["tokens_per_sec"],
+        "launches": res["launches"],
+        "forward_dispatches": res["forward_dispatches"],
+        "per_replica_tokens": [p["tokens"] for p in res["replicas"]],
+        "fleet_faults": res["fleet_faults"], "health": res["health"]}))
+
+
+def check_spans(spans: dict, label: str) -> None:
+    """Every finished single-incarnation span: queue + prefill + decode
+    == terminal - arrive within 1e-6 s."""
+    worst = 0.0
+    for sp in spans.values():
+        if sp["status"] != "ok" or sp["incarnations"] != 1:
+            continue
+        total = sp["queue_s"] + sp["prefill_s"] + sp["decode_s"]
+        worst = max(worst, abs(total - (sp["terminal"] - sp["arrive"])))
+    if worst > 1e-6 or not spans:
+        raise AssertionError(f"{label}: phase sums off by {worst} s")
+    log(f"[fleet trace] {label}: {len(spans)} spans, phases sum to the "
+        f"wall time within {worst:.3e} s")
+
+
+def worker_tp_serve(backend: str) -> None:
+    """16e: one rank of a tensor-parallel engine (``tp`` = the world
+    size) serving ``FLEET_CHECK`` on the card; rank 0 reports its
+    tokens, the paged kernel's launches counted from 0 and the heads its
+    pools hold."""
+    from mpi_tensorflow_torch.parallel import mesh
+    from mpi_tensorflow_torch.serving import harness
+
+    dev, rank, world = join_world(backend)
+    engine, trace = harness.build_serving(**FLEET_CHECK, tp=world,
+                                          device=dev)
+    res, launches = harness.counted(lambda: engine.run(trace.requests()))
+    if rank == 0:
+        print(DP_RESULT + json.dumps({
+            "world": world, "backend": backend, "device": str(dev),
+            "outputs": res["outputs"], "statuses": res["statuses"],
+            "launches": launches,
+            "forward_dispatches": res["forward_dispatches"],
+            "layers": engine.model.cfg.layers,
+            "heads": engine.model.cfg.heads,
+            "pool_heads": int(engine.pools[0]["k"].shape[1]),
+            "tokens_per_sec": res["tokens_per_sec"]}), flush=True)
+    mesh.shutdown()
+
+
+WORKERS.update(tp_serve=worker_tp_serve)
+
+
+def recovery_check(dev) -> dict:
+    """16c: a child ``bench --mode serving --serve-journal`` killed by
+    SIGKILL once its journal holds ``RECOVERY_KILL_TOKS`` token records,
+    relaunched on the same journal: its outputs must equal an unfaulted
+    run of the same trace, served here."""
+    from mpi_tensorflow_torch.serving import harness
+
+    os.makedirs(FLEET_DIR, exist_ok=True)
+    path = os.path.join(FLEET_DIR, "journal.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    cmd = [sys.executable, "-m", "mpi_tensorflow_torch.bench", "--mode",
+           "serving", "--precision", RECOVERY["precision"], "--requests",
+           str(RECOVERY["num_requests"]), "--arrival-rate",
+           str(RECOVERY["rate_rps"]), "--prompt-len",
+           str(RECOVERY["prompt_max"]), "--new-tokens",
+           str(RECOVERY["output_max"]), "--device", dev.type,
+           *(["--serve-tiny"] if RECOVERY.get("tiny") else []),
+           "--serve-journal", path]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd, cwd=root, stdout=subprocess.DEVNULL,
+                             stderr=subprocess.DEVNULL,
+                             start_new_session=True)
+    toks = 0
+    try:
+        while time.perf_counter() - t0 < 300 and child.poll() is None:
+            if os.path.exists(path):
+                with open(path) as f:
+                    toks = f.read().count('"tok"')
+                if toks >= RECOVERY_KILL_TOKS:
+                    break
+            time.sleep(0.005)
+        if child.poll() is not None:
+            raise AssertionError(f"16c: the child ended (exit "
+                                 f"{child.returncode}) before the kill, "
+                                 f"{toks} token records")
+        os.killpg(child.pid, 9)
+        child.wait()
+    finally:
+        if child.poll() is None:
+            os.killpg(child.pid, 9)
+            child.wait()
+    with open(path) as f:
+        killed = f.read()
+    killed_toks = killed.count('"tok"')
+    ended = killed.count('"end"')
+    out = run_sub(cmd, 300)
+    det = json.loads(out.strip().splitlines()[-1])["detail"]
+    engine, trace = harness.build_serving(**RECOVERY, device=dev)
+    want = engine.run(trace.requests())["outputs"]
+    got = {int(k): v for k, v in det["outputs"].items()}
+    if got != want:
+        bad = [i for i in want if got.get(i) != want[i]]
+        raise AssertionError(f"16c: the resumed outputs differ from the "
+                             f"unfaulted run's for requests {bad}")
+    if det["status_counts"] != {"ok": len(want)}:
+        raise AssertionError(f"16c: statuses {det['status_counts']}")
+    res = {"killed_at_token_records": killed_toks,
+           "ended_before_kill": ended,
+           "resumed_tokens": det["tokens"],
+           "delivered_tokens": det["delivered_tokens"],
+           "seconds": time.perf_counter() - t0}
+    log(f"[fleet recovery] {engine.model.cfg.layers} layers of width "
+        f"{engine.model.cfg.hidden}, {RECOVERY['precision']}, "
+        f"{len(want)} requests: the "
+        f"journaled child SIGKILLed at {killed_toks} token records "
+        f"({ended} requests ended), relaunched on the journal: outputs == "
+        f"the unfaulted run's; " + json.dumps(res))
+    os.remove(path)
+    return res
+
+
+def fleet_phase(dev, card: str, ref: dict, ref_engine, trace) -> dict:
+    """Phase 16: the serving fleet (module note).  ``ref``, ``ref_engine``
+    and ``trace``: phase 3's timed run, its (warm) engine and trace, the
+    single engine the fleet is held beside."""
+    from mpi_tensorflow_torch.serving import harness, router
+    from mpi_tensorflow_torch.serving import tracing as tracing_lib
+    from mpi_tensorflow_torch.utils.metrics_writer import breakdown_block
+
+    out = {}
+    phase("16a")
+    r = router.ReplicaRouter(harness.fleet_of(ref_engine, 2))
+    seq = fleet_run(r, trace.requests(), "16a sequential", parallel=False)
+    r.reset()
+    par = fleet_run(r, trace.requests(), "16a parallel", parallel=True)
+    fleet_line("bf16 sequential", seq, ref)
+    fleet_line("bf16 parallel", par, ref)
+    out["launches_fleet"] = {"sequential": seq["launches"],
+                             "parallel": par["launches"]}
+    eng32, tr32 = harness.build_serving(**FLEET_CHECK, device=dev)
+    single = eng32.run(tr32.requests())
+    r32 = router.ReplicaRouter(harness.fleet_of(eng32, 2))
+    fl = fleet_run(r32, tr32.requests(), "16a fp32", parallel=False)
+    r32.reset()
+    fl_par = fleet_run(r32, tr32.requests(), "16a fp32 parallel",
+                       parallel=True)
+    if not fl["outputs"] == fl_par["outputs"] == single["outputs"]:
+        raise AssertionError("16a: fp32 fleet outputs differ from the "
+                             "single engine's")
+    log(f"[fleet] fp32, 2 layers, {len(single['outputs'])} requests: "
+        f"fleet (sequential and parallel) == single engine, placements "
+        f"{fl['placements']}")
+
+    phase("16b")
+    rf = router.ReplicaRouter(harness.fleet_of(
+        eng32, 2, failover_backoff_ms=FLEET_BACKOFF_MS))
+    trans = fleet_run(rf, tr32.requests(), "16b transient", exact=False,
+                      parallel=False, fault_plan=router.FaultPlan(
+                          [router.ReplicaFault(0, 3)]))
+    ff = trans["fleet_faults"]
+    if trans["outputs"] != fl["outputs"] or ff["failovers"] != 1 \
+            or ff["readmissions"] != 1 or trans["health"][0] != "healthy":
+        raise AssertionError(f"16b transient: {ff}, health "
+                             f"{trans['health']}, outputs equal: "
+                             f"{trans['outputs'] == fl['outputs']}")
+    rf.reset()
+    perm = fleet_run(rf, tr32.requests(), "16b permanent", parallel=False,
+                     fault_plan=router.FaultPlan([router.ReplicaFault(
+                         0, 3, kind="permanent")]))
+    if perm["outputs"] != fl["outputs"] or perm["health"][0] != "dead" \
+            or perm["fleet_faults"]["failovers"] != 1:
+        raise AssertionError(f"16b permanent: {perm['fleet_faults']}, "
+                             f"health {perm['health']}")
+    for label, res in (("transient", trans), ("permanent", perm)):
+        log(f"[fleet failover] {label} fault at replica 0, tick 3: outputs "
+            f"== the unfaulted fleet's, health {res['health']}, "
+            f"fleet_faults {json.dumps(res['fleet_faults'])}")
+
+    phase("16c")
+    out["recovery"] = recovery_check(dev)
+
+    phase("16d")
+    rt = router.ReplicaRouter(harness.fleet_of(ref_engine, 2,
+                                               trace="on"))
+    traced = fleet_run(rt, trace.requests(), "16d traced", parallel=False)
+    check_spans(traced["trace"]["spans"], "bf16 fleet")
+    os.makedirs(FLEET_DIR, exist_ok=True)
+    chrome = os.path.join(FLEET_DIR, "trace.json")
+    tracing_lib.write_chrome_trace(chrome, traced["trace"]["replicas"])
+    with open(chrome) as f:
+        pids = {e["pid"] for e in json.load(f)["traceEvents"]}
+    if pids != {0, 1}:
+        raise AssertionError(f"16d: Chrome trace pids {pids}")
+    log(f"[fleet trace] bf16 fleet traced: {traced['tokens_per_sec']:.2f} "
+        f"tokens/s against {seq['tokens_per_sec']:.2f} untraced (16a "
+        f"sequential), p50 {traced['p50_token_latency_ms']:.3f} / "
+        f"{seq['p50_token_latency_ms']:.3f} ms; breakdown " + json.dumps(
+            breakdown_block(traced["trace"], stamped_first_s=traced[
+                "request_first_token_s"])))
+    rt32 = router.ReplicaRouter(
+        harness.fleet_of(eng32, 2, trace="on"))
+    t32 = fleet_run(rt32, tr32.requests(), "16d fp32 traced",
+                    parallel=False)
+    if t32["outputs"] != fl["outputs"]:
+        raise AssertionError("16d: traced fp32 tokens differ from "
+                             "untraced")
+    check_spans(t32["trace"]["spans"], "fp32 fleet")
+    out["trace_cost"] = {"on": traced["tokens_per_sec"],
+                         "off": seq["tokens_per_sec"]}
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+
+    phase("16e")
+    me = os.path.abspath(__file__)
+    out["launches_tp"] = {}
+    # the two worlds side by side (their tokens/s share the card)
+    worlds = torchrun_all([(2, [me, "--worker", "tp_serve", "gloo"]),
+                           (1, [me, "--worker", "tp_serve", "nccl"])], 300)
+    for res in map(dp_result, worlds):
+        backend = res["backend"]
+        got = {int(k): v for k, v in res["outputs"].items()}
+        want_heads = res["heads"] // res["world"]
+        want_launches = res["layers"] * res["forward_dispatches"]
+        if got != single["outputs"] or res["pool_heads"] != want_heads \
+                or res["launches"] != want_launches:
+            raise AssertionError(f"16e tp={res['world']} over {backend}: "
+                                 f"tokens equal {got == single['outputs']}, "
+                                 f"pool heads {res['pool_heads']}, launches "
+                                 f"{res['launches']} (want {want_launches})")
+        out["launches_tp"][f"tp{res['world']}_{backend}"] = res["launches"]
+        log(f"[fleet tp] tp={res['world']} over {backend} on "
+            f"{res['device']}: tokens == the tp=1 engine's, the paged "
+            f"kernel at H={res['pool_heads']} of {res['heads']}, launches "
+            f"{res['launches']} == {res['layers']} x "
+            f"{res['forward_dispatches']} on rank 0, "
+            f"{res['tokens_per_sec']:.2f} tokens/s")
     return out
 
 
@@ -3877,6 +4334,7 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
+    log(f"[host] {host_line()}")
     from mpi_tensorflow_torch.utils.device import resolve_device
 
     resolve_device(dev)                  # TF32 off for float32 products
@@ -3885,18 +4343,23 @@ def main() -> int:
     build()
     phase("2 paged kernel")
     worst = check_kernel(dev)
-    timing = time_decode(dev)
     quant_worst = check_kernel_quant(dev)
-    quant_timing = time_decode_quant(dev)
     phase("3 serving")
     launches, ref, engine, trace = serve_full_width(dev)
     quant_launches = serve_quant(dev, ref)
     phase("4 cross-checks")
     cross_check(dev)
     cross_check_quant(dev)
+    # every serving timing before any torch.profiler session (phase 2's
+    # timing opens one, and a profile slows later launches)
+    phase("16 serving fleet")
+    fleet = fleet_phase(dev, card, ref, engine, trace)
     phase("15 serving features")
     features = feature_phase(dev, card, ref, engine, trace)
     del engine
+    phase("2 paged kernel timing")
+    timing = time_decode(dev)
+    quant_timing = time_decode_quant(dev)
     phase("5-6 flash kernels")
     flash_worst = check_flash(dev)
     check_flash_grads(dev)
@@ -3920,12 +4383,14 @@ def main() -> int:
     phase("10 CNN trainer")
     cnn = cnn_phase(dev, card)
     phase("11 data axis")
-    dp_phase(card, cnn)
+    dp = dp_phase(card, cnn)
     phase("12 data-parallel BERT")
-    bert_dp = bert_dp_phase(card, phase7)["bert_train"]["runs"]
+    bert_phase = bert_dp_phase(card, phase7)
+    bert_dp = bert_phase["bert_train"]["runs"]
     phase("13 ResNets")
-    resnet_launches = resnet_phase(dev, card)["launches"]
-    long_run = ckpt_phase(dev, card, phase7)
+    resnet_launches = resnet_phase(dev, card,
+                                   dp["resnet_worlds"])["launches"]
+    long_run = ckpt_phase(dev, card, phase7, bert_phase["ckpt_save"])
     phase("the kernels line")
     paged_src = "mpi_tensorflow_torch/ops/csrc/paged_attention.cu"
     paged_replaces = "mpi_tensorflow_tpu/ops/paged_attention_kernel.py:90"
@@ -3941,6 +4406,10 @@ def main() -> int:
         # phase 15: each feature's timed run, counted from 0 (15d
         # draft-model: the target's and the draft model's launches)
         "launches_features": features["launches"],
+        # phase 16: the 2-replica fleet's timed runs (summed over the
+        # replicas) and rank 0 of the tensor-parallel engines
+        "launches_fleet": fleet["launches_fleet"],
+        "launches_tp": fleet["launches_tp"],
         **timing,
     }]
     for kv_dtype, modes, timed in (("int8", ("int8",), "int8"),

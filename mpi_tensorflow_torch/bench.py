@@ -77,8 +77,25 @@ passes it); without it, and on the CPU, the demand and the headroom are
     python -m mpi_tensorflow_torch.bench --mode hostio \\
         --demand-images-per-sec 880 --batch-size 64 --window-k 11
 
-The reference's scanned arm (K steps per dispatch) and the ``serving``
-mode are not ported yet (ROADMAP Queue 1 item 6).
+``--mode serving``: the counterpart of ``bench.py --mode serving``
+(``measure_serving``), with the flags of ``python -m
+mpi_tensorflow_torch.serving`` and the same implementation
+(``serving/harness.measure_serving``): the timed engine arm, and the
+fleet (``--serve-replicas N``, with ``--serve-fault-*``), prefix-route,
+journaled (``--serve-journal``) and traced (``--serve-trace on``) arms.
+Prints the reference's metric line, the harness's dict as its
+``detail``:
+
+    python -m mpi_tensorflow_torch.bench --mode serving --serve-tiny \
+        --device cpu --requests 4 --prompt-len 8 --new-tokens 8 \
+        --arrival-rate 1000 --serve-replicas 2 --serve-fault-replica 0 \
+        --serve-fault-step 3
+
+The reference's scanned arm (K steps per dispatch), ``--mode decode``
+(``generate``'s sampling and ``beam_search``), the serving bench's
+static-batch arm and its A/B arms (``--serve-kernel-ab``,
+``--serve-kv-ab``, ``--serve-spec-ab``, ``--serve-mixed-ab``) are not
+ported yet (ROADMAP Queue 1 item 6b).
 """
 
 from __future__ import annotations
@@ -369,10 +386,36 @@ def measure_hostio(batch_size: int = 32, window_k: int = 4,
         shutil.rmtree(d, ignore_errors=True)
 
 
+def serving_main(argv) -> int:
+    """``--mode serving``: the serving entry point's flags and run
+    (``serving/harness``), printed as the reference's metric line."""
+    from mpi_tensorflow_torch.serving import harness
+
+    ap = argparse.ArgumentParser(prog="mpi_tensorflow_torch.bench "
+                                      "--mode serving")
+    ap.add_argument("--mode", choices=["serving"], default="serving")
+    harness.add_serving_args(ap)
+    args = ap.parse_args(argv)
+    harness.check_serving_args(ap, args)
+    det = harness.measure_serving(args)
+    if det["rank"] == 0:
+        print(json.dumps(harness.bench_line(det)), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
+    ap0 = argparse.ArgumentParser(add_help=False)
+    ap0.add_argument("--mode", default="train")
+    mode = ap0.parse_known_args(argv)[0].mode
+    if mode == "serving":
+        return serving_main(argv)
+    if mode == "decode":
+        raise NotImplementedError("--mode decode (generate's sampling and "
+                                  "beam search) is not ported yet: ROADMAP "
+                                  "Queue 1 item 6b")
     ap = argparse.ArgumentParser(prog="mpi_tensorflow_torch.bench")
-    ap.add_argument("--mode", choices=["train", "allreduce", "hostio",
-                                       "serving"],
+    # --mode serving and decode leave before this parser (above)
+    ap.add_argument("--mode", choices=["train", "allreduce", "hostio"],
                     default="train")
     ap.add_argument("--model", default="mnist_cnn",
                     choices=["mnist_cnn", "resnet20", "resnet50", "vit",
@@ -419,9 +462,6 @@ def main(argv=None) -> int:
             card=card_line(torch.device(args.device)) if on_card
             else None)), flush=True)
         return 0
-    if args.mode == "serving":
-        raise NotImplementedError("--mode serving is not ported yet: "
-                                  "ROADMAP Queue 1 item 6")
     bert_run = args.mode == "train" and args.model == "bert_base"
     if args.mode == "train" and args.model == "vit":
         raise NotImplementedError("model 'vit' is not ported yet: ROADMAP "

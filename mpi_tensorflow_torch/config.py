@@ -102,6 +102,9 @@ class Config:
     serve_prefix_gen: str = "off"  # prefix cache v2: "on" also caches a
                                   # finished request's generated blocks
                                   # and copies partial tail blocks
+    serve_prefix_route: str = "off"  # "on": the replica router places a
+                                  # request on the replica whose trie
+                                  # holds its first block, load allowing
     serve_speculative: str = "off"  # speculative decoding: "ngram" or
                                   # "draft-model"; greedy outputs stay
                                   # those of "off"
@@ -115,6 +118,17 @@ class Config:
                                   # decode dispatch: one forward a step
     serve_prefill_budget: int = 64  # mixed batching: prefill tokens a
                                   # step may fuse across all sequences
+    serve_tp: int = 1             # tensor-parallel ranks: heads and MLP
+                                  # split over a torch.distributed world
+                                  # of this size (serving/tp)
+    serve_workload: str = "poisson"  # trace shape: poisson | bursty |
+                                  # diurnal | multi-tenant (loadgen)
+    serve_slo_ms: Optional[float] = None  # per-request latency budget
+                                  # (stamped as its deadline; goodput)
+    serve_trace: str = "off"      # "on": request spans and step records
+                                  # (serving/tracing)
+    serve_trace_out: Optional[str] = None  # Chrome trace-event JSON path
+                                  # (needs serve_trace on)
     # fault-tolerance policy (serving/engine.ServeConfig; None = off)
     serve_deadline_ms: Optional[float] = None  # default per-request TTL
     serve_queue_depth: Optional[int] = None    # bound on the waiting queue

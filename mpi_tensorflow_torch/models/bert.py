@@ -211,16 +211,18 @@ class EncoderLayer(nn.Module):
         return t
 
     def forward(self, h: torch.Tensor, attention, dt: torch.dtype,
-                drop=None) -> torch.Tensor:
+                drop=None, reduce=None) -> torch.Tensor:
         """The post-LN block around ``attention(q, k, v) -> (B, H, S,
         D)``; ``drop`` (training) is applied to the attention output and
-        to the MLP output before each residual add."""
+        to the MLP output before each residual add; ``reduce`` is the
+        tensor-parallel sum of the two row-parallel products
+        (``serving/tp``)."""
         q, k, v = self.qkv_proj(h, dt)
-        a = self.attn_out_proj(attention(q, k, v), dt)
+        a = self.attn_out_proj(attention(q, k, v), dt, reduce)
         if drop is not None:
             a = drop(a)
         h = self.ln1(h + a).to(dt)
-        m = self.gelu_mlp(h, dt)
+        m = self.gelu_mlp(h, dt, reduce)
         if drop is not None:
             m = drop(m)
         return self.ln2(h + m).to(dt)
@@ -233,15 +235,25 @@ class EncoderLayer(nn.Module):
         return (proj(self.wq, self.bq), proj(self.wk, self.bk),
                 proj(self.wv, self.bv))
 
-    def attn_out_proj(self, a: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-        """Attention output projection: (B, H, S, D) -> (B, S, E)."""
-        return torch.einsum("bhsd,hde->bse", a, self.wo.to(dt)) \
-            + self.bo.to(dt)
+    def attn_out_proj(self, a: torch.Tensor, dt: torch.dtype,
+                      reduce=None) -> torch.Tensor:
+        """Attention output projection: (B, H, S, D) -> (B, S, E).
+        ``reduce`` is applied to the product BEFORE the bias, so a
+        tensor-parallel sum adds the bias once."""
+        out = torch.einsum("bhsd,hde->bse", a, self.wo.to(dt))
+        if reduce is not None:
+            out = reduce(out)
+        return out + self.bo.to(dt)
 
-    def gelu_mlp(self, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-        """Position-wise tanh-GELU MLP."""
+    def gelu_mlp(self, h: torch.Tensor, dt: torch.dtype,
+                 reduce=None) -> torch.Tensor:
+        """Position-wise tanh-GELU MLP; ``reduce`` as in
+        ``attn_out_proj``, on the down-projection before its bias."""
         m = F.gelu(h @ self.w1.to(dt) + self.b1.to(dt), approximate="tanh")
-        return m @ self.w2.to(dt) + self.b2.to(dt)
+        out = m @ self.w2.to(dt)
+        if reduce is not None:
+            out = reduce(out)
+        return out + self.b2.to(dt)
 
 
 class LmHead(nn.Module):

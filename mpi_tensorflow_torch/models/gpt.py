@@ -74,7 +74,7 @@ class CausalLm(nn.Module):
     # ---------------- paged cache (serving) ----------------
 
     def forward_paged(self, tokens, pools, block_tables, lengths,
-                      valid=None, kernel: str = "gather"):
+                      valid=None, kernel: str = "gather", reduce=None):
         """Forward ``tokens`` (B, S) through the paged KV cache: row ``b``
         occupies absolute positions [lengths[b], lengths[b] + S) and
         reads/writes the per-layer pools through its block table.  One
@@ -93,6 +93,10 @@ class CausalLm(nn.Module):
                       and their outputs are garbage the caller discards
         kernel:       resolved lowering, ``"gather"`` or ``"cuda"``
                       (ops/paged_attention.resolve_kernel)
+        reduce:       tensor parallelism's sum over the ranks, applied
+                      to each layer's two row-parallel products before
+                      their biases (``serving/tp``); the pools and the
+                      layers then hold this rank's heads and MLP slice
 
         Returns float32 logits (B, S, V)."""
         c = self.cfg
@@ -134,7 +138,7 @@ class CausalLm(nn.Module):
                     kernel=kernel, k_scale=pl["k_scale"],
                     v_scale=pl["v_scale"], k_new=k if int4 else None,
                     v_new=v if int4 else None)
-            h = layer(h, attention, dt)
+            h = layer(h, attention, dt, reduce=reduce)
         return self._logits(h)
 
     # ---------------- contiguous cache (parity anchor) ----------------

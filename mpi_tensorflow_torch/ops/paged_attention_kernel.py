@@ -26,7 +26,8 @@ Three things live here:
   ``interpret=True``; ``chip_smoke.py`` holds the CUDA kernel against
   it on the card.
 - ``paged_attention_kernel.launches`` — the number of kernel launches
-  (every mode), raised by one at each launch and nowhere else, so a run
+  (every mode), raised by one at each launch and nowhere else (under a
+  lock: the replica router's threads launch it concurrently), so a run
   can show that its main path went through the kernel.
 
 Contract (the reference's): q (B, H, S, D) queries at absolute positions
@@ -42,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -254,11 +256,13 @@ def paged_attention_kernel(q, k_pool, v_pool, block_table, lengths, *,
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError_t {err}")
-    paged_attention_kernel.launches += 1
+    with _COUNT_LOCK:
+        paged_attention_kernel.launches += 1
     return out
 
 
 paged_attention_kernel.launches = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, lengths,

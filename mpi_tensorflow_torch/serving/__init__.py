@@ -1,6 +1,6 @@
 """Continuous-batching serving over a paged KV cache (PyTorch + CUDA).
 
-Counterpart of ``mpi_tensorflow_tpu/serving`` for one engine:
+Counterpart of ``mpi_tensorflow_tpu/serving``:
 
 - ``paged_cache``  — the refcounted block allocator, the device pools,
                      the partial block copy and the host-RAM tier;
@@ -17,8 +17,14 @@ Counterpart of ``mpi_tensorflow_tpu/serving`` for one engine:
                      with copy-on-write, mixed batching and the verify
                      step of speculation;
 - ``loadgen``      — seeded synthetic traces, byte-identical to the
-                     reference's for the same spec;
-- ``harness``      — the seeded serving run the entry point times.
+                     reference's for the same spec, and the goodput join;
+- ``recovery``     — the replay journal and its supervisor;
+- ``router``       — replicas behind one router: placement, health,
+                     failover, fleet drain;
+- ``tracing``      — request spans, step records, the Chrome trace;
+- ``autoscale``    — the advisory scale decisions;
+- ``tp``           — heads and MLP split over ``torch.distributed`` ranks;
+- ``harness``      — the serving runs both entry points time.
 
 ``python -m mpi_tensorflow_torch.serving`` serves one such trace and
 prints one JSON line (see ``__main__``).

@@ -39,12 +39,32 @@ graceful drain), and the reference's features:
   ``draft_auto`` tunes the window by an EWMA of the accepted length.
 
 Every feature keeps greedy outputs token-identical to the feature off.
-Tensor parallelism, the fleet router and tracing are later slices:
-``ServeConfig`` raises for them, naming ROADMAP item 6.
+
+The fleet and observability hooks:
+
+- ``run(..., journal=)``: each token is journaled at its emission,
+  before the scheduler's terminal hook can fire (the durable order is
+  tok-then-end), and the terminal hook chains the journal's end record
+  (``serving/recovery``);
+- ``trace="on"``: a ``serving/tracing.EngineTracer`` is built at each
+  reset; ``step`` stamps each forward's dispatch and token fetch
+  (``time.monotonic`` deltas, no synchronisation of its own: the fetch
+  the engine already does carries the device's wait);
+- ``run(..., advisor=)``: a ``serving/autoscale.ScaleAdvisor`` observes
+  every iteration (the tracer's step record when tracing is on);
+- ``tp``: in a ``torch.distributed`` world of exactly ``tp`` ranks
+  (``serving/tp``) this process is one rank: it holds ``H / tp`` heads
+  and the matching MLP slice, sums the two row-parallel products of each
+  layer over the ranks, and takes rank 0's clock and stop flag once an
+  iteration (``tp = 1`` in a world of one runs the same path);
+- ``stream``: a ``torch.cuda.Stream`` the engine runs on (the replica
+  router gives each replica one, ``use_stream``), so a replica's token
+  fetch waits for its own work only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import List, Optional, Tuple
@@ -57,6 +77,8 @@ from mpi_tensorflow_torch.serving import paged_cache
 from mpi_tensorflow_torch.serving import prefix_cache as prefix_lib
 from mpi_tensorflow_torch.serving import scheduler as sched_lib
 from mpi_tensorflow_torch.serving import speculative as spec_lib
+from mpi_tensorflow_torch.serving import tp as tp_lib
+from mpi_tensorflow_torch.serving import tracing
 from mpi_tensorflow_torch.utils import metrics_writer
 from mpi_tensorflow_torch.utils.device import device_name, resolve_device
 
@@ -108,6 +130,7 @@ class ServeConfig:
                     kernel=config.serve_kernel,
                     prefix_cache=config.serve_prefix_cache,
                     prefix_gen=config.serve_prefix_gen,
+                    prefix_route=config.serve_prefix_route,
                     speculative=config.serve_speculative,
                     draft_k=config.serve_draft_k,
                     draft_auto=config.serve_draft_auto,
@@ -116,11 +139,14 @@ class ServeConfig:
                     kv_dtype=config.serve_kv_dtype,
                     kv_group=config.serve_kv_group,
                     kv_tier=config.serve_kv_tier,
+                    tp=config.serve_tp,
                     deadline_ms=config.serve_deadline_ms,
                     queue_depth=config.serve_queue_depth,
                     max_evictions=config.serve_max_evictions,
                     drain_ms=config.serve_drain_ms,
-                    failover_backoff_ms=config.serve_failover_backoff_ms)
+                    failover_backoff_ms=config.serve_failover_backoff_ms,
+                    trace=config.serve_trace,
+                    trace_out=config.serve_trace_out)
         base.update({k: v for k, v in overrides.items() if v is not None})
         return cls(**base)
 
@@ -190,15 +216,6 @@ class ServeConfig:
                 f"pool of {self.num_blocks - 1} usable blocks cannot hold "
                 f"one max_seq_len={self.max_seq_len} sequence "
                 f"({self.max_blocks_per_seq} blocks of {self.block_size})")
-        # valid values the port does not serve yet
-        for name, off, item in (
-                ("prefix_route", "off", "Queue 1 item 6 (fleet routing)"),
-                ("tp", 1, "Queue 1 item 6 (tensor parallelism)"),
-                ("trace", "off", "Queue 1 item 6 (tracing)")):
-            if getattr(self, name) != off:
-                raise ValueError(
-                    f"serve {name}={getattr(self, name)!r} is not ported "
-                    f"yet: ROADMAP {item}")
 
 
 def pow2_ceil(n: int) -> int:
@@ -222,15 +239,26 @@ class PagedDecodeEngine:
     is ``cuda`` unless the caller asks for the CPU; ``cuda`` without a
     card raises.  ``draft_model`` is the drafter's ``CausalLm`` under
     ``speculative="draft-model"`` (None: ``speculative.
-    default_draft_model``).  ``run(requests)`` returns ``{request id:
-    generated token list}`` plus latency/throughput stats, the fault
-    blocks and the prefix, speculation and tier blocks."""
+    default_draft_model``).  Under ``tp > 1`` ``model`` is the whole
+    model, and the engine keeps this rank's shard of it.
+    ``run(requests)`` returns ``{request id: generated token list}`` plus
+    latency/throughput stats, the fault blocks and the prefix,
+    speculation and tier blocks (and ``trace`` with tracing on)."""
 
     def __init__(self, model, serve: ServeConfig, *, device="cuda",
                  draft_model=None):
         self.device = resolve_device(device)
+        tp_lib.check_geometry(model.cfg, serve.tp)
+        collective = tp_lib.collective(serve.tp)
+        self.rank = tp_lib.world()[0] if collective else 0
+        if serve.tp > 1:
+            model = tp_lib.shard_model(model, self.rank, serve.tp)
         self.model = model.to(self.device)
+        # the row-parallel sum over the ranks (None outside a world of
+        # exactly ``tp``: one process serves alone)
+        self._reduce = tp_lib.all_reduce if collective else None
         self.serve = serve
+        self.stream = None              # a side stream: use_stream
         cap = serve.max_blocks_per_seq * serve.block_size
         if model.cfg.pos_kind == "learned" \
                 and cap > model.cfg.max_positions:
@@ -239,7 +267,6 @@ class PagedDecodeEngine:
                 f"exceeds max_positions {model.cfg.max_positions}")
         # resolved ONCE: the run serves through exactly one lowering
         self.kernel = paged_ops.resolve_kernel(serve.kernel, self.device)
-        self.tracer = None             # tracing is a later slice
         # built once, like the reference's (its pool resets with ours)
         self.drafter = spec_lib.make_drafter(
             serve.speculative, serve, self.model, device=self.device,
@@ -252,13 +279,37 @@ class PagedDecodeEngine:
         self._draft_k_eff = serve.draft_k
         self.reset()
 
+    def use_stream(self, stream) -> None:
+        """Run on ``stream`` from now on (a replica's own CUDA stream):
+        the pools are rebuilt on it, so the caching allocator keeps them
+        in that stream's pool."""
+        self.stream = stream
+        self.reset()
+
+    def on_stream(self):
+        """The context the engine's device work runs in: its own stream
+        (ordered after the work the caller's stream has queued), or
+        nothing to do without one."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        return torch.cuda.stream(self.stream)
+
     def reset(self) -> None:
-        """Fresh pools, trie, host tier, draft pool and scheduler (a
-        trace replay starts clean)."""
+        """Fresh pools, trie, host tier, draft pool, scheduler and tracer
+        (a trace replay starts clean)."""
+        with self.on_stream():
+            self._reset()
+
+    def _reset(self) -> None:
+        if self.stream is not None:
+            # nothing queued may still read the pools freed below
+            self.stream.synchronize()
         cfg = self.model.cfg
         self.pools = paged_cache.init_pools(
             cfg, self.serve.num_blocks, self.serve.block_size, self.device,
-            self.serve.kv_dtype, self.serve.kv_group)
+            self.serve.kv_dtype, self.serve.kv_group,
+            heads=cfg.heads // self.serve.tp)
         self.allocator = paged_cache.BlockAllocator(self.serve.num_blocks)
         # the trie indexes pool content, so it resets with the pools
         self.prefix_cache = (
@@ -286,6 +337,15 @@ class PagedDecodeEngine:
         # live sequences (two sequences on one block count it once)
         self.peak_blocks_in_use = 0
         self.peak_live_blocks = 0
+        # tracing resets with the engine (a rebuilt engine is a fresh
+        # incarnation); off, or a rank other than 0: no tracer at all
+        self.tracer = (tracing.EngineTracer()
+                       if self.serve.trace == "on" and self.rank == 0
+                       else None)
+        self._journal = None            # set by run(); a token is
+                                        # journaled BEFORE record_token,
+                                        # so the durable order is
+                                        # tok-then-end
         self._progressed = False        # did the last step() do any work
         self._last_token: dict = {}     # slot -> next token to feed
         # admitted (slot, Sequence) pairs awaiting prefill: the sequence
@@ -299,9 +359,14 @@ class PagedDecodeEngine:
 
     def _on_terminal(self, req, status: str) -> None:
         """The scheduler's per-request exit hook: release the drafter's
-        state for the request."""
+        state for the request, then the journal's end record and the
+        tracer's terminal (queued: no loop clock is in scope here)."""
         if self.drafter is not None:
             self.drafter.release(req.id)
+        if self._journal is not None:
+            self._journal.record_end(req, status)
+        if self.tracer is not None:
+            self.tracer.on_terminal(req, status)
 
     # ---------------- device steps ----------------
 
@@ -316,7 +381,7 @@ class PagedDecodeEngine:
         live = (tables[:, 0] != paged_ops.NULL_BLOCK)[:, None]
         logits = self.model.forward_paged(
             tokens[:, None], self.pools, tables, lengths, live,
-            kernel=self.kernel)
+            kernel=self.kernel, reduce=self._reduce)
         return torch.argmax(logits[:, -1], dim=-1)
 
     def _prefill_impl(self, tokens, length: int, n_real: int, tables):
@@ -329,7 +394,8 @@ class PagedDecodeEngine:
                                device=self.device)
         logits = self.model.forward_paged(tokens, self.pools, tables,
                                           lengths, valid,
-                                          kernel=self.kernel)
+                                          kernel=self.kernel,
+                                          reduce=self._reduce)
         return torch.argmax(logits[0, max(n_real - 1, 0)], dim=-1)
 
     def _lanes_impl(self, tokens, lengths, n_valid, tables):
@@ -348,7 +414,8 @@ class PagedDecodeEngine:
                   < n_valid[:, None]) & live[:, None])
         logits = self.model.forward_paged(tokens, self.pools, tables,
                                           lengths, valid,
-                                          kernel=self.kernel)
+                                          kernel=self.kernel,
+                                          reduce=self._reduce)
         return torch.argmax(logits, dim=-1)
 
     def _cow_impl(self, src: int, dst: int) -> None:
@@ -452,8 +519,30 @@ class PagedDecodeEngine:
         if self.prefix_cache is not None:
             self.prefix_cache.insert(seq.request.prompt, seq.block_ids)
         self._last_token[slot] = tok
+        self._journal_tokens(seq.request.id, [tok])
         self.sched.record_token(slot, tok, self.serve.eos_id)
         return (seq.request.id, tok)
+
+    def _journal_tokens(self, rid: int, toks) -> None:
+        """Journal emitted tokens BEFORE the scheduler records them (its
+        terminal hook writes the end record): tok-then-end."""
+        if self._journal is not None:
+            for tok in toks:
+                self._journal.record_token(rid, tok)
+
+    def _fetch(self, out: torch.Tensor, t_dispatch: float):
+        """The tokens of one forward on the host: the engine's one wait
+        for the device a dispatch.  With tracing on, the issue time up
+        to here is the step's dispatch time and the fetch its consume
+        time (which includes the device's wait)."""
+        tr = self.tracer
+        if tr is None:
+            return out.cpu().numpy()
+        t1 = time.monotonic()
+        tr.dispatch_s += t1 - t_dispatch
+        host = out.cpu().numpy()
+        tr.consume_s += time.monotonic() - t1
+        return host
 
     def _advance_prefill(self) -> List[Tuple[int, int]]:
         """Advance the oldest mid-prefill sequence by ONE chunk.  Returns
@@ -483,15 +572,18 @@ class PagedDecodeEngine:
         tables = self._table_row(seq, self.serve.max_blocks_per_seq)[None]
         self.dispatch_shapes.add(("prefill", sb))
         self.forward_dispatches += 1
+        t0 = time.monotonic()
         nxt = self._prefill_impl(self._to_device(toks), seq.prefilled,
                                  len(chunk), self._to_device(tables))
         seq.prefilled += len(chunk)
         if seq.prefilled < len(prompt):
+            if self.tracer is not None:
+                self.tracer.dispatch_s += time.monotonic() - t0
             return []
         self._prefill_queue.pop(0)
         # the prompt's last position yields the first output token, so
-        # the slot enters the decode pool one token ahead
-        return [self._finish_prefill(slot, seq, int(nxt))]  # one sync
+        # the slot enters the decode pool one token ahead (one sync)
+        return [self._finish_prefill(slot, seq, int(self._fetch(nxt, t0)))]
 
     def _decode_ready(self, slot: int):
         """A fully prefilled live slot that can take its next write (a
@@ -515,6 +607,10 @@ class PagedDecodeEngine:
         the fused mixed step, or one prefill chunk followed by the
         verify step (speculation) or one decode token for every live
         slot.  Returns the ``(request id, token)`` pairs emitted."""
+        with self.on_stream():
+            return self._step()
+
+    def _step(self) -> List[Tuple[int, int]]:
         self._progressed = False
         admitted = self.sched.admit()
         self._track_occupancy()
@@ -552,14 +648,17 @@ class PagedDecodeEngine:
             tables[j] = self._table_row(seq, NBb)
         self.dispatch_shapes.add(("decode", Bb, NBb))
         self.forward_dispatches += 1
+        t0 = time.monotonic()
         nxt = self._decode_impl(self._to_device(tokens),
                                 self._to_device(lengths),
                                 self._to_device(tables))
-        nxt = nxt.cpu().numpy()          # the one host sync per decode
+        nxt = self._fetch(nxt, t0)       # the one host sync per decode
         for j, slot in enumerate(live):
             tok = int(nxt[j])
             self._last_token[slot] = tok
-            emitted.append((self.sched.slots[slot].request.id, tok))
+            rid = self.sched.slots[slot].request.id
+            emitted.append((rid, tok))
+            self._journal_tokens(rid, [tok])
             self.sched.record_token(slot, tok, self.serve.eos_id)
         return emitted
 
@@ -582,11 +681,12 @@ class PagedDecodeEngine:
             lengths[j] = start
             tables[j] = self._table_row(seq, NBb)
         self.forward_dispatches += 1
+        t0 = time.monotonic()
         out = self._lanes_impl(self._to_device(tokens),
                                self._to_device(lengths),
                                self._to_device(n_valid),
                                self._to_device(tables))
-        return out.cpu().numpy(), Bb, NBb   # the one host sync a dispatch
+        return self._fetch(out, t0), Bb, NBb   # the one sync a dispatch
 
     def _step_mixed(self) -> List[Tuple[int, int]]:
         """The fused replacement for the prefill-then-decode phases
@@ -651,6 +751,7 @@ class PagedDecodeEngine:
                 continue
             self._last_token[slot] = tok
             emitted.append((seq.request.id, tok))
+            self._journal_tokens(seq.request.id, [tok])
             self.sched.record_token(slot, tok, serve.eos_id)
         return emitted
 
@@ -741,6 +842,7 @@ class PagedDecodeEngine:
             self._last_token[slot] = emit[-1]
             rid = seq.request.id
             emitted.extend((rid, tok) for tok in emit)
+            self._journal_tokens(rid, emit)
             self.sched.record_tokens(slot, emit, serve.eos_id)
             if self.sched.slots[slot] is seq:
                 # the rejected tail's KV sits in blocks past the accepted
@@ -756,7 +858,8 @@ class PagedDecodeEngine:
     # ---------------- request loop ----------------
 
     def run(self, requests: List[sched_lib.Request],
-            time_fn=time.perf_counter, *, guard=None) -> dict:
+            time_fn=time.perf_counter, *, guard=None, journal=None,
+            advisor=None) -> dict:
         """Serve ``requests`` (replayed against their ``arrival`` stamps)
         to completion or graceful drain.  A token's latency is the wall
         time since the previous token of the SAME sequence (first token:
@@ -764,19 +867,27 @@ class PagedDecodeEngine:
         ``should_stop`` flag) wires a stop request into a graceful drain:
         admission stops, un-admitted work is ``shed``, in-flight work
         finishes within ``serve.drain_ms`` and is otherwise ``drained``.
+        ``journal`` (``serving/recovery.ReplayJournal``) records each
+        request's prompt and delivered tokens for a replay.  ``advisor``
+        (``serving/autoscale.ScaleAdvisor``) observes every iteration;
+        its report is the ``autoscale`` block (None without one).  In a
+        tensor-parallel world rank 0's clock and stop flag decide for
+        every rank, and only rank 0 journals.
         """
         from mpi_tensorflow_torch.serving.iteration import (DrainTracker,
                                                             EngineLoop)
 
         serve = self.serve
-        loop = EngineLoop(self)
+        loop = EngineLoop(self, journal if self.rank == 0 else None)
         drain = DrainTracker(serve.drain_ms)
         pending = sorted(requests, key=lambda r: r.arrival)
         t0 = time_fn()
         while pending or not self.sched.all_done():
             now = time_fn() - t0
-            if guard is not None and guard.should_stop \
-                    and not drain.draining:
+            stop = guard is not None and guard.should_stop
+            if self._reduce is not None:
+                now, stop = tp_lib.agree(now, stop)
+            if stop and not drain.draining:
                 drain.start(now, len(self.sched.finished))
                 drain.shed = len(pending)
                 for req in pending:
@@ -790,6 +901,13 @@ class PagedDecodeEngine:
                 loop.submit(pending.pop(0))
             emitted = loop.iterate(now, time_fn, t0)
             now = time_fn() - t0
+            if advisor is not None:
+                if self.tracer is not None \
+                        and self.tracer.last_step is not None:
+                    # the advisor reads the step record the trace holds
+                    advisor.observe_step(self.tracer.last_step)
+                else:
+                    advisor.observe(now, **self.load_signals())
             if not emitted and not self._progressed:
                 # idle gap before the next arrival: sleep instead of
                 # spinning a host core
@@ -808,7 +926,7 @@ class PagedDecodeEngine:
         total = sum(len(v) for v in outputs.values())
         flat = loop.latencies()
         lat = np.asarray(flat) if flat else np.zeros(1)
-        return {
+        res = {
             "outputs": outputs,
             "statuses": dict(self.sched.statuses),
             "faults": metrics_writer.faults_block(self.sched.counters),
@@ -833,7 +951,20 @@ class PagedDecodeEngine:
             "dispatches_per_token": self.forward_dispatches / max(1, total),
             "request_finish_s": dict(loop.last_emit),
             "request_first_token_s": dict(loop.first_emit),
+            "autoscale": (advisor.report() if advisor is not None
+                          else None),
         }
+        if self.tracer is not None:
+            # the key exists only with tracing on
+            h = self.tracer.harvest(elapsed)
+            res["trace"] = {
+                "enabled": True,
+                "replicas": [{"pid": 0, "label": "engine", **h}],
+                "spans": h["spans"],
+                "steps": len(h["steps"]),
+                "steps_dropped": h["steps_dropped"],
+            }
+        return res
 
     def load_signals(self) -> dict:
         """Instantaneous load signals: waiting-queue depth, live-slot

@@ -2,20 +2,22 @@
 
 Counterpart of ``mpi_tensorflow_tpu/serving/iteration.py``:
 
-- ``EngineLoop.submit``  stamps the default per-request TTL and runs
+- ``EngineLoop.submit``  stamps the default per-request TTL, journals
+  the submit (with a replayed request's delivered ``pre``) and runs
   admission, starting the latency clock only for accepted requests;
 - ``EngineLoop.iterate`` sweeps deadlines, steps the engine once, and
   does the emit/eviction accounting: a token's latency is the wall time
   since the SAME sequence's previous token (first token: since arrival,
   queueing included), and an eviction voids the samples delivered so
-  far (they are regenerated; only the final delivered stream counts);
+  far (they are regenerated; only the final delivered stream counts)
+  and journals the void, so a replay forgets them too;
 - ``DrainTracker`` — SIGTERM stops admission, sheds queued work, lets
   in-flight sequences finish inside ``drain_ms`` and cuts the rest as
   ``drained``.
 
-The replay journal (crash recovery) is not ported yet (ROADMAP
-Queue 1).  The tracer hooks stay, each guarded by ``tracer is None``:
-the engine builds no tracer until the tracing slice lands.
+``engine.run`` and the replica router (``serving/router``) both drive
+an ``EngineLoop`` per engine, so the two share one accounting.  Every
+tracer stamp is a ``tracer is None`` skip with tracing off.
 """
 
 from __future__ import annotations
@@ -29,8 +31,12 @@ class EngineLoop:
     """Per-engine iteration state + the shared per-iteration body.
     Single-owner: only the thread driving the engine may touch it."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, journal=None):
         self.engine = engine
+        self.journal = journal
+        # the engine journals each token at emission, BEFORE the
+        # scheduler's terminal hook can fire: tok-then-end
+        engine._journal = journal
         self.tracer = getattr(engine, "tracer", None)
         self.token_times: Dict[int, List[float]] = {}
         self.last_emit: Dict[int, float] = {}
@@ -40,14 +46,21 @@ class EngineLoop:
         self.tokens = 0
         self.peak_queue = 0
 
-    def submit(self, req, *, front: bool = False):
+    def submit(self, req, *, pre: Optional[List[int]] = None,
+               front: bool = False):
         """Admit ``req``: stamp the default TTL (an explicit deadline
-        wins), run admission control.  Returns the scheduler's
-        ``RejectedRequest`` (terminal status recorded) or None."""
+        wins), journal the submit, run admission control.  ``pre`` is a
+        replayed request's delivered prefix, staged into the journal so
+        the durable stream stays whole across engines; ``front`` queues
+        ahead of earlier arrivals (migrated work already waited its
+        turn once).  Returns the scheduler's ``RejectedRequest``
+        (terminal status recorded) or None."""
         eng = self.engine
         if eng.serve.deadline_ms is not None and req.deadline is None:
             req = dataclasses.replace(
                 req, deadline=req.arrival + eng.serve.deadline_ms / 1e3)
+        if self.journal is not None:
+            self.journal.record_submit(req, pre=pre)
         tr = self.tracer
         if tr is not None:
             tr.on_submit(req, replay=req.replayed)
@@ -90,6 +103,8 @@ class EngineLoop:
         # AFTER the emit accounting: an eviction discards the request's
         # samples so far — including a token emitted this very step
         for rid in eng.sched.evicted_ids:
+            if self.journal is not None:
+                self.journal.record_evict(rid)
             self.token_times[rid] = []
             self.last_emit[rid] = now
             self.first_emit.pop(rid, None)
@@ -136,5 +151,19 @@ class DrainTracker:
                         if self.draining else 0),
             "shed": self.shed if self.draining else 0,
             "cut": int(cut),
+            "budget_ms": self.drain_ms,
+        }
+
+    def result_counts(self, counts) -> dict:
+        """The SAME canonical block, computed from per-status terminal
+        counts recorded while draining — the fleet router's accounting
+        (it observes terminals as hook notifications rather than one
+        scheduler's finished-list delta).  Defined here, next to
+        ``result``, so the block's shape lives in exactly one module."""
+        return {
+            "requested": self.draining,
+            "drained": int(counts.get("ok", 0)) if self.draining else 0,
+            "shed": int(counts.get("shed", 0)) if self.draining else 0,
+            "cut": int(counts.get("drained", 0)),
             "budget_ms": self.drain_ms,
         }

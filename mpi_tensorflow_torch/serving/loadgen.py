@@ -1,13 +1,14 @@
 """Trace-driven load generation for the serving entry point.
 
 Counterpart of ``mpi_tensorflow_tpu/serving/loadgen.py`` (pure numpy,
-ported whole apart from the goodput join, which waits for the metrics
-slice): ``WorkloadSpec`` describes a synthetic trace, ``build_trace``
-turns spec + seed into a ``Trace``.  ONE ``np.random.default_rng(seed)``
-drives every draw in a fixed order, so the same spec gives a
-byte-identical trace here and in the reference (pinned by
-tests/test_torch_serving.py) — and the same requests across warmup,
-timed and cross-check runs.
+ported whole): ``WorkloadSpec`` describes a synthetic trace,
+``build_trace`` turns spec + seed into a ``Trace``, and
+``per_request_rows`` joins a trace with a run's result into the rows
+``metrics_writer.goodput_block`` aggregates.  ONE
+``np.random.default_rng(seed)`` drives every draw in a fixed order, so
+the same spec gives a byte-identical trace here and in the reference
+(pinned by tests/test_torch_serving.py) — and the same requests across
+warmup, timed and cross-check runs.
 
 Workload matrix (``workload``):
 
@@ -423,3 +424,52 @@ def build_trace(spec: WorkloadSpec) -> Trace:
                  arrivals=arrivals, tenants=tenant_names, slos_ms=slos,
                  sessions=sessions, followup_suffixes=followup_suffixes,
                  followup_gaps=followup_gaps)
+
+
+def per_request_rows(trace: Trace, result: dict) -> List[dict]:
+    """Join the trace's SLO/tenant metadata with a run result into the
+    per-request rows ``metrics_writer.goodput_block`` aggregates.
+
+    ``attained_ms`` is final-token emit time minus arrival on the run
+    clock (``result["request_finish_s"]`` — engine.run/router.run), the
+    whole-request latency a client experienced; None when the request
+    never finished on this run.  A request MEETS its SLO iff it
+    completed ``ok`` within its budget — the deadline sweep fails late
+    work as ``deadline_exceeded``, and the attained-time check also
+    catches a completion that slipped past its budget between sweeps."""
+    finish = result.get("request_finish_s") or {}
+    first = result.get("request_first_token_s") or {}
+    statuses = result.get("statuses") or {}
+    outputs = result.get("outputs") or {}
+    # with tracing on the run result carries lifecycle spans
+    # (serving/tracing) — join the phase attribution onto each row so
+    # a per-tenant SLO miss can be read as queueing vs prefill vs
+    # decode without opening the Chrome trace
+    spans = (result.get("trace") or {}).get("spans") or {}
+    rows = []
+    for i in range(len(trace.prompts)):
+        status = statuses.get(i, "missing")
+        f = finish.get(i)
+        attained = ((f - float(trace.arrivals[i])) * 1e3
+                    if f is not None and status == "ok" else None)
+        # time-to-first-token on the same clock — unlike attained_ms
+        # it is kept for any request that streamed at least one token
+        # (a deadline-failed request still made its client wait)
+        t = first.get(i)
+        ttft = ((t - float(trace.arrivals[i])) * 1e3
+                if t is not None else None)
+        row = {
+            "tenant": trace.tenants[i],
+            "status": status,
+            "tokens": len(outputs.get(i, ())),
+            "attained_ms": attained,
+            "ttft_ms": ttft,
+            "slo_ms": trace.slos_ms[i],
+        }
+        sp = spans.get(i)
+        if sp is not None:
+            row["queue_ms"] = sp["queue_s"] * 1e3
+            row["prefill_ms"] = sp["prefill_s"] * 1e3
+            row["decode_ms"] = sp["decode_s"] * 1e3
+        rows.append(row)
+    return rows

@@ -14,7 +14,7 @@ block (``ops/paged_attention.NULL_BLOCK``) and is never handed out.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -101,7 +101,8 @@ def blocks_for(tokens: int, block_size: int) -> int:
 
 
 def init_pools(cfg, num_blocks: int, block_size: int, device: torch.device,
-               kv_dtype: str = "fp32", kv_group: int = 32) -> list:
+               kv_dtype: str = "fp32", kv_group: int = 32,
+               heads: Optional[int] = None) -> list:
     """Per-layer zero pools, the reference's leaves and shapes:
 
     - ``fp32``: ``{"k", "v"}`` of (num_blocks, heads, block_size,
@@ -115,11 +116,12 @@ def init_pools(cfg, num_blocks: int, block_size: int, device: torch.device,
 
     The scale leaves share the pools' leading axes, so block-table
     indexing treats them like the codes; their rank tells the consume
-    paths int8 from int4."""
+    paths int8 from int4.  ``heads`` (default ``cfg.heads``): a
+    tensor-parallel rank's share of them (``serving/tp``)."""
     if kv_dtype not in ("fp32", "int8", "int4"):
         raise ValueError(
             f"serve kv dtype must be fp32|int8|int4, got {kv_dtype!r}")
-    H, D = cfg.heads, cfg.head_dim
+    H, D = (heads or cfg.heads), cfg.head_dim
     if kv_dtype == "fp32":
         shape, dtype, sshape = (num_blocks, H, block_size, D), cfg.dtype, None
     elif kv_dtype == "int8":

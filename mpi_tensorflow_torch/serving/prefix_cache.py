@@ -1,10 +1,10 @@
 """Radix prefix cache: cross-request reuse of shared-prefix KV blocks.
 
 Counterpart of ``mpi_tensorflow_tpu/serving/prefix_cache.py``, ported
-whole but for the fleet router's root-membership hook (ROADMAP item 6):
-the same trie, the same LRU clock and the same refcount moves, so the
-two caches make identical decisions on the same operations (the parity
-tests drive both with one seeded stream).  Pure host Python; it
+whole, the replica router's ``root_hook`` included: the same trie, the
+same LRU clock and the same refcount moves, so the two caches make
+identical decisions on the same operations (the parity tests drive both
+with one seeded stream).  Pure host Python; it
 imports no torch, and the engine supplies the device halves (the
 copy-on-write block copy, the partial tail-block copy and the host
 tier's demote / promote copies).
@@ -75,6 +75,11 @@ class PrefixCache:
         self.num_blocks = 0          # nodes == distinct pool blocks held
         self.inserted = 0            # nodes ever adopted
         self.evicted = 0             # nodes LRU-evicted
+        # observer of the root's children (leading full-block keys):
+        # root_hook(key, True) when a first-block node is adopted,
+        # root_hook(key, False) when one is evicted; the replica
+        # router's prefix-aware placement feeds its owner map from it
+        self.root_hook = None
         # the host tier (kv_tier="host"); the engine wires all three or
         # none: ``tier`` a paged_cache.HostBlockStore,
         # ``demote_fetch(block) -> host leaves`` copies a pool block to
@@ -148,6 +153,8 @@ class PrefixCache:
             node.children[key] = child
             self.num_blocks += 1
             self.promoted += 1
+            if node is self._root and self.root_hook is not None:
+                self.root_hook(key, True)
             self.allocator.share([bid])             # the sequence's ref
             ids.append(bid)
             path.append(key)
@@ -207,6 +214,8 @@ class PrefixCache:
                 self.num_blocks += 1
                 self.inserted += 1
                 added += 1
+                if node is self._root and self.root_hook is not None:
+                    self.root_hook(key, True)
             child.last_used = self._tick()
             node = child
         return added
@@ -257,6 +266,8 @@ class PrefixCache:
             self.num_blocks -= 1
             self.evicted += 1
             freed += 1
+            if victim.parent is self._root and self.root_hook is not None:
+                self.root_hook(victim.key, False)
         return freed
 
     # ---------------- invariants / stats ----------------

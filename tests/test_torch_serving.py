@@ -13,8 +13,9 @@ with the pool in the compute dtype, and quantized to int8 and to int4
 the same bytes and the tokens stay identical).
 
 Also pinned: ``ServeConfig`` takes the features the port serves with
-the reference's validation and refuses the fleet's (ROADMAP item 6);
-``cuda`` without a card raises instead of running on the CPU; ``python -m mpi_tensorflow_torch.serving`` prints
+the reference's validation, the fleet's (ROADMAP item 6) among them;
+``cuda`` without a card raises instead of running on the CPU; ``python
+-m mpi_tensorflow_torch.serving`` prints
 its JSON line; and no module of the port, nor ``chip_smoke.py``, imports
 JAX or the JAX package (an AST scan: this image imports JAX at start-up,
 so an import check would prove nothing).
@@ -272,13 +273,16 @@ def test_pow2_ceil_and_bucket_match_reference():
     ("trace", "on", "tracing"),
 ])
 def test_serve_config_refuses_what_is_not_ported(field, value, item):
+    """``ServeConfig`` refused these values, naming ROADMAP item 6
+    (``item``), until the fleet slice was ported; it now takes them as
+    the reference does, and raises for none of them."""
     kw = {field: value}
     if field == "prefix_route":
         kw["prefix_cache"] = "on"              # its own precondition
-    with pytest.raises(ValueError, match=rf"not ported yet: ROADMAP "
-                                         rf"Queue 1 item 6 \({item}\)"):
-        engine.ServeConfig(**kw)
-    jax_engine.ServeConfig(**kw)               # valid in the reference
+    got = dataclasses.asdict(engine.ServeConfig(**kw))
+    want = dataclasses.asdict(jax_engine.ServeConfig(**kw))
+    assert got.pop("kernel") == "auto" and want.pop("kernel") == "auto"
+    assert got == want and got[field] == value
 
 
 @pytest.mark.parametrize("kw", [
