@@ -37,8 +37,11 @@ fails:
    ``PagedDecodeEngine`` at ``BERT_BASE`` geometry in bfloat16 with
    ``kernel="cuda"``; the kernel's launch count must equal layers x
    forward dispatches;
-3b. the same run from an int8 and from an int4 pool (``kv_dtype``; no
-   warmup replay), each with its launches counted alone; every request
+3b. the serving bench's ``--serve-kernel-ab`` and ``--serve-kv-ab`` at
+   full width: the harness's A/B blocks on phase 3's engine and timed
+   run, the gather path and the int8 pool each after its own warmup
+   replay, each arm's launches counted alone (layers x its dispatches,
+   0 on gather); then the int4 pool (no warmup replay); every request
    ``ok``, the
    ``kv_quant`` block against phase 3's run (capacity multipliers
    exactly 1.8824 and 3.2; the token match rate is printed, not held:
@@ -267,6 +270,41 @@ fails:
    ranks on ``cuda:0``; NCCL refuses two ranks on one card) and at
    world 1 over NCCL: the single engine's tokens, the pools at H / tp
    heads, launches == layers x dispatches on rank 0.
+17. (after 15, before phase 2's timing and any ``torch.profiler``
+   session) decoding and the serving bench's remaining arms — 17a:
+   float32, 2 layers at full width: ``generate`` with top_k = 1 ==
+   greedy == the paged engine's tokens (launches == layers x
+   dispatches), ``beam_search`` with 1 beam == greedy, and 4 beams'
+   scores == a full-forward rescoring within ``BEAM_RESCORE_TOL``;
+   17e (beside 17a): two tensor-parallel replicas behind the router,
+   journaled, ``torchrun --nproc_per_node 2 chip_smoke.py --worker
+   tp_fleet gloo`` on ``cuda:0``: the tp 1 engine's float32 tokens on
+   the arms' trace, launches == layers x dispatches summed over the
+   replicas; 17b: ``bench --mode decode`` (``measure_decode``) at
+   ``BERT_BASE`` bf16, batch 8, prompt 32, 128 new tokens, greedy and 4
+   beams, the slope not degenerate (``DECODE_ITERS`` timed pairs a
+   length, a cut of the bench's 5); 17c: the static-batch arm on phase
+   3's engine and trace, ``speedup_vs_static``; 17d (check only, nothing
+   of it timed): ``--serve-kernel-ab``, ``--serve-kv-ab`` (int8),
+   ``--serve-spec-ab`` (ngram) and ``--serve-mixed-ab`` through
+   ``harness.measure_serving`` in float32 at 2 layers on ``ARMS_TRACE``
+   (a cut of phase 3's trace): the tokens identical where the reference
+   holds them so (cuda == gather, speculation and mixed batching ==
+   off), every arm's paged launches == layers x its dispatches (0 on
+   gather); 17f: ``--serve-spec-ab`` (ngram) and ``--serve-mixed-ab``
+   timed at full width through ``harness.measure_serving`` (BERT_BASE
+   bf16, phase 3's trace; the kernel and kv arms are phase 3b's), every
+   request ``ok``, each arm's launches == layers x its dispatches, each
+   block printed with the card;
+18. gpt_base next-token training — 18a: phase 6's causal kernels at
+   the training shape logged beside SDPA's causal forward and backward
+   (their bound at half the product flops); 18b: phase 8's check for
+   ``TrainableCausalLm`` (flash against dense, both causal); 18c:
+   ``train_mlm`` with ``model="gpt_base"`` at phase 7's shape (BERT_BASE
+   bf16, S = 4096, batch 4, 8 steps): losses finite and falling (the last
+   two steps' mean below the first's), the flash launches as phase 7's
+   (the causal mode), tokens/s, MFU (every position through the head)
+   and peak GiB printed.
 
 Prints one ``kernels`` JSON line, then the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a card it
@@ -890,28 +928,76 @@ def serve_full_width(dev, kv_dtype: str = "fp32", warm: bool = True):
 CAPACITY = {"int8": 1.8824, "int4": 3.2}     # 256/136 and 256/80 bytes
 
 
-def serve_quant(dev, ref: dict) -> dict:
-    """Phase 3's run from an int8 and from an int4 pool, each held
-    against ``ref`` (phase 3's compute-dtype result: same trace, same
-    weights) by the ``kv_quant`` block.  The match rate of the gather
-    lowering over the compute-dtype pool against ``ref`` is printed
+@contextlib.contextmanager
+def recorded_arms():
+    """Every ``harness.control_arm`` result inside the block, in order:
+    ``(the timed run's result, its paged launches, the engine)``."""
+    from mpi_tensorflow_torch.serving import harness
+
+    orig, arms = harness.control_arm, []
+
+    def control_arm(*a, **kw):
+        arms.append(orig(*a, **kw))
+        return arms[-1]
+
+    harness.control_arm = control_arm
+    try:
+        yield arms
+    finally:
+        harness.control_arm = orig
+
+
+def check_arm_launches(label: str, block: dict, layers: int) -> None:
+    """An A/B block's paged launches == layers x each arm's forward
+    dispatches (0 on the gather path)."""
+    for arm, n in block["launches"].items():
+        want = 0 if arm == "gather" else layers * block[
+            "forward_dispatches"][arm]
+        if n != want:
+            raise AssertionError(f"{label} arm {arm}: paged launches {n} "
+                                 f"!= {want}")
+
+
+def serve_quant(dev, card: str, ref: dict, ref_launches: int, ref_engine,
+                trace) -> dict:
+    """Phase 3b: the serving bench's ``--serve-kernel-ab`` and
+    ``--serve-kv-ab`` at full width: ``harness.kernel_ab_block`` and
+    ``kv_ab_block`` on phase 3's engine and timed run ``ref`` (the first
+    arm ``measure_serving`` would build and time at these settings), the
+    gather path and the int8 pool each served on phase 3's trace after
+    its own untimed warmup replay; then the int4 pool (no warmup replay).
+    Each quantized run is held against ``ref`` by the ``kv_quant``
+    block.  The gather arm's match rate against ``ref`` is printed
     beside them: on random weights greedy tokens part at any rounding
     difference, and that rate is the floor the weights set.  Returns the
-    launches per ``kv_dtype``."""
-    from mpi_tensorflow_torch.serving.harness import (build_serving,
-                                                      kv_quant_report)
+    launches per ``kv_dtype`` and the two A/B blocks."""
+    from mpi_tensorflow_torch.serving import harness
 
-    engine, trace = build_serving(precision="bf16", kernel="gather",
-                                  device=dev)
-    floor = kv_quant_report(ref, engine.run(trace.requests()), engine,
-                            trace)
-    del engine
-    launches = {}
-    for kv_dtype in ("int8", "int4"):
-        # no warmup replay: phase 3's left nothing to build or grow
+    layers = ref_engine.model.cfg.layers
+    with recorded_arms() as arms:
+        kernel_ab = harness.kernel_ab_block(ref_engine, trace.requests, ref,
+                                            ref_launches)
+        kv_ab = harness.kv_ab_block(ref_engine, trace, trace.requests, ref,
+                                    ref_launches)
+    (gather, _, gather_engine), (int8, _, int8_engine) = arms
+    floor = harness.kv_quant_report(ref, gather, gather_engine, trace)
+    runs = {"int8": (int8, harness.kv_quant_report(ref, int8, int8_engine,
+                                                   trace))}
+    del arms[:], gather_engine, int8_engine
+    check_arm_launches("3b kernel_ab", kernel_ab, layers)
+    check_arm_launches("3b kv_ab", kv_ab, layers)
+    for name, block in (("kernel_ab", kernel_ab), ("kv_ab", kv_ab)):
+        log(f"[arms {name}] BERT_BASE bf16, phase 3's trace: "
+            + json.dumps(block) + f"; {card}")
+    launches = {"int8": kv_ab["launches"]["int8"]}
+    for kv_dtype in ("int4",):
+        # no warmup replay: phase 3 left nothing to build or grow
         launches[kv_dtype], res, engine, trace = serve_full_width(
             dev, kv_dtype, warm=False)
-        block = kv_quant_report(ref, res, engine, trace)
+        runs[kv_dtype] = (res, harness.kv_quant_report(ref, res, engine,
+                                                       trace))
+        del engine
+    for kv_dtype, (res, block) in runs.items():
         log(f"[serve {kv_dtype}] " + json.dumps({
             "tokens_per_sec": res["tokens_per_sec"],
             "tokens_per_sec_ref": ref["tokens_per_sec"],
@@ -926,8 +1012,7 @@ def serve_quant(dev, ref: dict) -> dict:
             raise AssertionError(
                 f"{kv_dtype} capacity multiplier "
                 f"{block['capacity_multiplier']} != {CAPACITY[kv_dtype]}")
-        del engine
-    return launches
+    return {"launches": launches, "kernel_ab": kernel_ab, "kv_ab": kv_ab}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1568,26 +1653,45 @@ def time_flash(dev) -> dict:
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_N, TEST_N, LOG_EVERY = 4096, 4, 32, 8, 4
 
 
-def train_full_width(dev) -> tuple:
+def train_full_width(dev, model: str = "bert_base") -> tuple:
     """BERT_BASE widths, bf16, S=4096, batch 4, dropout 0.1, through
-    ``train_mlm``.  Returns the flash launches of the run and its
-    numbers."""
+    ``train_mlm`` (``model``: ``bert_base``, phase 7, or ``gpt_base``,
+    phase 18: the causal kernels and the chunked CE, its loss falling
+    from the first step to the last two).  Returns the flash launches
+    of the run and its numbers."""
     from mpi_tensorflow_torch.config import Config
     from mpi_tensorflow_torch.models import bert
-    from mpi_tensorflow_torch.train import mlm_loop
+    from mpi_tensorflow_torch.train import gspmd, mlm_loop
     from mpi_tensorflow_torch.utils import flops
 
     cfg = dataclasses.replace(bert.BERT_BASE, dtype=torch.bfloat16,
                               max_positions=TRAIN_SEQ)
-    config = Config(model="bert_base", dataset="mlm_synthetic", epochs=1,
+    config = Config(model=model, dataset="mlm_synthetic", epochs=1,
                     batch_size=TRAIN_BATCH, log_every=LOG_EVERY,
                     precision="bf16")
     torch.cuda.reset_peak_memory_stats(dev)
     set_flash_counts({k: 0 for k in FLASH})
-    res = mlm_loop.train_mlm(config, cfg, seq_len=TRAIN_SEQ,
-                             train_n=TRAIN_N, test_n=TEST_N, device=dev)
+    losses = []
+    make = gspmd.make_train_step
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def call(*args):
+            state, metrics = step(*args)
+            losses.append(metrics["loss"])   # stays on the card
+            return state, metrics
+        return call
+
+    gspmd.make_train_step = recording
+    try:
+        res = mlm_loop.train_mlm(config, cfg, seq_len=TRAIN_SEQ,
+                                 train_n=TRAIN_N, test_n=TEST_N, device=dev)
+    finally:
+        gspmd.make_train_step = make
     torch.cuda.synchronize(dev)
     launches = flash_counts()
+    losses = [float(x) for x in losses]
     steps = res.num_steps
     eval_forwards = len(res.history) * -(-min(TEST_N, 4 * TRAIN_BATCH)
                                          // TRAIN_BATCH)
@@ -1598,35 +1702,46 @@ def train_full_width(dev) -> tuple:
         raise AssertionError(f"flash launches {launches} != {want} (12 "
                              f"layers x {steps} steps, {eval_forwards} "
                              f"eval forwards)")
-    if not np.isfinite(res.final_loss):
-        raise AssertionError(f"non-finite training loss {res.final_loss}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite training loss {losses}")
+    if model == "gpt_base" and not np.mean(losses[-2:]) < losses[0]:
+        raise AssertionError(f"the causal loss did not fall: {losses}")
     if [t for t, _ in res.history] != [4, 7]:
         raise AssertionError(f"unexpected history {res.history}")
-    model_flops = flops.transformer_train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    causal = model == "gpt_base"
+    model_flops = flops.transformer_train_flops(
+        cfg, TRAIN_BATCH, TRAIN_SEQ,
+        head_positions=TRAIN_SEQ if causal else None)
     stats = {
+        "model": model, "causal": causal,
         "layers": cfg.layers, "hidden": cfg.hidden, "heads": cfg.heads,
         "vocab": cfg.vocab_size, "precision": "bf16", "seq_len": TRAIN_SEQ,
         "batch": TRAIN_BATCH, "dropout": cfg.dropout, "steps": steps,
         "history": res.history, "final_loss": res.final_loss,
+        "losses": losses,
         "step_ms": res.step_time_seconds * 1e3,
         "tokens_per_sec": res.tokens_per_sec,
         "model_flops_per_step": model_flops,
         "mfu_bf16": flops.mfu(model_flops, res.step_time_seconds, "bf16"),
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "launches": launches}
-    log("[train] " + json.dumps(stats))
+    log(f"[train {model}] " + json.dumps(stats))
     return launches, stats
 
 
 # ---------------------------------------------------------------- phase 8
 
-def cross_check_train(dev) -> None:
+def cross_check_train(dev, family=None, label: str = "mlm") -> None:
     """float32, 2 layers at full width, S=512, B=2, dropout 0: the loss
     and gradients at the start, and the losses and parameters of three
-    train steps, with ``attention="flash"`` against ``"dense"``."""
+    train steps, with ``attention="flash"`` against ``"dense"``;
+    ``family``: ``BertMlm`` (phase 8) or ``TrainableCausalLm`` (phase
+    18b: both routes causal)."""
     from mpi_tensorflow_torch.data import synthetic
     from mpi_tensorflow_torch.models import bert
     from mpi_tensorflow_torch.train import gspmd, optimizer
+
+    family = family or bert.BertMlm
 
     cfg = dataclasses.replace(bert.BERT_BASE, layers=2, dropout=0.0)
     tokens, targets, mask = synthetic.mlm_batches(
@@ -1637,7 +1752,7 @@ def cross_check_train(dev) -> None:
     saved = flash_counts()
     runs = {}
     for attention in ("flash", "dense"):
-        model = bert.BertMlm.from_seed(cfg, 0, attention).to(dev)
+        model = family.from_seed(cfg, 0, attention).to(dev)
         loss = model.loss(*batches[0], train=True)
         loss.backward()
         grads = [p.grad.clone() for p in model.parameters()]
@@ -1646,7 +1761,7 @@ def cross_check_train(dev) -> None:
         state = gspmd.init_state(model, tx)
         step = gspmd.make_train_step(tx)
         losses = [float(step(state, *b)[1]["loss"]) for b in batches]
-        runs[attention] = (float(loss), grads, losses,
+        runs[attention] = (loss.item(), grads, losses,
                            [p.detach() for p in model.parameters()],
                            [n for n, _ in model.named_parameters()])
     set_flash_counts(saved)
@@ -1673,7 +1788,7 @@ def cross_check_train(dev) -> None:
     if p_err > 1e-5 or bk_err > 3e-4:
         raise AssertionError(f"flash vs dense parameters differ by {p_err} "
                              f"(bk {bk_err}) after 3 steps")
-    log(f"[train cross-check] fp32, 2 layers, S=512, B=2: loss "
+    log(f"[train cross-check {label}] fp32, 2 layers, S=512, B=2: loss "
         f"{l_f:.6f} vs {l_d:.6f}, step losses max|diff| "
         f"{max(abs(a - b) for a, b in zip(ls_f, ls_d)):.3e}, gradients "
         f"max|diff| {g_err:.3e} (tolerance 1e-4), parameters after 3 "
@@ -4325,6 +4440,293 @@ def fleet_phase(dev, card: str, ref: dict, ref_engine, trace) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 17
+
+ARMS_DIR = "build/arms17"               # git-ignored; emptied before
+                                        # 17e and removed after
+# the A/B arms' and the tensor-parallel fleet's trace, at 2 layers of
+# full width in float32 (phase 4's fp32 checks): a cut of phase 3's (8
+# requests of at most 32 tokens, all arriving at once, against 24 of at
+# most 128 at 4 rps), so the four arms' eight replays stay short
+ARMS_TRACE = dict(num_requests=8, rate_rps=1000.0, prompt_max=32,
+                  output_max=32, precision="fp32")
+ARMS_LAYERS = 2
+ARMS_ARGV = ["--requests", "8", "--arrival-rate", "1000", "--prompt-len",
+             "32", "--new-tokens", "32", "--precision", "fp32"]
+AB_ARMS = {"kernel_ab": ["--serve-kernel-ab"],
+           "kv_ab": ["--serve-kv-ab"],
+           "spec_ab": ["--serve-speculative", "ngram", "--serve-spec-ab"],
+           "mixed_ab": ["--serve-mixed-batch", "on", "--serve-mixed-ab"]}
+DECODE_CHECK = dict(batch=4, prompt=16, new=16, beams=4)
+# 17b's timed pairs a decode length (a cut for the script's time: the
+# bench's default is 5)
+DECODE_ITERS = 3
+# 17f: the A/B arms timed at full width (BERT_BASE bf16, phase 3's
+# trace); the kernel and kv arms are phase 3b's
+FULL_WIDTH_AB = ("spec_ab", "mixed_ab")
+BEAM_RESCORE_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def serving_layers(n: int):
+    """The serving harness's engines at ``n`` layers (full widths): the
+    float32 checks' depth (phase 4), where greedy tokens do not part at
+    a rounding."""
+    import functools
+
+    from mpi_tensorflow_torch.serving import harness
+
+    orig = harness.build_serving
+    harness.build_serving = functools.partial(orig, layers=n)
+    try:
+        yield
+    finally:
+        harness.build_serving = orig
+
+
+def serving_args(argv):
+    import argparse
+
+    from mpi_tensorflow_torch.serving import harness
+
+    ap = argparse.ArgumentParser()
+    harness.add_serving_args(ap)
+    args = ap.parse_args(argv)
+    harness.check_serving_args(ap, args)
+    return args
+
+
+def decode_checks(dev) -> dict:
+    """17a: float32, 2 layers at full width: ``generate`` with top_k = 1
+    (sampling at temperature 0.8 from a card generator) == greedy ==
+    the paged engine's tokens (its launches == layers x dispatches);
+    ``beam_search`` with 1 beam == greedy; the 4-beam search's scores
+    == a full-forward rescoring of its sequences within
+    ``BEAM_RESCORE_TOL``."""
+    from mpi_tensorflow_torch.models import bert
+    from mpi_tensorflow_torch.models.gpt import CausalLm
+    from mpi_tensorflow_torch.ops import paged_attention_kernel as pk
+    from mpi_tensorflow_torch.serving import engine as eng_lib
+
+    c = DECODE_CHECK
+    cfg = dataclasses.replace(bert.BERT_BASE, layers=ARMS_LAYERS)
+    model = CausalLm.from_seed(cfg, 0).to(dev)
+    g = torch.Generator().manual_seed(17)
+    prompt = torch.randint(0, cfg.vocab_size, (c["batch"], c["prompt"]),
+                           generator=g).to(dev)
+    greedy = model.generate(prompt, c["new"])
+    top1 = model.generate(prompt, c["new"], temperature=0.8, top_k=1,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(0))
+    if top1.tolist() != greedy.tolist():
+        raise AssertionError("17a: top_k = 1 sampling != greedy")
+    engine = eng_lib.PagedDecodeEngine(model, eng_lib.ServeConfig(
+        num_blocks=c["batch"] * 4 + 1, block_size=16, max_slots=c["batch"],
+        max_seq_len=64, kernel="cuda"), device=dev)
+    pk.paged_attention_kernel.launches = 0
+    res = engine.run([eng_lib.sched_lib.Request(
+        i, prompt[i].tolist(), c["new"]) for i in range(c["batch"])])
+    torch.cuda.synchronize(dev)
+    launches = pk.paged_attention_kernel.launches
+    if launches != cfg.layers * res["forward_dispatches"]:
+        raise AssertionError(f"17a: paged launches {launches} != "
+                             f"{cfg.layers} x {res['forward_dispatches']}")
+    if [res["outputs"][i] for i in range(c["batch"])] != \
+            greedy[:, c["prompt"]:].tolist():
+        raise AssertionError("17a: the paged engine's tokens != greedy")
+    one, _ = model.beam_search(prompt, c["new"], num_beams=1)
+    if one[:, 0].tolist() != greedy.tolist():
+        raise AssertionError("17a: beam_search with 1 beam != greedy")
+    seqs, scores = model.beam_search(prompt, c["new"],
+                                     num_beams=c["beams"])
+    worst = 0.0
+    S0, T = c["prompt"], c["new"]
+    with torch.no_grad():
+        for b in range(c["beams"]):
+            seq = seqs[:, b]
+            logits = model.forward_with_cache(
+                seq, model.init_cache(c["batch"], S0 + T), 0)
+            logp = torch.log_softmax(logits[:, S0 - 1:-1], -1)
+            rescored = torch.gather(logp, -1,
+                                    seq[:, S0:, None])[..., 0].sum(-1)
+            worst = max(worst, float((rescored - scores[:, b]).abs().max()))
+    if worst > BEAM_RESCORE_TOL:
+        raise AssertionError(f"17a: beam scores differ from a full-forward "
+                             f"rescoring by {worst}")
+    if not bool((scores[:, :-1] >= scores[:, 1:]).all()):
+        raise AssertionError("17a: beams not sorted best first")
+    out = {"launches": launches, "beam_rescore_max_abs_err": worst}
+    log(f"[decode] fp32, {cfg.layers} layers of width {cfg.hidden}, "
+        f"{c['batch']} prompts of {c['prompt']}, {c['new']} new tokens: "
+        f"top_k=1 sampling == greedy == the paged engine's tokens "
+        f"(launches {launches} == {cfg.layers} x "
+        f"{res['forward_dispatches']}); 1-beam search == greedy; "
+        f"{c['beams']}-beam scores vs a full-forward rescoring max|err| "
+        f"{worst:.3e} (tolerance {BEAM_RESCORE_TOL})")
+    return out
+
+
+def worker_tp_fleet(backend: str) -> None:
+    """17e: one rank of 2 tensor-parallel replicas behind the router,
+    journaled (``--serve-tp 2 --serve-replicas 2 --serve-journal``), on
+    the arms' trace; rank 0 reports the merged outputs, the paged
+    kernel's launches counted from 0 and the forward dispatches."""
+    from mpi_tensorflow_torch.parallel import mesh
+    from mpi_tensorflow_torch.serving import harness
+
+    dev, rank, world = join_world(backend)
+    journal = os.path.join(ARMS_DIR, "tp_fleet.jsonl")
+    args = serving_args(ARMS_ARGV + [
+        "--serve-tp", str(world), "--serve-replicas", "2",
+        "--serve-journal", journal])
+    with serving_layers(ARMS_LAYERS):
+        det = harness._measure(args, dev, world, 2)
+    if rank == 0:
+        print(DP_RESULT + json.dumps({
+            "world": world, "backend": backend, "device": str(dev),
+            "outputs": det["outputs"], "statuses": det["status_counts"],
+            "launches": det["launches"],
+            "forward_dispatches": det["forward_dispatches"],
+            "tokens_per_sec": det["tokens_per_sec"]}), flush=True)
+    mesh.shutdown()
+
+
+WORKERS.update(tp_fleet=worker_tp_fleet)
+
+
+def decode_arms_phase(dev, card: str, ref: dict, ref_engine, trace) -> dict:
+    """Phase 17: decoding and the serving bench's remaining arms (module
+    note).  ``ref``, ``ref_engine``, ``trace``: phase 3's timed run, its
+    engine and trace (the static arm's baseline)."""
+    from mpi_tensorflow_torch import bench
+    from mpi_tensorflow_torch.serving import harness
+
+    out = {}
+    # journals a killed run left would let 17e resume instead of serve
+    shutil.rmtree(ARMS_DIR, ignore_errors=True)
+    os.makedirs(ARMS_DIR)
+    me = os.path.abspath(__file__)
+    # 17e's check-only world runs beside 17a's checks (nothing timed)
+    world = start_torchruns([(2, [me, "--worker", "tp_fleet", "gloo"])])
+    try:
+        phase("17a")
+        out["decode"] = decode_checks(dev)
+        phase("17e")
+        with serving_layers(ARMS_LAYERS):
+            engine, tr = harness.build_serving(**ARMS_TRACE, device=dev)
+            want = engine.run(tr.requests())["outputs"]
+            del engine
+    finally:
+        res = dp_result(finish_torchruns(world, 300)[0])
+    got = {int(k): v for k, v in res["outputs"].items()}
+    if got != want or res["statuses"] != {"ok": len(want)} \
+            or res["launches"] != ARMS_LAYERS * res["forward_dispatches"]:
+        raise AssertionError(f"17e: tp 2 fleet tokens equal "
+                             f"{got == want}, statuses {res['statuses']}, "
+                             f"launches {res['launches']} (want "
+                             f"{ARMS_LAYERS} x {res['forward_dispatches']})")
+    out["launches_tp_fleet"] = res["launches"]
+    log(f"[arms tp] 2 replicas of a tp 2 engine over gloo on "
+        f"{res['device']}, journaled: tokens == the tp 1 engine's "
+        f"({len(want)} requests), launches {res['launches']} == "
+        f"{ARMS_LAYERS} x {res['forward_dispatches']} summed over the "
+        f"replicas on rank 0")
+    shutil.rmtree(ARMS_DIR, ignore_errors=True)
+
+    phase("17b")
+    out["decode_bench"] = {}
+    for beams in (0, 4):
+        d = bench.measure_decode(num_beams=beams, iters=DECODE_ITERS,
+                                 device=dev)
+        if d["timing_degenerate"] or not d["per_token_ms"] > 0:
+            raise AssertionError(f"17b: decode beams={beams} degenerate: "
+                                 f"{d}")
+        out["decode_bench"][beams] = d
+        log(f"[decode bench] " + json.dumps(d))
+
+    phase("17c")
+    static = harness.static_block(ref_engine, trace)
+    out["speedup_vs_static"] = ref["tokens_per_sec"] / static[
+        "tokens_per_sec"]
+    log(f"[static] phase 3's trace through generate on arrival-order "
+        f"groups {static['groups']} (rows, padded prompt, budget, cache): "
+        f"{static['tokens_per_sec']:.2f} tokens/s against phase 3's "
+        f"{ref['tokens_per_sec']:.2f}: speedup_vs_static "
+        f"{out['speedup_vs_static']:.3f}; {card}")
+
+    phase("17d")
+    out["launches_arms"] = {}
+    with serving_layers(ARMS_LAYERS):
+        for name, flags in AB_ARMS.items():
+            det = harness.measure_serving(serving_args(
+                ARMS_ARGV + flags + ["--device", "cuda"]))
+            block = det[{"kv_ab": "kv_quant"}.get(name, name)]
+            check_arm_launches(f"17d {name}", block, ARMS_LAYERS)
+            launches = block["launches"]
+            if name == "kernel_ab" and not block["token_identical"]:
+                raise AssertionError("17d: cuda and gather tokens differ")
+            if name == "spec_ab" and not det["speculation"][
+                    "token_identical_vs_off"]:
+                raise AssertionError("17d: speculation changed the tokens")
+            if name == "mixed_ab" and not block["token_identical_vs_off"]:
+                raise AssertionError("17d: mixed batching changed the "
+                                     "tokens")
+            if det["ok_requests"] != ARMS_TRACE["num_requests"]:
+                raise AssertionError(f"17d {name}: {det['status_counts']}")
+            out["launches_arms"][name] = launches
+            log(f"[arms {name} check] fp32, {ARMS_LAYERS} layers (cut: "
+                f"{ARMS_TRACE['num_requests']} requests <= "
+                f"{ARMS_TRACE['output_max']} tokens, all at once; its "
+                f"times judge nothing): " + json.dumps(block))
+
+    phase("17f")
+    out["full_width_ab"] = {}
+    for name in FULL_WIDTH_AB:
+        det = harness.measure_serving(serving_args(
+            AB_ARMS[name] + ["--precision", "bf16", "--device", "cuda"]))
+        block = det[name]
+        check_arm_launches(f"17f {name}", block, det["layers"])
+        if det["ok_requests"] != det["num_requests"]:
+            raise AssertionError(f"17f {name}: {det['status_counts']}")
+        out["full_width_ab"][name] = block
+        extra = ({"speculation": det["speculation"]} if name == "spec_ab"
+                 else {})
+        log(f"[arms {name}] BERT_BASE bf16, phase 3's trace ("
+            f"{det['num_requests']} requests at {det['rate_rps']} rps): "
+            + json.dumps({**block, **extra})
+            + f"; speedup_vs_static {det['speedup_vs_static']:.3f}; "
+            f"{card}")
+    return out
+
+
+# --------------------------------------------------------------- phase 18
+
+def gpt_train_phase(dev, card: str, flash_timing: dict) -> dict:
+    """Phase 18: gpt_base next-token training.  18a: the causal kernels
+    at the training shape are phase 6's (held against their plain
+    versions there; logged here beside SDPA's causal times); 18b: the
+    fp32 causal model, flash forced, against dense after 3 steps; 18c:
+    ``train_mlm`` with ``model="gpt_base"`` at BERT_BASE widths, bf16,
+    S = 4096, batch 4, 8 steps."""
+    from mpi_tensorflow_torch.models import gpt
+
+    phase("18a")
+    sdpa_fwd = flash_timing["flash_fwd"][True]["library_ms"]
+    for name in FLASH:
+        t = flash_timing[name][True]
+        log(f"[gpt kernels] {name} causal B=4 H=12 S=4096 D=64 bf16: "
+            f"{t['ms']:.4f} ms ({t['pct_of_bound']:.2f} % of its bound "
+            f"{t['bound_ms']:.4f} ms at half the product flops), "
+            f"max|kernel - plain| {t['max_abs_err_train_shape']:.3e}; "
+            f"sdpa is_causal forward {sdpa_fwd:.4f} ms, backward "
+            f"{t['library_bwd_ms']:.4f} ms; {card}")
+    phase("18b")
+    cross_check_train(dev, gpt.TrainableCausalLm, "causal")
+    phase("18c")
+    launches, stats = train_full_width(dev, model="gpt_base")
+    return {"launches": launches, "stats": stats}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda reports no card; nothing was run",
@@ -4346,7 +4748,8 @@ def main() -> int:
     quant_worst = check_kernel_quant(dev)
     phase("3 serving")
     launches, ref, engine, trace = serve_full_width(dev)
-    quant_launches = serve_quant(dev, ref)
+    quant = serve_quant(dev, card, ref, launches, engine, trace)
+    quant_launches = quant["launches"]
     phase("4 cross-checks")
     cross_check(dev)
     cross_check_quant(dev)
@@ -4356,6 +4759,8 @@ def main() -> int:
     fleet = fleet_phase(dev, card, ref, engine, trace)
     phase("15 serving features")
     features = feature_phase(dev, card, ref, engine, trace)
+    phase("17 decoding and the serving bench's arms")
+    arms = decode_arms_phase(dev, card, ref, engine, trace)
     del engine
     phase("2 paged kernel timing")
     timing = time_decode(dev)
@@ -4367,6 +4772,8 @@ def main() -> int:
     phase("7-8 training")
     flash_launches, phase7 = train_full_width(dev)
     cross_check_train(dev)
+    phase("18 gpt_base training")
+    gpt_train = gpt_train_phase(dev, card, flash_timing)
     # no path runs the fused kernels: their counts stay at 0 through
     # every main path above, and the comparison launches below are reset
     fused_launches = fused_counts()
@@ -4410,6 +4817,18 @@ def main() -> int:
         # replicas) and rank 0 of the tensor-parallel engines
         "launches_fleet": fleet["launches_fleet"],
         "launches_tp": fleet["launches_tp"],
+        # phase 17: each A/B arm's check runs, counted from 0 (2 fp32
+        # layers), the paged engine beside generate, and rank 0 of the
+        # tensor-parallel fleet
+        "launches_arms": arms["launches_arms"],
+        # phases 3b and 17f: the A/B arms' timed runs at full width
+        # (BERT_BASE bf16, phase 3's trace), each arm counted from 0
+        "launches_arms_full_width": {
+            "kernel_ab": quant["kernel_ab"]["launches"],
+            "kv_ab": quant["kv_ab"]["launches"],
+            **{k: v["launches"] for k, v in arms["full_width_ab"].items()}},
+        "launches_decode_check": arms["decode"]["launches"],
+        "launches_tp_fleet": arms["launches_tp_fleet"],
         **timing,
     }]
     for kv_dtype, modes, timed in (("int8", ("int8",), "int8"),
@@ -4441,11 +4860,15 @@ def main() -> int:
             "launches_dp_accum2": bert_dp["2"]["launches"][name],
             # phase 14c: the resumed BERT run, counted from 0
             "launches_resumed": long_run["14c"]["launches_resumed"][name],
+            # phase 18: gpt_base, the causal mode, counted from 0
+            "launches_gpt_causal": gpt_train["launches"][name],
             "max_abs_err": max(flash_worst[name, torch.float32],
                                flash_worst[name, torch.bfloat16]),
             "max_abs_err_fp32": flash_worst[name, torch.float32],
             "max_abs_err_bf16": flash_worst[name, torch.bfloat16],
-            **t[False],                  # the main path is not causal
+            # phase 7's path is not causal; phase 18's is, at the
+            # numbers of the causal block
+            **t[False],
             "causal": t[True]})
     for name in FUSED_REPLACES:
         kernels.append({

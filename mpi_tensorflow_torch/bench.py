@@ -37,8 +37,10 @@ card's line):
     torchrun --nproc_per_node 4 -m mpi_tensorflow_torch.bench \\
         --mode allreduce
 
-``--mode train --model bert_base``: the counterpart of the one-step arm
-of the reference's ``measure_bert``: the BERT-base MLM train step
+``--mode train --model bert_base`` (or ``gpt_base``): the counterpart of
+the one-step arm of the reference's ``measure_bert``: the BERT-base MLM
+train step (``gpt_base``: the causal LM's next-token step, the causal
+flash kernels at ``--seq-len 4096`` and the chunked CE)
 (``train.gspmd``, adamw through ``transformer_tx`` at a constant 1e-4,
 dropout 0.1) at ``--batch-size`` sequences per card of ``--seq-len``
 tokens (``max_positions`` raised to it), ``--grad-accum`` microbatches
@@ -54,6 +56,8 @@ The reference's bench runs ``optax.adamw(1e-4)`` without clipping; the
 port's runs the trainer's optimizer, one global norm more a step:
 
     python -m mpi_tensorflow_torch.bench --mode train --model bert_base \\
+        --seq-len 4096 --batch-size 4 --precision bf16
+    python -m mpi_tensorflow_torch.bench --mode train --model gpt_base \\
         --seq-len 4096 --batch-size 4 --precision bf16
     torchrun --nproc_per_node 4 -m mpi_tensorflow_torch.bench --mode train \\
         --model bert_base --seq-len 4096 --batch-size 4 --precision bf16 \\
@@ -91,11 +95,29 @@ Prints the reference's metric line, the harness's dict as its
         --arrival-rate 1000 --serve-replicas 2 --serve-fault-replica 0 \
         --serve-fault-step 3
 
-The reference's scanned arm (K steps per dispatch), ``--mode decode``
-(``generate``'s sampling and ``beam_search``), the serving bench's
-static-batch arm and its A/B arms (``--serve-kernel-ab``,
-``--serve-kv-ab``, ``--serve-spec-ab``, ``--serve-mixed-ab``) are not
-ported yet (ROADMAP Queue 1 item 6b).
+The static-batch arm (``generate`` on arrival-order groups,
+``speedup_vs_static``) and the A/B arms (``--serve-kernel-ab``,
+``--serve-kv-ab``, ``--serve-spec-ab``, ``--serve-mixed-ab``) run as the
+reference's do.
+
+``--mode decode``: the counterpart of ``bench.py --mode decode``
+(``measure_decode``): ``CausalLm.generate`` (greedy) or, with
+``--num-beams K``, ``beam_search`` at ``BERT_BASE`` widths, random
+weights from seed 0, ``--batch-size`` 8 prompts of ``--prompt-len`` 32
+tokens.  The per-token time is the slope between two lengths,
+``n_short = max(8, new_tokens // 8)`` and ``n_short + --new-tokens``
+(128), both on one cache capacity, each the median of ``--steps`` (5)
+timed calls after one untimed; tokens/sec counts the batch's tokens
+(the beams are the search's price).  ``roofline_min_per_token_ms`` is
+the weights a decode step reads over the card's 3.35 TB/s (0 off the
+card), and a slope at or below it is flagged ``timing_degenerate``:
+
+    python -m mpi_tensorflow_torch.bench --mode decode [--num-beams 4]
+    python -m mpi_tensorflow_torch.bench --mode decode --device cpu \\
+        --batch-size 2 --prompt-len 8 --new-tokens 8 --steps 1
+
+The reference's scanned arm (K train steps a dispatch) is not ported
+yet (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -196,15 +218,18 @@ def measure_train(model_name: str = "mnist_cnn", batch_size: int = 64,
 def measure_bert(batch_size: int = 4, seq_len: int = 128,
                  precision: str = "fp32", grad_accum: int = 1,
                  param_sharding: str = "replicated", steps: int = 20,
-                 warmup: int = 3, device="cuda") -> dict:
-    """Mean time of one BERT-base MLM train step over the process group
-    that is up (none: one card), after ``warmup`` untimed ones."""
+                 warmup: int = 3, device="cuda",
+                 model_name: str = "bert_base") -> dict:
+    """Mean time of one BERT-base MLM (``gpt_base``: causal LM) train
+    step over the process group that is up (none: one card), after
+    ``warmup`` untimed ones."""
     from mpi_tensorflow_torch.data import synthetic
-    from mpi_tensorflow_torch.models import bert
+    from mpi_tensorflow_torch.models import bert, gpt
 
     dev = resolve_device(device)
     world, rank = meshlib.process_count(), meshlib.process_index()
-    cfg = Config(model="bert_base", batch_size=batch_size,
+    causal = model_name == "gpt_base"
+    cfg = Config(model=model_name, batch_size=batch_size,
                  precision=precision, grad_accum=grad_accum,
                  param_sharding=param_sharding)
     bcfg = dataclasses.replace(
@@ -217,7 +242,8 @@ def measure_bert(batch_size: int = 4, seq_len: int = 128,
     if dev.type == "cuda":
         torch.empty(0, device=dev)      # the allocator up, for its stats
         torch.cuda.reset_peak_memory_stats(dev)
-    model = bert.BertMlm.from_seed(bcfg, cfg.seed).to(dev)
+    family = gpt.TrainableCausalLm if causal else bert.BertMlm
+    model = family.from_seed(bcfg, cfg.seed).to(dev)
     tx = opt_lib.transformer_tx(1e-4, warmup + steps, schedule="constant")
     state = gspmd.init_for(param_sharding, model, tx)
     train_step = gspmd.make_train_step(tx, grad_accum=grad_accum)
@@ -247,11 +273,13 @@ def measure_bert(batch_size: int = 4, seq_len: int = 128,
         loss = run(i)
     sync()
     sec = (time.perf_counter() - t0) / steps
-    step_flops = flops.transformer_train_flops(bcfg, batch_size, seq_len)
+    # the causal family puts every position through the head
+    step_flops = flops.transformer_train_flops(
+        bcfg, batch_size, seq_len, head_positions=seq_len if causal else None)
     mfu = flops.mfu(step_flops, sec, precision) if dev.type == "cuda" \
         else None
     return {
-        "mode": "train", "model": "bert_base",
+        "mode": "train", "model": model_name,
         "tokens_per_sec": b * seq_len / sec,
         "tokens_per_sec_per_chip": batch_size * seq_len / sec,
         "step_time_ms": sec * 1e3,
@@ -386,6 +414,129 @@ def measure_hostio(batch_size: int = 32, window_k: int = 4,
         shutil.rmtree(d, ignore_errors=True)
 
 
+def decode_weight_bytes(model) -> int:
+    """The bytes of weights one decode step reads: every parameter as
+    stored, the tied logits product's compute-dtype copy of the token
+    embedding in place of the float32 table (the embedding gathers B
+    rows of it)."""
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    if model.tok_emb_dt is not None:
+        e = model.tok_emb
+        total += (model.tok_emb_dt.numel() * model.tok_emb_dt.element_size()
+                  - e.numel() * e.element_size())
+    return total
+
+
+def measure_decode(batch_size: int = 8, prompt_len: int = 32,
+                   new_tokens: int = 128, precision: str = "bf16",
+                   iters: int = 5, num_beams: int = 0,
+                   device="cuda") -> dict:
+    """Decode tokens/sec of ``CausalLm.generate`` (greedy) or, with
+    ``num_beams > 0``, ``beam_search``, from the slope between two
+    generation lengths on one cache capacity (module note)."""
+    from mpi_tensorflow_torch.models import bert
+    from mpi_tensorflow_torch.models.gpt import CausalLm
+
+    dev = resolve_device(device)
+    cfg = Config(precision=precision)
+    bcfg = dataclasses.replace(bert.BERT_BASE, dtype=cfg.compute_dtype)
+    model = CausalLm.from_seed(bcfg, 0).to(dev)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, bcfg.vocab_size, (batch_size, prompt_len))).to(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def median_time(fn):
+        fn()                                  # warmup
+        sync()
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[len(times) // 2]
+
+    # the slope between two lengths: both pay the same prefill and
+    # launch overheads, which cancel in the difference; both pin one
+    # cache capacity, since a step attends over the whole cache
+    n_short = max(8, new_tokens // 8)
+    n_long = n_short + new_tokens
+    L = prompt_len + n_long
+    cache0 = model.init_cache(batch_size, L)
+    if num_beams > 0:
+        def gen(n):
+            return model.beam_search(prompt, n, num_beams=num_beams,
+                                     cache_len=L)
+    else:
+        def gen(n):
+            return model.generate(prompt, n, cache_len=L)
+    with torch.no_grad():
+        prefill_sec = median_time(
+            lambda: model.forward_with_cache(prompt, cache0, 0))
+    short_sec = median_time(lambda: gen(n_short))
+    long_sec = median_time(lambda: gen(n_long))
+    per_tok = (long_sec - short_sec) / new_tokens
+    # a decode step reads every weight at least once, so a slope below
+    # weight bytes / HBM rate is a measurement artifact, never a rate
+    param_bytes = decode_weight_bytes(model)
+    min_per_tok = (param_bytes / (flops.HBM_TBPS * 1e12)
+                   if dev.type == "cuda" else 0.0)
+    degenerate = per_tok <= min_per_tok
+    return {
+        "mode": "decode", "model": "gpt_base",
+        "decode_tokens_per_sec": (batch_size / per_tok if not degenerate
+                                  else float("nan")),
+        "per_token_ms": per_tok * 1e3,
+        "roofline_min_per_token_ms": min_per_tok * 1e3,
+        "param_bytes": param_bytes,
+        "timing_degenerate": degenerate,
+        "decode_lengths": [n_short, n_long],
+        "gen_short_ms": short_sec * 1e3,
+        "gen_long_ms": long_sec * 1e3,
+        "prefill_ms": prefill_sec * 1e3,
+        "batch_size": batch_size, "prompt_len": prompt_len,
+        "new_tokens": new_tokens, "num_beams": num_beams,
+        "precision": precision,
+        "platform": "gpu" if dev.type == "cuda" else "cpu",
+        "device": device_name(dev), "card": card_line(dev),
+    }
+
+
+def decode_main(argv) -> int:
+    """``--mode decode``: its flags and run, printed as the reference's
+    metric line."""
+    ap = argparse.ArgumentParser(prog="mpi_tensorflow_torch.bench "
+                                      "--mode decode")
+    ap.add_argument("--mode", choices=["decode"], default="decode")
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=128)
+    ap.add_argument("--precision", choices=["fp32", "bf16"], default="bf16")
+    ap.add_argument("--steps", type=int, default=5,
+                    help="timed calls an arm (the median is kept)")
+    ap.add_argument("--num-beams", type=int, default=0,
+                    help="0: greedy generate; K: beam search of K beams")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; cuda without a card fails")
+    args = ap.parse_args(argv)
+    if args.num_beams < 0:
+        ap.error(f"--num-beams must be >= 0, got {args.num_beams}")
+    d = measure_decode(args.batch_size, args.prompt_len, args.new_tokens,
+                       args.precision, max(1, args.steps), args.num_beams,
+                       args.device)
+    kind = f"beam-{args.num_beams}" if args.num_beams > 0 else "greedy"
+    v = d["decode_tokens_per_sec"]
+    print(json.dumps({
+        "metric": f"GPT-base {kind} decode throughput (KV cache)",
+        "value": round(v, 1) if v == v else None,
+        "unit": "tokens/sec", "vs_baseline": None, "detail": d}),
+        flush=True)
+    return 0
+
+
 def serving_main(argv) -> int:
     """``--mode serving``: the serving entry point's flags and run
     (``serving/harness``), printed as the reference's metric line."""
@@ -410,19 +561,17 @@ def main(argv=None) -> int:
     if mode == "serving":
         return serving_main(argv)
     if mode == "decode":
-        raise NotImplementedError("--mode decode (generate's sampling and "
-                                  "beam search) is not ported yet: ROADMAP "
-                                  "Queue 1 item 6b")
+        return decode_main(argv)
     ap = argparse.ArgumentParser(prog="mpi_tensorflow_torch.bench")
     # --mode serving and decode leave before this parser (above)
     ap.add_argument("--mode", choices=["train", "allreduce", "hostio"],
                     default="train")
     ap.add_argument("--model", default="mnist_cnn",
                     choices=["mnist_cnn", "resnet20", "resnet50", "vit",
-                             "bert_base"])
+                             "bert_base", "gpt_base"])
     ap.add_argument("--batch-size", type=int, default=None,
                     help="per-card batch (default: mnist_cnn 64, resnet20 "
-                         "128, resnet50 32, bert_base 4)")
+                         "128, resnet50 32, bert_base and gpt_base 4)")
     ap.add_argument("--precision", choices=["fp32", "bf16"], default="fp32")
     ap.add_argument("--steps", type=int, default=None,
                     help="timed train steps (default: mnist_cnn 1000, "
@@ -432,12 +581,13 @@ def main(argv=None) -> int:
                          "mnist_cnn 50, resnet20 20, resnet50 5, bert_base"
                          " 3)")
     ap.add_argument("--seq-len", type=int, default=128,
-                    help="bert_base: tokens per sequence")
+                    help="bert_base, gpt_base: tokens per sequence")
     ap.add_argument("--grad-accum", type=int, default=1,
-                    help="bert_base: microbatches per step")
+                    help="bert_base, gpt_base: microbatches per step")
     ap.add_argument("--param-sharding", default="replicated",
                     choices=["replicated", "zero1", "fsdp"],
-                    help="bert_base: the state's layout over the ranks")
+                    help="bert_base, gpt_base: the state's layout over "
+                         "the ranks")
     ap.add_argument("--payload-mb", type=float, default=25.4,
                     help="allreduce: float32 MB on each rank")
     ap.add_argument("--device", default="cuda",
@@ -462,7 +612,8 @@ def main(argv=None) -> int:
             card=card_line(torch.device(args.device)) if on_card
             else None)), flush=True)
         return 0
-    bert_run = args.mode == "train" and args.model == "bert_base"
+    bert_run = args.mode == "train" and args.model in ("bert_base",
+                                                        "gpt_base")
     if args.mode == "train" and args.model == "vit":
         raise NotImplementedError("model 'vit' is not ported yet: ROADMAP "
                                   "Queue 1 item 14")
@@ -481,7 +632,7 @@ def main(argv=None) -> int:
         try:
             res = measure_bert(batch, args.seq_len, args.precision,
                                args.grad_accum, args.param_sharding, steps,
-                               warmup, dev)
+                               warmup, dev, args.model)
             if meshlib.process_index() == 0:
                 print(json.dumps(res), flush=True)
         finally:

@@ -11,7 +11,8 @@ train the ResNets through the same loop (CIFAR-10's binary files when
 ``--data-dir`` holds ``cifar-10-batches-bin``, else the synthetic set of
 its shapes; ``imagenet_npy`` shards when present, else the synthetic
 224x224 set); the transformer path runs with ``--model bert_base
---dataset mlm_synthetic``:
+--dataset mlm_synthetic`` (or ``--model gpt_base``: the causal LM's
+next-token training on the same stream):
 
     python -m mpi_tensorflow_torch                     # on the card
     python -m mpi_tensorflow_torch --device cpu --epochs 1 \\
@@ -28,6 +29,9 @@ its shapes; ``imagenet_npy`` shards when present, else the synthetic
     python -m mpi_tensorflow_torch --model bert_base \\
         --dataset mlm_synthetic --device cpu --tiny --epochs 1 \\
         --batch-size 4 --seq-len 32 --train-n 64 --test-n 16 --log-every 4
+    python -m mpi_tensorflow_torch --model gpt_base \
+        --dataset mlm_synthetic --precision bf16 --seq-len 4096 \
+        --batch-size 4                                 # on the card
 
 Under ``torchrun`` the trainer runs one rank per card over
 ``torch.distributed`` (NCCL for the card's tensors, gloo for the host's;

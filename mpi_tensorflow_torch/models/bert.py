@@ -5,9 +5,10 @@ with its ``BERT_BASE`` and ``BERT_TINY`` presets, ``ce_capacity``,
 the seeded parameter init, the layer math
 (``qkv_proj``, ``attn_out_proj``, ``gelu_mlp``, the LayerNorm, ``rope``
 and the LM head's ``head_hidden``) as ``nn.Module``s, and ``BertMlm``
-with ``encode``, ``head_hidden``, ``apply`` and ``loss`` for training.
-The sequence-parallel attention branches wait for the parallelism
-slices (ROADMAP Queue 1 item 14).
+with ``encode``, ``head_hidden``, ``apply`` and ``loss`` for training
+(``models/gpt.TrainableCausalLm`` adds the causal mask and the
+next-token loss on top).  The sequence-parallel attention branches wait
+for the parallelism slices (ROADMAP Queue 1 item 14).
 
 Parameters keep the JAX layouts — ``wq/wk/wv`` (E, H, D), ``wo``
 (H, D, E), ``w1`` (E, F), ``w2`` (F, E), ``tok_emb`` (V, E) — so the
@@ -63,9 +64,12 @@ class BertConfig:
     dtype: torch.dtype = torch.float32   # compute dtype
     pos_kind: str = "learned"            # "learned" absolute embeddings
                                          # or "rope" rotary on q/k
-    ce_impl: str = "auto"                # MLM loss: "dense" logits; "auto"
-                                         # = dense under masked packing;
-                                         # "chunked" is not ported yet
+    ce_impl: str = "auto"                # MLM loss: "dense" logits;
+                                         # "chunked" = vocabulary tiles
+                                         # (ops/mlm_head); "auto" =
+                                         # chunked when every position
+                                         # reaches the head
+    ce_chunk: int = 2048                 # vocabulary tile of the chunked CE
     ce_positions: str = "masked"         # "masked": pack each row's masked
                                          # positions before the head;
                                          # "all": head over every position
@@ -290,19 +294,21 @@ class BertMlm(nn.Module):
     - ``"flash"`` — ``flash_attention`` at any S (its plain version for
       CPU tensors);
     - ``"dense"`` — ``dense_attention`` at any S.
+
+    ``causal`` (a subclass's, ``models/gpt.TrainableCausalLm``) masks
+    every layer's attention to the keys at or before each query, on
+    either route.  The loss's CE over the vocabulary (``_ce``) is the
+    dense (B, P, V) logits or the chunked ``mlm_head.tied_softmax_ce``
+    by ``cfg.ce_impl`` (``_use_chunked_ce``).
     """
+
+    causal = False
 
     def __init__(self, cfg: BertConfig, params: dict, attention: str = "auto"):
         super().__init__()
         if attention not in ATTENTION:
             raise ValueError(f"attention must be one of {ATTENTION}, got "
                              f"{attention!r}")
-        if cfg.ce_impl == "chunked" or (cfg.ce_impl == "auto"
-                                        and cfg.ce_positions == "all"):
-            raise NotImplementedError(
-                "the chunked MLM cross-entropy (ce_impl='chunked', or "
-                "'auto' with ce_positions='all') is not ported yet: "
-                "ROADMAP Queue 1 item 13")
         self.cfg = cfg
         self.attention = attention
         f32 = torch.float32
@@ -337,8 +343,8 @@ class BertMlm(nn.Module):
             self.attention == "auto" and q.device.type == "cuda"
             and S >= self.cfg.flash_min_seq)
         if flash:
-            return flash_attention(q, k, v)
-        return dense_attention(q, k, v)
+            return flash_attention(q, k, v, self.causal)
+        return dense_attention(q, k, v, causal=self.causal)
 
     def encode(self, tokens, *, train: bool = False, generator=None):
         """Embeddings + encoder stack: ``tokens`` (B, S) int ids ->
@@ -392,6 +398,38 @@ class BertMlm(nn.Module):
         h = self.encode(tokens, train=train, generator=generator)
         return self._logits(self.head_hidden(h))
 
+    def _packs_positions(self) -> bool:
+        """Whether the loss packs masked positions before the head (the
+        MLM family); the causal family supervises every position."""
+        return self.cfg.ce_positions == "masked"
+
+    def _use_chunked_ce(self) -> bool:
+        """``ce_impl``: ``dense`` or ``chunked`` as named; ``auto`` is
+        chunked when every position reaches the head (the packed buffer's
+        (B, S/4, V) logits are small enough for the dense path)."""
+        if self.cfg.ce_impl == "dense":
+            return False
+        if self.cfg.ce_impl == "chunked":
+            return True
+        return not self._packs_positions()
+
+    def _ce(self, t, labels):
+        """Per-position float32 CE (B, P) of head hidden ``t`` against
+        ``labels`` (B, P)."""
+        if self._use_chunked_ce():
+            return mlm_head.tied_softmax_ce(
+                t, self.tok_emb, self.mlm.out_b, labels,
+                chunk=self.cfg.ce_chunk, dtype=self.cfg.dtype)
+        logits = self._logits(t)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return torch.logsumexp(logits, dim=-1) - gold
+
+    def loss_weights(self, batch: dict):
+        """(B, S) float32: the positions the loss averages over (the
+        masked ones); a data-parallel step divides by their count over
+        the global batch (``train.gspmd``)."""
+        return batch["mask"].to(torch.float32)
+
     def loss(self, batch: dict, labels, *, train: bool = False,
              generator=None):
         """Masked-LM loss: mean CE over the masked positions.  ``batch``
@@ -400,7 +438,7 @@ class BertMlm(nn.Module):
         position, overflow-dropped ones included, as the reference's."""
         return self.masked_ce_sum(batch, labels, train=train,
                                   generator=generator) / torch.clamp(
-            batch["mask"].to(torch.float32).sum(), min=1.0)
+            self.loss_weights(batch).sum(), min=1.0)
 
     def masked_ce_sum(self, batch: dict, labels, *, train: bool = False,
                       generator=None):
@@ -416,7 +454,4 @@ class BertMlm(nn.Module):
                 h, labels, mask, ce_capacity(self.cfg, h.shape[1]))
         else:
             weights = mask.to(torch.float32)
-        logits = self._logits(self.head_hidden(h))
-        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-        ce = torch.logsumexp(logits, dim=-1) - gold
-        return (ce * weights).sum()
+        return (self._ce(self.head_hidden(h), labels) * weights).sum()

@@ -1,20 +1,34 @@
-"""Decoder-only causal LM — the model the serving engine drives.
+"""Decoder-only causal LM: serving, decoding and next-token training.
 
-Counterpart of ``mpi_tensorflow_tpu/models/gpt.py``'s ``CausalLm`` for
-inference: the paged forward the engine dispatches (``forward_paged``,
-over a pool in the compute dtype, int8 or int4), and the
-contiguous-cache forward with greedy ``generate`` that the serving
-tests use as the token-identity anchor.  Causal-LM training (the
-next-token loss) is not ported yet (ROADMAP Queue 1 item 13).
+Counterpart of ``mpi_tensorflow_tpu/models/gpt.py``'s ``CausalLm``, which
+is one class there.  Here it is two, on one parameter tree:
 
-The model is an ``nn.Module`` built from a parameter tree in the
-reference's layout: ``bert.init_params`` (seeded on the CPU) or
-``convert.params_from_jax`` (a JAX model's parameters).  Move it with
-``.to(device)``; caches and pools live on the same device.
+- ``CausalLm``, for inference: the paged forward the engine dispatches
+  (``forward_paged``, over a pool in the compute dtype, int8 or int4),
+  the contiguous-cache forward, ``generate`` (greedy, or temperature
+  sampling with the top-k / top-p filters) and fixed-length
+  ``beam_search``.  Its parameters are frozen copies in the compute
+  dtype;
+- ``TrainableCausalLm``, for training: ``bert.BertMlm`` with the causal
+  mask in every layer's attention (the flash kernels' causal mode at
+  ``S >= flash_min_seq`` on the card) and the next-token loss through
+  the chunked tied cross-entropy (``ops/mlm_head.tied_softmax_ce``).
+  ``serving()`` hands its parameters to a ``CausalLm``.
+
+The pipelined ``PipelinedCausalLm`` waits for the pipeline (ROADMAP
+Queue 1 item 14).
+
+A model is built from a parameter tree in the reference's layout:
+``bert.init_params`` (seeded on the CPU) or ``convert.params_from_jax``
+(a JAX model's parameters).  Move it with ``.to(device)``; caches and
+pools live on the same device.
 
 The tied logits product is a plain large matmul the reference left to
 XLA; here it is ``torch.matmul`` (cuBLAS on the card).  Logits are
 float32: the product in the compute dtype plus the float32 output bias.
+Sampling draws by Gumbel-max, as ``jax.random.categorical`` does:
+``argmax(logits + g)`` with ``g = -log(-log(u))``, ``u`` uniform from
+the caller's ``torch.Generator``; ``noise`` injects ``g`` instead.
 """
 
 from __future__ import annotations
@@ -24,6 +38,7 @@ from torch import nn
 
 from mpi_tensorflow_torch.models import bert as bert_lib
 from mpi_tensorflow_torch.ops import paged_attention as paged_ops
+from mpi_tensorflow_torch.utils import tree as tree_lib
 
 
 class CausalLm(nn.Module):
@@ -145,19 +160,22 @@ class CausalLm(nn.Module):
 
     def init_cache(self, batch_size: int, max_len: int) -> list:
         """Per-layer zero K/V buffers (B, H, max_len, D) in the compute
-        dtype.  Under learned positions ``max_len`` must fit the table."""
+        dtype, H the heads this model holds (a tensor-parallel shard's
+        own).  Under learned positions ``max_len`` must fit the table."""
         c = self.cfg
         if c.pos_kind == "learned" and max_len > c.max_positions:
             raise ValueError(
                 f"max_len {max_len} exceeds max_positions {c.max_positions}")
-        shape = (batch_size, c.heads, max_len, c.head_dim)
+        heads = self.layers[0].wq.shape[1] if len(self.layers) else c.heads
+        shape = (batch_size, heads, max_len, c.head_dim)
         return [{"k": torch.zeros(shape, dtype=c.dtype, device=self.device),
                  "v": torch.zeros(shape, dtype=c.dtype, device=self.device)}
                 for _ in range(c.layers)]
 
-    def forward_with_cache(self, tokens, cache, offset: int):
+    def forward_with_cache(self, tokens, cache, offset: int, reduce=None):
         """Forward ``tokens`` (B, S) at absolute positions [offset,
         offset + S) through the contiguous cache (updated in place).
+        ``reduce`` as in ``forward_paged`` (a tensor-parallel shard).
         Returns float32 logits (B, S, V)."""
         c = self.cfg
         dt = c.dtype
@@ -175,15 +193,37 @@ class CausalLm(nn.Module):
                 # the same fp32 masked softmax as the paged gather path
                 return paged_ops.masked_softmax_attention(
                     q, cc["k"], cc["v"], vis[None, None], dt)
-            h = layer(h, attention, dt)
+            h = layer(h, attention, dt, reduce=reduce)
         return self._logits(h)
 
     @torch.no_grad()
     def generate(self, prompt, max_new_tokens: int, *,
-                 cache_len: int | None = None):
-        """Greedy decode: ``prompt`` (B, S0) int ids -> (B, S0 +
-        max_new_tokens), the prompt with its continuation.  Prefill runs
-        the whole prompt in one forward, then one token per step."""
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, generator=None, noise=None,
+                 cache_len: int | None = None, reduce=None):
+        """Autoregressive decode: greedy (``temperature == 0``) or
+        temperature sampling, filtered by ``top_k`` (keep the k most
+        likely tokens) and/or ``top_p`` (keep the smallest prefix of the
+        probability-sorted vocabulary whose mass reaches p).  ``prompt``
+        (B, S0) int ids -> (B, S0 + max_new_tokens), the prompt with its
+        continuation.  Prefill runs the whole prompt in one forward, then
+        one token a step.
+
+        Sampling draws step i's Gumbel noise (B, V) from ``generator``,
+        or takes ``noise[i]`` (``noise``: (max_new_tokens, B, V) float32)
+        when given.  ``cache_len`` pins the cache's capacity (default
+        prompt + new tokens): a step attends over the whole (masked)
+        cache, so timing arms of different lengths must share it.
+        ``reduce``: a tensor-parallel shard's sum over the ranks."""
+        if temperature > 0.0 and generator is None and noise is None:
+            raise ValueError("temperature sampling needs a generator")
+        if (top_k > 0 or top_p < 1.0) and temperature <= 0.0:
+            raise ValueError(
+                "top_k/top_p filter the sampling distribution; they have "
+                "no effect under greedy decoding (temperature 0): pass "
+                "temperature > 0")
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if max_new_tokens < 0:
             raise ValueError(f"max_new_tokens must be >= 0, "
                              f"got {max_new_tokens}")
@@ -194,12 +234,176 @@ class CausalLm(nn.Module):
         if cache_len is not None and cache_len < total:
             raise ValueError(f"cache_len {cache_len} < prompt + "
                              f"max_new_tokens ({total})")
+
+        def pick(logits, i):
+            return sample(logits, temperature, generator, top_k=top_k,
+                          top_p=top_p,
+                          noise=None if noise is None else noise[i])
+
         cache = self.init_cache(B, cache_len or total)
-        logits = self.forward_with_cache(prompt, cache, 0)
-        tok = torch.argmax(logits[:, -1], dim=-1)
+        logits = self.forward_with_cache(prompt, cache, 0, reduce)
+        tok = pick(logits[:, -1], 0)
         out = [tok]
         for i in range(max_new_tokens - 1):
-            logits = self.forward_with_cache(tok[:, None], cache, S0 + i)
-            tok = torch.argmax(logits[:, 0], dim=-1)
+            logits = self.forward_with_cache(tok[:, None], cache, S0 + i,
+                                             reduce)
+            tok = pick(logits[:, 0], i + 1)
             out.append(tok)
         return torch.cat([prompt, torch.stack(out, 1).to(prompt.dtype)], 1)
+
+    @torch.no_grad()
+    def beam_search(self, prompt, max_new_tokens: int, *,
+                    num_beams: int = 4, length_penalty: float = 0.0,
+                    cache_len: int | None = None):
+        """Fixed-length beam search over the contiguous cache (no EOS:
+        every beam runs to the full length).  Prefill once at batch B,
+        tile the cache K-fold, then each step keeps the top K of the K x V
+        extensions, reindexes every cache leaf to the surviving beams'
+        parents, and the tokens are backtracked at the end.
+
+        Returns ``(sequences (B, K, S0 + T), scores (B, K))``, best
+        first; a score is the sum of the chosen tokens' log-probabilities
+        divided by ``T ** length_penalty``.  ``cache_len`` as in
+        ``generate``."""
+        if max_new_tokens < 1:
+            raise ValueError("beam_search needs max_new_tokens >= 1")
+        if num_beams < 1:
+            raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+        B, S0 = prompt.shape
+        K, T = num_beams, max_new_tokens
+        total = S0 + T
+        if cache_len is not None and cache_len < total:
+            raise ValueError(f"cache_len {cache_len} < prompt + "
+                             f"max_new_tokens ({total})")
+        V = self.cfg.vocab_size
+        cache = self.init_cache(B, cache_len or total)
+        logits = self.forward_with_cache(prompt, cache, 0)
+        scores, first = torch.topk(
+            torch.log_softmax(logits[:, -1], -1), K, dim=-1)   # (B, K)
+        for cc in cache:
+            for name in cc:
+                cc[name] = cc[name].repeat_interleave(K, 0)    # (B*K, ...)
+        rows = torch.arange(B, device=prompt.device)[:, None] * K
+        parents, toks = [], []
+        tok = first
+        for i in range(T - 1):
+            logits = self.forward_with_cache(tok.reshape(B * K, 1), cache,
+                                             S0 + i)
+            logp = torch.log_softmax(logits[:, 0].reshape(B, K, V), -1)
+            scores, flat = torch.topk(
+                (scores[..., None] + logp).reshape(B, K * V), K, dim=-1)
+            parent = torch.div(flat, V, rounding_mode="floor")
+            tok = flat % V
+            src = (rows + parent).reshape(-1)
+            for cc in cache:
+                for name in cc:
+                    cc[name] = cc[name].index_select(0, src)
+            parents.append(parent)
+            toks.append(tok)
+        # backtrack from the final slots: the token at step t+1 of a
+        # final beam is toks[t] at its slot; its slot at step t is
+        # parents[t] there
+        idx = torch.arange(K, device=prompt.device).expand(B, K)
+        out = []
+        for parent, t in zip(reversed(parents), reversed(toks)):
+            out.append(torch.gather(t, 1, idx))
+            idx = torch.gather(parent, 1, idx)
+        out.append(torch.gather(first, 1, idx))
+        gen = torch.stack(out[::-1], -1)                       # (B, K, T)
+        seqs = torch.cat([prompt[:, None].expand(B, K, S0),
+                          gen.to(prompt.dtype)], -1)
+        if length_penalty:
+            scores = scores / (float(T) ** length_penalty)
+        return seqs, scores
+
+
+def gumbel(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """Standard Gumbel noise, float32, from ``generator`` (drawn on the
+    generator's device): ``-log(-log(u))`` with ``u`` uniform in [tiny,
+    1), as ``jax.random.gumbel`` draws it."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return (-torch.log(-torch.log(u))).to(device)
+
+
+def sample(logits, temperature: float, generator=None, *, top_k: int = 0,
+           top_p: float = 1.0, noise=None):
+    """(B, V) float32 logits -> (B,) token ids.
+
+    Greedy at ``temperature <= 0``.  Otherwise a Gumbel-max draw (module
+    note) on the tempered logits; with a filter the draw runs in the
+    DESCENDING-sorted space, as the reference's does: the top-k mask
+    first, then the exclusive cumulative mass ``< top_p`` (the top slot
+    always survives), and the winning sorted slot is mapped back through
+    the sort's index.  ``noise`` (B, V) replaces the draw from
+    ``generator``."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    logits = logits / temperature
+    V = logits.shape[-1]
+    if noise is None:
+        noise = gumbel(generator, logits.shape, logits.device)
+    noise = noise.to(logits.device, torch.float32)
+    if top_k <= 0 and top_p >= 1.0:
+        return torch.argmax(logits + noise, dim=-1)
+    # a stable descending sort: equal logits keep their index order, as
+    # lax.top_k orders them
+    srt, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    neg = torch.finfo(srt.dtype).min
+    if top_k > 0:
+        keep = torch.arange(V, device=srt.device) < min(top_k, V)
+        srt = torch.where(keep[None], srt, torch.full_like(srt, neg))
+    if top_p < 1.0:
+        probs = torch.softmax(srt, dim=-1)
+        cum = torch.cumsum(probs, dim=-1) - probs
+        srt = torch.where(cum < top_p, srt, torch.full_like(srt, neg))
+    choice = torch.argmax(srt + noise, dim=-1)
+    return torch.gather(idx, 1, choice[:, None])[:, 0]
+
+
+def shift_targets(tokens):
+    """THE next-token supervision: targets are the inputs shifted left,
+    padded with 0, and the final position's weight is 0 (unsupervised).
+    Returns ``(targets, weights)``, the weights float32."""
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                        1)
+    w = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    w[:, -1] = 0.0
+    return targets, w
+
+
+class TrainableCausalLm(bert_lib.BertMlm):
+    """The reference's ``CausalLm`` for training: ``BertMlm`` with the
+    causal mask in every layer and the next-token loss at every position
+    (no masked packing: ``ce_impl="auto"`` takes the chunked CE).
+
+    ``batch`` holds ``tokens`` (B, S); labels and the MLM mask are not
+    read: the targets are the tokens shifted left (``shift_targets``).
+    """
+
+    causal = True
+
+    def _packs_positions(self) -> bool:
+        return False
+
+    def loss_weights(self, batch: dict):
+        return shift_targets(batch["tokens"])[1]
+
+    def masked_ce_sum(self, batch: dict, labels=None, *,
+                      train: bool = False, generator=None):
+        """The CE summed over the supervised positions, B x (S - 1) of
+        them; ``loss`` (``BertMlm``'s) divides it by their count:
+        ``sum(ce * w) / max(sum(w), 1)``, the reference's loss."""
+        tokens = batch["tokens"]
+        h = self.encode(tokens, train=train, generator=generator)
+        targets, w = shift_targets(tokens.long())
+        ce = self._ce(self.head_hidden(h), targets)
+        return (ce * w).sum()
+
+    def serving(self) -> CausalLm:
+        """A ``CausalLm`` on copies of these parameters (frozen, in the
+        compute dtype), on the same device: ``generate``,
+        ``beam_search`` and the paged engine take it."""
+        tree = tree_lib.map_leaves(lambda _, v: v.detach().clone(),
+                                   self.param_tree())
+        return CausalLm(self.cfg, tree).to(self.tok_emb.device)

@@ -251,6 +251,9 @@ class PagedDecodeEngine:
         tp_lib.check_geometry(model.cfg, serve.tp)
         collective = tp_lib.collective(serve.tp)
         self.rank = tp_lib.world()[0] if collective else 0
+        # the whole model as given: another engine of the same model
+        # (an A/B arm, a replica) starts from it
+        self.source_model = model
         if serve.tp > 1:
             model = tp_lib.shard_model(model, self.rank, serve.tp)
         self.model = model.to(self.device)
@@ -872,13 +875,15 @@ class PagedDecodeEngine:
         (``serving/autoscale.ScaleAdvisor``) observes every iteration;
         its report is the ``autoscale`` block (None without one).  In a
         tensor-parallel world rank 0's clock and stop flag decide for
-        every rank, and only rank 0 journals.
+        every rank; each rank records into its ``journal``, a file on
+        rank 0 and its mirror in memory on the others
+        (``recovery.ReplayJournal``), so every rank replays alike.
         """
         from mpi_tensorflow_torch.serving.iteration import (DrainTracker,
                                                             EngineLoop)
 
         serve = self.serve
-        loop = EngineLoop(self, journal if self.rank == 0 else None)
+        loop = EngineLoop(self, journal)
         drain = DrainTracker(serve.drain_ms)
         pending = sorted(requests, key=lambda r: r.arrival)
         t0 = time_fn()

@@ -40,18 +40,36 @@ degenerate case for any drafter).
   ``recovery.run_with_replay`` (with ``--serve-replicas N``: the router
   over per-replica journals ``P.r<i>``); a run killed and relaunched on
   the same journal resumes, token-identical to an unfaulted one;
-- ``--serve-tp T`` under ``torchrun --nproc_per_node T``: the engine arm
-  on each rank (``serving/tp``), rank 0 reporting.
+- the static-batch arm after the timed one (not under a journal):
+  ``generate`` on arrival-order groups of ``max_slots`` requests, each
+  left-padded (repeating its first token) to the power of two at or
+  above its longest prompt and decoded to its longest output budget
+  through a cache of that prompt + budget; one untimed pass over every
+  group, then the timed one: ``static_batch_tokens_per_sec`` (the
+  trace's requested tokens over its time) and ``speedup_vs_static``;
+- the A/B arms, one comparison a run (``check_serving_args`` holds the
+  reference's exclusions), each replaying the same trace through an
+  engine that differs in one setting, after its own untimed warmup:
+  ``--serve-kernel-ab`` the other lowering (``cuda`` against
+  ``gather``; ``kernel_ab``), ``--serve-kv-ab`` the quantized pool
+  against the compute dtype's (``kv_quant``), ``--serve-spec-ab``
+  speculation off (``spec_ab``), ``--serve-mixed-ab`` mixed batching
+  off (``mixed_ab``);
+- ``--serve-tp T`` under ``torchrun --nproc_per_node T``: every arm on
+  each rank (``serving/tp``), rank 0 reporting; a fleet (replicas, the
+  prefix route) runs in lock step on rank 0's clock, and a journal is
+  rank 0's file, mirrored on the other ranks (``recovery.ReplayJournal``).
 
-Not ported yet (ROADMAP Queue 1 item 6b, refused): the static-batch arm,
-``--serve-kernel-ab``, ``--serve-kv-ab``, ``--serve-spec-ab`` and
-``--serve-mixed-ab``.
+The reference's ``ab_zero_recompile`` (and ``compile_counts``) has no
+counterpart: eager PyTorch compiles nothing, so those keys are
+``null``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from collections import Counter
 from typing import Optional
 
@@ -75,9 +93,9 @@ from mpi_tensorflow_torch.train.preemption import PreemptionGuard
 from mpi_tensorflow_torch.utils import metrics_writer
 from mpi_tensorflow_torch.utils.metrics_writer import kv_quant_block
 
-#: the reference bench's arms this slice does not port (ROADMAP item 6b)
-DEFERRED_FLAGS = ("serve_kernel_ab", "serve_kv_ab", "serve_spec_ab",
-                  "serve_mixed_ab")
+#: the A/B flags: each replays the trace through its own control arm
+AB_FLAGS = ("serve_kernel_ab", "serve_kv_ab", "serve_spec_ab",
+            "serve_mixed_ab")
 
 
 def build_serving(*, num_requests: int = 24, rate_rps: float = 4.0,
@@ -315,24 +333,63 @@ def add_serving_args(ap) -> None:
     ap.add_argument("--serve-slo-ms", type=float, default=None,
                     help="per-request latency budget: stamped as each "
                          "request's deadline, read by the goodput block")
-    for flag in DEFERRED_FLAGS:
-        ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
-                        help="not ported yet (ROADMAP Queue 1 item 6b)")
+    ap.add_argument("--serve-kernel-ab", action="store_true",
+                    help="add the same trace through the other lowering "
+                         "(cuda against gather), timed after its own "
+                         "warmup: the kernel_ab block")
+    ap.add_argument("--serve-kv-ab", action="store_true",
+                    help="add the same trace through the quantized pool "
+                         "(the run's --serve-kv-dtype, else int8) and the "
+                         "compute dtype's: the kv_quant block")
+    ap.add_argument("--serve-spec-ab", action="store_true",
+                    help="add a timed speculation-off arm: spec_ab with "
+                         "the wall-clock speedup")
+    ap.add_argument("--serve-mixed-ab", action="store_true",
+                    help="add a timed mixed-batching-off arm: mixed_ab "
+                         "with dispatches per token and TTFT per arm")
     ap.add_argument("--seed", type=int, default=0, help="trace seed")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the rank's own card under "
                          "torchrun) or cpu; cuda without a card fails")
 
 
+def _one_variable(what: str) -> str:
+    return (f"{what} adds its own control arm; combining it with another "
+            f"would change two variables in one comparison: pick one")
+
+
 def check_serving_args(ap, args) -> None:
-    """The reference bench's checks of these flags (``ap.error``), and
-    the refusals of what is not ported yet."""
-    for flag in DEFERRED_FLAGS:
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet: ROADMAP "
-                f"Queue 1 item 6b")
+    """The reference bench's checks of these flags (``ap.error``): its
+    command line's and ``measure_serving``'s, among them the A/B arms'
+    exclusions (one comparison, one variable; no A/B under a journal,
+    with replicas, or with the prefix cache's own control arm)."""
     replicas = args.serve_replicas or 1
+    spec = args.serve_speculative not in (None, "off")
+    abs_on = [f for f in AB_FLAGS if getattr(args, f)]
+    if len(abs_on) > 1:
+        ap.error(f"{', '.join('--' + f.replace('_', '-') for f in abs_on)}"
+                 f" each replay the trace through their own control arm; "
+                 f"one comparison, one variable: pick one")
+    for flag in abs_on:
+        name = "--" + flag.replace("_", "-")
+        if args.serve_journal:
+            ap.error(f"{name} is a measurement (two timed arms); the "
+                     f"journaled serve mode is not: pick one")
+        if replicas > 1:
+            ap.error(_one_variable("--serve-replicas (aggregate vs single "
+                                   "engine)") + f" ({name})")
+        if args.serve_prefix_cache == "on" and flag != "serve_spec_ab":
+            ap.error(_one_variable("--serve-prefix-cache on (the cache-off "
+                                   "arm)") + f" ({name})")
+    if spec and (args.serve_kernel_ab or args.serve_kv_ab):
+        ap.error(_one_variable("--serve-speculative (the off arm)"))
+    if args.serve_spec_ab and not spec:
+        ap.error("--serve-spec-ab compares speculative decoding against "
+                 "its off arm; pick a drafter with --serve-speculative "
+                 "ngram|draft-model")
+    if args.serve_mixed_ab and args.serve_mixed_batch != "on":
+        ap.error("--serve-mixed-ab compares mixed batching against its off "
+                 "arm; turn the fused path on with --serve-mixed-batch on")
     tp = args.serve_tp or 1
     if meshlib.launched() and int(os.environ["WORLD_SIZE"]) != tp:
         ap.error(f"a launch of {os.environ['WORLD_SIZE']} processes serves "
@@ -401,23 +458,16 @@ def check_serving_args(ap, args) -> None:
         ap.error("--serve-mixed-batch on and --serve-speculative each "
                  "replace the decode dispatch with their own fused "
                  "forward; they do not compose — pick one")
-    if tp > 1 and (replicas > 1 or args.serve_journal
-                   or args.serve_prefix_route == "on"
-                   or args.serve_prefix_gen == "on"):
-        raise NotImplementedError(
-            "--serve-tp > 1 serves the engine arm alone; with "
-            "--serve-replicas, --serve-journal, --serve-prefix-route or "
-            "--serve-prefix-gen it is not ported yet: ROADMAP Queue 1 "
-            "item 6b")
 
 
 # ------------------------------------------------------------ the arms
 
 def fleet_of(engine, n: int, **serve) -> list:
-    """``n`` new engines on ``engine``'s model (shared, read-only), with
-    its serving configuration and ``serve``'s changes to it."""
+    """``n`` new engines on ``engine``'s model (shared, read-only; under
+    tensor parallelism each keeps this rank's shard of it), with its
+    serving configuration and ``serve``'s changes to it."""
     cfg = dataclasses.replace(engine.serve, **serve)
-    return [PagedDecodeEngine(engine.model, cfg, device=engine.device)
+    return [PagedDecodeEngine(engine.source_model, cfg, device=engine.device)
             for _ in range(n)]
 
 
@@ -500,6 +550,170 @@ def route_block(engine, requests, single: dict) -> dict:
                            "route_off": roff["tokens_per_sec"]},
         "token_identical_vs_off": ron["outputs"] == roff["outputs"],
         "token_identical_vs_single": ron["outputs"] == single["outputs"],
+    }
+
+
+def control_arm(engine, requests, **serve) -> tuple:
+    """The trace through a new engine that differs from ``engine`` by
+    ``serve``'s settings: an untimed warmup replay, then the timed one.
+    Returns ``(the timed run's result, its paged-kernel launches,
+    the engine)``."""
+    other = fleet_of(engine, 1, **serve)[0]
+    other.run(requests())
+    other.reset()
+    res, launches = counted(lambda: other.run(requests()))
+    return res, launches, other
+
+
+def static_batches(trace, max_slots: int) -> list:
+    """The static arm's groups: ``[(row indices, padded prompts (rows,
+    pmax) int64, nmax, cache length), ...]`` over the trace in arrival
+    order, ``max_slots`` requests a group; each prompt left-padded by
+    repeating its first token to ``pmax = pow2_ceil`` of the group's
+    longest, the group decoded to its longest budget ``nmax``, through
+    a cache of ``pmax + nmax`` (which may pass ``max_seq_len``: static
+    batching pays for its padding)."""
+    prompts, outputs = trace.prompts, trace.outputs
+    out = []
+    for i in range(0, len(prompts), max_slots):
+        grp = list(range(i, min(i + max_slots, len(prompts))))
+        pmax = pow2_ceil(max(len(prompts[j]) for j in grp))
+        nmax = max(outputs[j] for j in grp)
+        toks = np.array([[prompts[j][0]] * (pmax - len(prompts[j]))
+                         + list(prompts[j]) for j in grp], dtype=np.int64)
+        out.append((grp, toks, nmax, pmax + nmax))
+    return out
+
+
+def static_block(engine, trace) -> dict:
+    """The static-batch baseline (module note): ``generate`` on each
+    group (on this rank's shard under tensor parallelism), one untimed
+    pass, then the timed one.  The rows' continuations past a pad are
+    not the requests' own: the arm measures static batching's compute
+    shape (the group's longest prompt and budget), not its tokens.
+    Tokens counted are the trace's requested ones."""
+    model, dev = engine.model, engine.device
+    groups = static_batches(trace, engine.serve.max_slots)
+    feeds = [(torch.from_numpy(t).to(dev), n, L) for _, t, n, L in groups]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def one_pass():
+        for t, n, L in feeds:
+            model.generate(t, n, cache_len=L, reduce=engine._reduce)
+        sync()
+
+    one_pass()                       # untimed: the allocator's first use
+    t0 = time.perf_counter()
+    one_pass()
+    sec = time.perf_counter() - t0
+    useful = int(sum(trace.outputs))
+    return {
+        "groups": [[len(g), int(t.shape[1]), int(n), int(L)]
+                   for g, t, n, L in groups],
+        "useful_tokens": useful,
+        "elapsed_s": sec,
+        "tokens_per_sec": useful / sec if sec > 0 else 0.0,
+    }
+
+
+def kernel_ab_block(engine, requests, res: dict, launches: int) -> dict:
+    """``--serve-kernel-ab``: the trace through the other lowering.  The
+    reference's ``pallas_speedup_vs_xla`` is ``cuda_speedup_vs_gather``
+    here (its Pallas kernel is the CUDA kernel, its XLA path the gather
+    path)."""
+    other = "gather" if engine.kernel == "cuda" else "cuda"
+    res2, launches2, eng2 = control_arm(engine, requests, kernel=other)
+    arms = {engine.kernel: res, eng2.kernel: res2}
+    tps = {k: r["tokens_per_sec"] for k, r in arms.items()}
+    return {
+        "kernels": sorted(arms),
+        "tokens_per_sec": tps,
+        "cuda_speedup_vs_gather": (
+            round(tps["cuda"] / tps["gather"], 3)
+            if set(tps) == {"cuda", "gather"} and tps["gather"] > 0
+            else None),
+        # eager PyTorch compiles nothing: no recompile to count
+        "ab_zero_recompile": None,
+        "launches": {engine.kernel: launches, eng2.kernel: launches2},
+        "forward_dispatches": {k: r["forward_dispatches"]
+                               for k, r in arms.items()},
+        "token_identical": res2["outputs"] == res["outputs"],
+    }
+
+
+def kv_ab_block(engine, trace, requests, res: dict, launches: int) -> dict:
+    """``--serve-kv-ab``: the trace under the quantized rung (the run's
+    ``kv_dtype`` when below the compute dtype, else int8) and under the
+    compute dtype, the timed run one of the two; the canonical
+    ``kv_quant`` block with each arm's tokens/s."""
+    serve = engine.serve
+    quant_dt = serve.kv_dtype if serve.kv_dtype != "fp32" else "int8"
+    other_dt = "fp32" if serve.kv_dtype != "fp32" else quant_dt
+    res2, launches2, eng2 = control_arm(engine, requests, kv_dtype=other_dt)
+    if serve.kv_dtype == "fp32":
+        ref, l_ref, quant, l_q, q_eng = res, launches, res2, launches2, eng2
+    else:
+        ref, l_ref, quant, l_q, q_eng = res2, launches2, res, launches, engine
+    return {
+        **kv_quant_report(ref, quant, q_eng, trace),
+        "tokens_per_sec": {"fp32": ref["tokens_per_sec"],
+                           quant_dt: quant["tokens_per_sec"]},
+        "ab_zero_recompile": None,
+        "launches": {"fp32": l_ref, quant_dt: l_q},
+        "forward_dispatches": {"fp32": ref["forward_dispatches"],
+                               quant_dt: quant["forward_dispatches"]},
+    }
+
+
+def spec_ab_block(engine, requests, res: dict, launches: int) -> tuple:
+    """``--serve-spec-ab``: a timed speculation-off arm of the same
+    (rope) model and trace.  Returns ``(the speculation block with
+    token_identical_vs_off, the spec_ab block)``."""
+    off, launches_off, _ = control_arm(engine, requests, speculative="off")
+    arms = {"speculative": res["tokens_per_sec"],
+            "off": off["tokens_per_sec"]}
+    return ({**res["speculation"],
+             "token_identical_vs_off": off["outputs"] == res["outputs"]}, {
+        "arms": arms,
+        "spec_speedup_vs_off": (round(arms["speculative"] / arms["off"], 3)
+                                if arms["off"] > 0 else None),
+        "ab_zero_recompile": None,
+        "launches": {"speculative": launches, "off": launches_off},
+        "forward_dispatches": {"speculative": res["forward_dispatches"],
+                               "off": off["forward_dispatches"]},
+        "dispatches_per_token": {"speculative": res["dispatches_per_token"],
+                                 "off": off["dispatches_per_token"]},
+    })
+
+
+def mixed_ab_block(engine, trace, requests, res: dict,
+                   launches: int) -> dict:
+    """``--serve-mixed-ab``: a timed mixed-off arm; dispatches per token
+    and TTFT (from the goodput block's stamps) per arm."""
+    off, launches_off, _ = control_arm(engine, requests, mixed_batch="off")
+    gp = {name: metrics_writer.goodput_block(
+        loadgen.per_request_rows(trace, r), elapsed_s=r["elapsed_s"])
+        for name, r in (("mixed", res), ("off", off))}
+    return {
+        "prefill_budget": engine.serve.prefill_budget,
+        "tokens_per_sec": {"mixed": res["tokens_per_sec"],
+                           "off": off["tokens_per_sec"]},
+        "dispatches_per_token": {"mixed": res["dispatches_per_token"],
+                                 "off": off["dispatches_per_token"]},
+        "dispatch_reduction": (
+            round(1.0 - res["dispatches_per_token"]
+                  / off["dispatches_per_token"], 4)
+            if off["dispatches_per_token"] > 0 else None),
+        "ttft_p50_ms": {k: g["ttft_p50_ms"] for k, g in gp.items()},
+        "ttft_p99_ms": {k: g["ttft_p99_ms"] for k, g in gp.items()},
+        "token_identical_vs_off": off["outputs"] == res["outputs"],
+        "ab_zero_recompile": None,
+        "launches": {"mixed": launches, "off": launches_off},
+        "forward_dispatches": {"mixed": res["forward_dispatches"],
+                               "off": off["forward_dispatches"]},
     }
 
 
@@ -611,6 +825,18 @@ def _measure(args, dev, tp: int, replicas: int) -> dict:
                            "forward_dispatches": rr["forward_dispatches"]}
     if serve.prefix_route == "on":
         route_detail = route_block(engine, requests, res)
+    speculation = res["speculation"]
+    kernel_ab = kv = spec_ab = mixed_ab = None
+    if args.serve_kernel_ab:
+        kernel_ab = kernel_ab_block(engine, requests, res, launches)
+    if args.serve_kv_ab:
+        kv = kv_ab_block(engine, trace, requests, res, launches)
+    if args.serve_spec_ab:
+        speculation, spec_ab = spec_ab_block(engine, requests, res,
+                                             launches)
+    if args.serve_mixed_ab:
+        mixed_ab = mixed_ab_block(engine, trace, requests, res, launches)
+    static = static_block(engine, trace)
     det.update({
         "tokens_per_sec": res["tokens_per_sec"],
         "p50_token_latency_ms": res["p50_token_latency_ms"],
@@ -624,10 +850,19 @@ def _measure(args, dev, tp: int, replicas: int) -> dict:
         "peak_blocks_in_use": res["peak_blocks_in_use"],
         "peak_live_blocks": res["peak_live_blocks"],
         "prefix": res["prefix"],
-        "speculation": res["speculation"],
+        "speculation": speculation,
         "tier": res["tier"],
         "faults": res["faults"],
         "drain": res["drain"],
+        "kernel_ab": kernel_ab,
+        "kv_quant": kv,
+        "spec_ab": spec_ab,
+        "mixed_ab": mixed_ab,
+        "static_batch": static,
+        "static_batch_tokens_per_sec": static["tokens_per_sec"],
+        "speedup_vs_static": (res["tokens_per_sec"]
+                              / static["tokens_per_sec"]
+                              if static["tokens_per_sec"] > 0 else None),
         "requests": len(res["statuses"]),
         "ok_requests": sum(s == "ok" for s in res["statuses"].values()),
         "status_counts": dict(Counter(res["statuses"].values())),
@@ -663,7 +898,8 @@ def _journaled(args, engine, requests, replicas: int, plan, det) -> dict:
             "replicas": fleet_block(res, None, det["serve_fault"]),
         })
     else:
-        model, serve, dev = engine.model, engine.serve, engine.device
+        model, serve, dev = (engine.source_model, engine.serve,
+                             engine.device)
         built = [engine]
 
         def make_engine():
@@ -672,11 +908,10 @@ def _journaled(args, engine, requests, replicas: int, plan, det) -> dict:
             return (built.pop() if built
                     else PagedDecodeEngine(model, serve, device=dev))
 
-        journal = recovery.ReplayJournal(args.serve_journal)
         with PreemptionGuard.installed() as guard:
             res, launches = counted(lambda: recovery.run_with_replay(
-                make_engine, requests(), journal=journal, guard=guard))
-        journal.close()
+                make_engine, requests(), journal_path=args.serve_journal,
+                guard=guard))
         det.update({
             "replays": res["replays"],
             "delivered_tokens": res["delivered_tokens"],
@@ -705,6 +940,10 @@ def _journaled(args, engine, requests, replicas: int, plan, det) -> dict:
         # latencies would be skewed, so these blocks are the timed arm's
         "goodput": None,
         "autoscale": None,
+        # a journaled run has no static arm (it would serve the trace
+        # twice), as the reference's has none
+        "static_batch_tokens_per_sec": None,
+        "speedup_vs_static": None,
     })
     det.update(trace_detail(res, engine.serve.trace_out))
     return det

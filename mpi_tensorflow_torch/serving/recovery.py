@@ -17,7 +17,10 @@ have emitted next.
   path each record is durable once its line is written, and a torn last
   line of a killed writer is skipped on load (and ended before the next
   record: the reference appends to it, so that record is lost to a
-  later load).
+  later load).  In a tensor-parallel world (``serving/tp``) the file is
+  rank 0's: the other ranks mirror in memory the records rank 0 loaded
+  and record what they serve there, so every rank replays alike and no
+  two processes append to one file.
 - ``replay_one``: re-roots one live entry (shared with the router's
   failover).
 - ``merge_fleet_entries``, ``fleet_statuses``, ``fleet_outputs``,
@@ -42,6 +45,10 @@ import time
 from collections import Counter
 from typing import Callable, Dict, List, Optional
 
+import torch
+import torch.distributed as dist
+
+from mpi_tensorflow_torch.serving import tp as tp_lib
 from mpi_tensorflow_torch.serving.scheduler import Request
 from mpi_tensorflow_torch.train import elastic
 from mpi_tensorflow_torch.utils import metrics_writer
@@ -76,7 +83,9 @@ class ReplayJournal:
       {"kind": "end",    "id", "status"}
 
     An existing ``path`` is loaded first (the crash-recovery entry
-    point), then appended to."""
+    point), then appended to.  In a world of several ranks every rank
+    constructs its journal at the same point (one broadcast of rank 0's
+    loaded records); only rank 0 opens the file."""
 
     def __init__(self, path: Optional[str] = None):
         self.path = path
@@ -86,10 +95,19 @@ class ReplayJournal:
         # the engine's plain record_submit(req) journals the right "pre"
         self._pending_pre: Dict[int, List[int]] = {}
         self._fh = None
-        if path is not None:
-            torn = False
-            if os.path.exists(path):
-                torn = self._load(path)
+        if path is None:
+            return
+        rank, size = tp_lib.world()
+        records, torn = [], False
+        if rank == 0 and os.path.exists(path):
+            records, torn = self._read(path)
+        if size > 1:
+            box = [records]
+            dist.broadcast_object_list(box, 0, device=torch.device("cpu"))
+            records = box[0]
+        for rec in records:
+            self._apply(rec)
+        if rank == 0:
             # line-buffered: a record is durable once its line completes
             self._fh = open(path, "a", buffering=1)
             if torn:
@@ -97,21 +115,22 @@ class ReplayJournal:
                 # and be lost to the next load
                 self._fh.write("\n")
 
-    def _load(self, path: str) -> bool:
-        """Apply the file's records; returns whether its last line is
-        unterminated (a writer killed mid-line)."""
+    @staticmethod
+    def _read(path: str) -> tuple:
+        """The file's records, and whether its last line is unterminated
+        (a writer killed mid-line)."""
         with open(path) as f:
             text = f.read()
+        records = []
         for line in text.splitlines():
             line = line.strip()
             if not line:
                 continue
             try:
-                rec = json.loads(line)
+                records.append(json.loads(line))
             except ValueError:
                 continue            # torn last line of a killed writer
-            self._apply(rec)
-        return bool(text) and not text.endswith("\n")
+        return records, bool(text) and not text.endswith("\n")
 
     def _apply(self, rec: dict) -> None:
         kind, rid = rec.get("kind"), rec.get("id")
@@ -295,8 +314,21 @@ def run_with_replay(make_engine: Callable[[], "object"],
     ``statuses`` merged across every attempt (from the journal),
     ``faults``, ``prefix`` and ``speculation`` summed over the attempts,
     ``replays`` and ``delivered_tokens``."""
-    if journal is None:
+    own = journal is None
+    if own:
         journal = ReplayJournal(journal_path)
+    try:
+        return _serve_with_replay(make_engine, requests, journal,
+                                  max_restarts, backoff_seconds,
+                                  is_transient_fn, guard, time_fn)
+    finally:
+        if own:
+            journal.close()
+
+
+def _serve_with_replay(make_engine, requests, journal, max_restarts,
+                       backoff_seconds, is_transient_fn, guard,
+                       time_fn) -> dict:
     totals: Counter = Counter()
     crash_harvests: List[dict] = []
     attempt = 0

@@ -48,6 +48,12 @@ reference's rule (threads when more than one core is usable); eager
 PyTorch holds the GIL through each of a dispatch's launches, so the
 threads may lose to the round-robin here.  Failover, probing and drain
 are decisions of the main thread in both modes.
+
+Under tensor parallelism (``serving/tp``) every rank runs the router
+over its shards of the N replicas in lock step: sequentially, each
+pass on rank 0's clock and stop flag (one ``tp.agree`` a pass), so a
+replica is placed on, ejected, probed and failed over alike on every
+rank and each rank's collectives meet their peers'.
 """
 
 
@@ -66,6 +72,7 @@ import torch
 
 from mpi_tensorflow_torch.serving import recovery as rec_lib
 from mpi_tensorflow_torch.serving import scheduler as sched_lib
+from mpi_tensorflow_torch.serving import tp as tp_lib
 from mpi_tensorflow_torch.serving import tracing
 from mpi_tensorflow_torch.serving.iteration import DrainTracker, EngineLoop
 from mpi_tensorflow_torch.train import elastic
@@ -435,9 +442,10 @@ class ReplicaRouter:
         transient = elastic.is_transient(exc)
         h = self.health[i]
         eng = self.engines[i]
-        print(f"[serving-router] replica {i} "
-              f"{'transient' if transient else 'PERMANENT'} fault "
-              f"({exc!r}); migrating its work", file=sys.stderr)
+        if tp_lib.world()[0] == 0:
+            print(f"[serving-router] replica {i} "
+                  f"{'transient' if transient else 'PERMANENT'} fault "
+                  f"({exc!r}); migrating its work", file=sys.stderr)
         # archive the dead incarnation's accounting: latency samples of
         # already-delivered tokens stay valid (the client keeps that
         # prefix — replay regenerates only what follows), and its fault
@@ -566,12 +574,15 @@ class ReplicaRouter:
 
     # ---------------- the per-replica tick ----------------
 
-    def _tick(self, i: int, time_fn, t0: float) -> bool:
+    def _tick(self, i: int, time_fn, t0: float,
+              now: Optional[float] = None) -> bool:
         """One iteration for replica ``i`` — the SHARED engine body
         (serving/iteration.EngineLoop) plus the router's handoff/drain/
         probe edges.  Returns whether any work moved.  Only replica
         ``i``'s thread (or the sequential caller) runs this —
-        scheduler/pool state stays single-owner."""
+        scheduler/pool state stays single-owner.  ``now`` (the pass's
+        agreed clock under tensor parallelism) replaces the tick's own
+        clock reading for its admission and deadline decisions."""
         self._ticks[i] += 1
         if self._fault_plan is not None:
             # the injection seam fires BEFORE the inbox snapshot so a
@@ -592,7 +603,8 @@ class ReplicaRouter:
             # the drain budget's hard edge
             self._abort_done[i] = True
             eng.sched.abort_live("drained")
-        now = time_fn() - t0
+        if now is None:
+            now = time_fn() - t0
         for req in todo:
             if draining:
                 eng.sched.fail_request(req, "shed")
@@ -648,8 +660,12 @@ class ReplicaRouter:
         the FLEET-level load signals — router queue + summed replica
         queues, mean pool occupancy, fleet shed rate — once per router
         loop pass; its advisory decision log rides the result as the
-        ``autoscale`` block."""
-        if parallel is None:
+        ``autoscale`` block.  Tensor-parallel replicas run in lock step
+        (module note): sequentially, whatever ``parallel`` says."""
+        lockstep = tp_lib.collective(self.engines[0].serve.tp)
+        if lockstep:
+            parallel = False
+        elif parallel is None:
             parallel = default_parallelism()
         n = len(self.engines)
         if journals is not None and len(journals) != n:
@@ -698,7 +714,7 @@ class ReplicaRouter:
             if parallel:
                 self._run_parallel(time_fn, t0, guard)
             else:
-                self._run_sequential(time_fn, t0, guard)
+                self._run_sequential(time_fn, t0, guard, lockstep)
             elapsed = time_fn() - t0
             return self._aggregate(parallel, elapsed)
         finally:
@@ -720,14 +736,13 @@ class ReplicaRouter:
             with self._inbox_locks[i]:
                 self._inboxes[i].append(req)
 
-    def _drain_edges(self, now: float, guard) -> None:
+    def _drain_edges(self, now: float, stop: bool) -> None:
         """Fleet drain state machine, run from the main loop: SIGTERM
         stops admission and pushes everything queued at the router to
         the replicas (whose draining ticks shed it — one terminal per
         request through the normal scheduler/journal path); the budget's
         hard edge arms per-replica abort."""
-        if guard is not None and guard.should_stop \
-                and not self._drain.draining:
+        if stop and not self._drain.draining:
             self._drain.start(now)
             self._route_due(now, all_due=True)
             for req in self._pending:   # nothing routable: shed direct
@@ -785,19 +800,29 @@ class ReplicaRouter:
             shed_rate=shed / max(1, routed),
             prefill_backlog=backlog)
 
-    def _run_sequential(self, time_fn, t0, guard) -> None:
+    def _run_sequential(self, time_fn, t0, guard,
+                        lockstep: bool = False) -> None:
+        """The round-robin loop.  ``lockstep`` (tensor-parallel
+        replicas): the pass's clock reading and stop flag are rank 0's,
+        and every decision of the pass reads them."""
         while True:
             now = time_fn() - t0
-            self._drain_edges(now, guard)
+            stop = guard is not None and guard.should_stop
+            if lockstep:
+                now, stop = tp_lib.agree(now, stop)
+            self._drain_edges(now, stop)
             self._maybe_probe(now)
             self._route_due(now)
             self._observe_fleet(now)
             progressed = False
             for i in list(self.routable()):
                 try:
-                    progressed = self._tick(i, time_fn, t0) or progressed
+                    progressed = self._tick(
+                        i, time_fn, t0,
+                        now if lockstep else None) or progressed
                 except Exception as e:  # noqa: BLE001 — classified in
-                    self._failover(i, e, time_fn() - t0)   # _failover
+                    self._failover(     # _failover
+                        i, e, now if lockstep else time_fn() - t0)
                     progressed = True
             with self._lock:
                 done = not self._outstanding
@@ -858,7 +883,8 @@ class ReplicaRouter:
                     if t is not None:
                         t.join()        # the worker exits on fault
                     self._failover(i, e, time_fn() - t0)
-                self._drain_edges(now, guard)
+                self._drain_edges(now, guard is not None
+                                  and guard.should_stop)
                 for i in self._maybe_probe(now):
                     start(i)
                 self._route_due(now)

@@ -24,7 +24,16 @@ the wall clock (admission against ``arrival``, the deadline sweep, the
 drain) would part the ranks and hang the next collective, so rank 0 owns
 the clock and the stop flag: ``agree`` broadcasts its ``now`` and
 ``should_stop`` once an iteration, and every rank decides from those.
-Only rank 0 journals and traces; the caller prints on rank 0 alone.
+
+A fleet of tensor-parallel replicas (``serving/router``) runs the router
+on every rank over its shards of the replicas, in lock step: one
+replica after another on the calling thread (never a thread each, which
+would order the collectives differently on each rank), each router pass
+deciding placement, health, failover and the drain from one ``agree``.
+A journal (``recovery.ReplayJournal``) is rank 0's file and, on every
+other rank, its mirror in memory: every rank replays the same requests,
+and a relaunch resumes on every rank.  Only rank 0 writes the journal
+and traces; the caller prints on rank 0 alone.
 
 The split is this module's own copy: the reference takes it from
 ``parallel/sharding_rules.py``, not ported yet (ROADMAP Queue 1 item

@@ -9,11 +9,13 @@ mesh with a ``data`` axis alone: one rank per card, the axis the
 reference's collectives from the placement; here the step places them
 by hand, and without a process group each one is the identity:
 
-- **the loss** of a microbatch is its masked CE summed over this rank's
-  rows divided by the masked count of the microbatch's GLOBAL rows (the
-  counts of all microbatches all-reduced in one call before the
-  forward), so the sum over the ranks is the reference's global mean,
-  not a mean of per-rank means;
+- **the loss** of a microbatch is its CE summed over this rank's rows'
+  supervised positions (``model.loss_weights``: the masked positions of
+  the MLM family, B x (S - 1) shifted targets of the causal one)
+  divided by their count over the microbatch's GLOBAL rows (the counts
+  of all microbatches all-reduced in one call before the forward), so
+  the sum over the ranks is the reference's global mean, not a mean of
+  per-rank means;
 - **accumulation** (``grad_accum`` = A): the rank's batch holds A
   microbatches, microbatch i being this rank's rows of the global
   microbatch i (``train.mlm_loop.rank_rows``: the reference reshapes
@@ -286,7 +288,8 @@ def make_train_step(tx: TransformerTx, grad_accum: int = 1,
                     across_ranks: Optional[bool] = None):
     """``train_step(state, batch, labels, generator) -> (state, {"loss":
     float32 scalar tensor})``: ``batch`` holds ``tokens`` and ``mask``
-    (B, S), this rank's rows of ``grad_accum`` microbatches in order;
+    (B, S) (the causal family reads ``tokens`` alone), this rank's rows
+    of ``grad_accum`` microbatches in order;
     ``labels`` (B, S); ``generator`` feeds dropout: one
     ``torch.Generator`` a microbatch (a list, or one generator when
     ``grad_accum`` is 1), None when ``cfg.dropout == 0``.  Across the
@@ -304,8 +307,7 @@ def make_train_step(tx: TransformerTx, grad_accum: int = 1,
         if sh is not None and not across:
             raise ValueError(f"a {sh.kind} state steps across the ranks")
         gens = _generators(generator, accum)
-        tokens, mask = batch["tokens"], batch["mask"]
-        n = tokens.shape[0]
+        n = batch["tokens"].shape[0]
         if n % accum:
             raise ValueError(f"batch dim {n} not divisible by grad_accum "
                              f"{accum}")
@@ -314,8 +316,8 @@ def make_train_step(tx: TransformerTx, grad_accum: int = 1,
         if sh is not None and sh.kind == "fsdp":
             _gather(state)
         params = _params(model)
-        # each microbatch's masked count over the global batch
-        counts = mask.reshape(accum, -1).to(torch.float32).sum(1)
+        # each microbatch's supervised positions over the global batch
+        counts = model.loss_weights(batch).reshape(accum, -1).sum(1)
         if across:
             collectives.allreduce_sum(counts)
         for p in params:
@@ -324,7 +326,7 @@ def make_train_step(tx: TransformerTx, grad_accum: int = 1,
         for i in range(accum):
             rows = slice(i * m, (i + 1) * m)
             part = model.masked_ce_sum(
-                {"tokens": tokens[rows], "mask": mask[rows]}, labels[rows],
+                {k: v[rows] for k, v in batch.items()}, labels[rows],
                 train=True, generator=gens[i]) / torch.clamp(counts[i],
                                                              min=1.0)
             part.backward()

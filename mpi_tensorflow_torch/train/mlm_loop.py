@@ -1,9 +1,11 @@
-"""Host loop for the masked-LM family (BASELINE config 5), on one
+"""Host loop for the transformer families (BASELINE config 5), on one
 device or data-parallel over the ranks of a ``torch.distributed`` world.
 
 Counterpart of ``mpi_tensorflow_tpu/train/mlm_loop.py``'s ``train_mlm``
-for ``model == "bert_base"`` on a ``data`` mesh of W ranks (W = 1
-without a process group):
+for ``model`` ``"bert_base"`` (``BertMlm``) and ``"gpt_base"``
+(``models/gpt.TrainableCausalLm``: the causal mask, the next-token loss
+through the chunked CE) on a ``data`` mesh of W ranks (W = 1 without a
+process group):
 
 - the synthetic MLM stream (every rank makes the whole of it from the
   seed), the global batch ``b = batch_size * W`` and the wraparound
@@ -15,11 +17,13 @@ without a process group):
   raise, as does a global batch that does not split into ``grad_accum``
   microbatches; the port also needs each microbatch to split evenly
   over the ranks (GSPMD would re-lay an uneven one out);
-- the held-out masked-error trace at the log cadence, its window of the
+- the held-out error trace at the log cadence, its window of the
   global ``b`` capped at 4 batches, off the timed path: each rank
   predicts its ``batch_size`` rows of every window, then one host
   gather, and the error is counted over the window's real rows as the
-  reference counts it;
+  reference counts it: at the masked positions (MLM), or of position t
+  predicting token t + 1 (causal; the causal family trains on the
+  stream's input tokens, as the reference's does);
 - rank 0 prints (the reference's one process of a W-device mesh);
   ``tokens_per_sec = b*seq_len/sec`` with the global ``b``, and
   ``num_devices = W``;
@@ -33,8 +37,8 @@ without a process group):
   ``train/loss`` at each trace point and ``perf/tokens_per_sec`` at the
   end.
 
-The other transformer families are not ported yet (ROADMAP Queue 1
-item 13).
+The MoE and encoder-decoder families are not ported yet (ROADMAP
+Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ import torch
 
 from mpi_tensorflow_torch.config import Config
 from mpi_tensorflow_torch.data import synthetic
-from mpi_tensorflow_torch.models import bert
+from mpi_tensorflow_torch.models import bert, gpt
 from mpi_tensorflow_torch.parallel import collectives, mesh as meshlib
 from mpi_tensorflow_torch.train import gspmd
 from mpi_tensorflow_torch.train import optimizer as opt_lib
@@ -103,17 +107,17 @@ def train_mlm(config: Config, bert_cfg: Optional[bert.BertConfig] = None,
               learning_rate: float = 1e-4,
               lr_schedule: str = "warmup_linear", verbose: bool = True,
               device="cuda") -> MlmResult:
-    """Train ``BertMlm`` (weights drawn from ``config.seed``) on the
-    synthetic MLM stream on ``device`` (``cuda`` unless the caller asks
+    """Train ``BertMlm`` (``gpt_base``: ``TrainableCausalLm``; weights
+    drawn from ``config.seed``) on the synthetic MLM stream on ``device`` (``cuda`` unless the caller asks
     for the CPU), over every rank of the process group that is up.
     ``bert_cfg`` defaults to ``BERT_BASE`` in the config's compute
     dtype, with 512 positions as the reference's default: pass a config
     with ``max_positions >= seq_len`` for longer sequences."""
-    if config.model in ("moe_bert", "gpt_base", "encdec_t5"):
+    if config.model in ("moe_bert", "encdec_t5"):
         raise NotImplementedError(
             f"model {config.model!r} is not ported yet: ROADMAP Queue 1 "
             f"item 13")
-    if config.model != "bert_base":
+    if config.model not in ("bert_base", "gpt_base"):
         raise ValueError(f"train_mlm trains the transformer families, got "
                          f"model {config.model!r}")
     world = meshlib.data_axis_size(meshlib.make_mesh(config.mesh_shape))
@@ -151,7 +155,9 @@ def train_mlm(config: Config, bert_cfg: Optional[bert.BertConfig] = None,
     tx = opt_lib.transformer_tx(learning_rate, num_steps,
                                 schedule=lr_schedule,
                                 optimizer=config.optimizer)
-    model = bert.BertMlm.from_seed(bert_cfg, config.seed).to(dev)
+    causal = config.model == "gpt_base"
+    family = gpt.TrainableCausalLm if causal else bert.BertMlm
+    model = family.from_seed(bert_cfg, config.seed).to(dev)
     state = gspmd.init_for(config.param_sharding, model, tx)
     train_step = gspmd.make_train_step(tx, grad_accum=accum)
     eval_step = gspmd.make_eval_step()
@@ -171,6 +177,11 @@ def train_mlm(config: Config, bert_cfg: Optional[bert.BertConfig] = None,
         for (idx, take), pred in zip(windows, preds.reshape(
                 len(windows), b, seq_len)):
             real = idx[:take]
+            if causal:
+                tgt = ts_tokens[real]
+                errs += int((pred[:take, :-1] != tgt[:, 1:]).sum())
+                tot += tgt[:, 1:].size
+                continue
             m = ts_mask[real]
             errs += int(((pred[:take] != ts_targets[real]) & m).sum())
             tot += int(m.sum())

@@ -6,14 +6,15 @@ The port's own copy of ``transformer_train_flops`` and
 matmul of N parameters with its backward, 12 B S^2 E per layer for
 attention scores and values, the tied decoder counted at the positions
 that reach the head; image models: the forward GFLOPs per image at the
-input geometry, times 3 for forward and backward).  The peak is the H100
-SXM's (NVIDIA data sheet, dense): 989 TFLOP/s in bf16 on the tensor
-cores, 67 TFLOP/s in float32 outside them.
+input geometry, times 3 for forward and backward).  The peaks are the
+H100 SXM's (NVIDIA data sheet, dense): 989 TFLOP/s in bf16 on the tensor
+cores, 67 TFLOP/s in float32 outside them, and 3.35 TB/s of HBM3.
 """
 
 from __future__ import annotations
 
 PEAK_TFLOPS = {"bf16": 989.0, "fp32": 67.0}
+HBM_TBPS = 3.35
 
 # forward GFLOPs per image (2 x MACs) at the bench's input geometry: the
 # ResNets' published MACs (ResNet-50 4.09 GMAC at 224x224, ResNet-20 41

@@ -272,16 +272,18 @@ def test_attention_choice_on_the_cpu(monkeypatch, attention, want):
     side."""
     ran = []
     monkeypatch.setattr(bert, "flash_attention",
-                        lambda q, k, v: ran.append("flash") or q)
+                        lambda q, k, v, causal: ran.append(
+                            ("flash", causal)) or q)
     monkeypatch.setattr(bert, "dense_attention",
-                        lambda q, k, v: ran.append("dense") or q)
+                        lambda q, k, v, causal: ran.append(
+                            ("dense", causal)) or q)
     cfg = dataclasses.replace(TCFG, flash_min_seq=4)
     model = bert.BertMlm.from_seed(cfg, 0, attention)
     model.encode(torch.zeros((1, 8), dtype=torch.int32))
-    assert ran == [want] * cfg.layers
-    with pytest.raises(NotImplementedError, match="item 13"):
-        bert.BertMlm.from_seed(
-            dataclasses.replace(cfg, ce_impl="chunked"), 0, attention)
+    assert ran == [(want, False)] * cfg.layers
+    # the chunked CE is ported (ROADMAP item 13): a model builds with it
+    assert bert.BertMlm.from_seed(dataclasses.replace(
+        cfg, ce_impl="chunked"), 0, attention)._use_chunked_ce()
 
 
 def test_eval_step_logits_match_reference(params_np, jax_loss_and_grads):

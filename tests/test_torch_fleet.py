@@ -19,7 +19,8 @@ packages' loops, which read it at the same points, see the same times):
 - ``goodput_block`` and ``per_request_rows`` on one run's result.
 
 Then the entry points: ``bench --mode serving`` prints its line with the
-fleet's blocks, refuses what is not ported (ROADMAP item 6b), and a run
+fleet's blocks, refuses what is not ported and the flags the reference
+refuses, and a run
 with ``--serve-journal`` killed by SIGKILL mid-run and relaunched on the
 same journal serves the unfaulted run's tokens.
 """
@@ -407,15 +408,22 @@ def test_bench_serving_traced_and_journaled(capsys, tmp_path):
     assert again["outputs"] == det["outputs"] and again["tokens"] == 0
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--mode", "decode"], "item 6b"),
-    (["--mode", "serving", "--serve-kv-ab"], "item 6b"),
-    (["--mode", "serving", "--serve-mixed-ab"], "item 6b"),
-    (["--mode", "serving", "--serve-tp", "2", "--serve-replicas", "2"],
-     "item 6b"),
+@pytest.mark.parametrize("argv,error", [
+    # still not ported (ROADMAP item 14)
+    (["--mode", "train", "--model", "vit"], NotImplementedError),
+    # item 6b is ported: what these flags are refused now is what the
+    # reference refuses (a negative beam count; an A/B arm beside a
+    # journal; the mixed A/B without mixed batching; an A/B arm beside
+    # a fleet)
+    (["--mode", "decode", "--num-beams", "-1"], SystemExit),
+    (["--mode", "serving", "--serve-kv-ab", "--serve-journal", "j"],
+     SystemExit),
+    (["--mode", "serving", "--serve-mixed-ab"], SystemExit),
+    (["--mode", "serving", "--serve-tp", "2", "--serve-replicas", "2",
+      "--serve-kernel-ab"], SystemExit),
 ])
-def test_bench_refuses_what_is_not_ported(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_bench_refuses_what_is_not_ported(argv, error):
+    with pytest.raises(error):
         bench.main(argv)
 
 
