@@ -305,6 +305,22 @@ fails:
    two steps' mean below the first's), the flash launches as phase 7's
    (the causal mode), tokens/s, MFU (every position through the head)
    and peak GiB printed.
+19. The rest of transformer training (after 18): 19a phase 8's check
+   for ``MoeBertMlm`` and ``EncDecLm``; 19b remat ``full`` and ``dots``
+   against remat off at dropout 0.1 (fp32, 2 layers, flash forced, 3
+   steps, BERT and enc-dec) and one fp32 ResNet-20 step (cuDNN
+   deterministic), each bit-equal; 19c ``train_mlm`` with
+   ``moe_bert`` at phase 7's shape (flash launches as phase 7's, losses
+   finite, the dropped share of the last forward); 19d ``encdec_t5`` at
+   S = T = 4096 with remat (the encoder's bidirectional and the
+   decoder's causal flash calls counted, each forward twice a step, its
+   loss falling); 19e config 5 with remat ``full`` and ``dots``; 19f
+   config 5 with LAMB under warmup-cosine; 19g ``python -m
+   mpi_tensorflow_torch --model bert_base --text-file F --vocab-file
+   V`` on a corpus and vocabulary written here.  Each run's step ms,
+   tokens/s, MFU and peak GiB printed beside phase 7's; the ``kernels``
+   line's flash rows gain ``launches_moe``, ``launches_encdec``,
+   ``launches_remat`` and ``launches_lamb``.
 
 Prints one ``kernels`` JSON line, then the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a card it
@@ -1653,26 +1669,36 @@ def time_flash(dev) -> dict:
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_N, TEST_N, LOG_EVERY = 4096, 4, 32, 8, 4
 
 
-def train_full_width(dev, model: str = "bert_base") -> tuple:
+def train_full_width(dev, model: str = "bert_base", *,
+                     remat=None, optimizer: str = "adamw",
+                     schedule: str = "warmup_linear", label: str = "") -> tuple:
     """BERT_BASE widths, bf16, S=4096, batch 4, dropout 0.1, through
     ``train_mlm`` (``model``: ``bert_base``, phase 7, or ``gpt_base``,
     phase 18: the causal kernels and the chunked CE, its loss falling
-    from the first step to the last two).  Returns the flash launches
-    of the run and its numbers."""
+    from the first step to the last two; phase 19: ``moe_bert``,
+    ``encdec_t5`` (S = T = 4096, its loss falling too), and config 5
+    with ``remat`` "full" or "dots" or with ``optimizer`` "lamb" under
+    ``schedule`` "warmup_cosine").  Under remat every layer's flash
+    forward runs again in its backward.  Returns the flash launches of
+    the run and its numbers."""
     from mpi_tensorflow_torch.config import Config
     from mpi_tensorflow_torch.models import bert
     from mpi_tensorflow_torch.train import gspmd, mlm_loop
     from mpi_tensorflow_torch.utils import flops
 
     cfg = dataclasses.replace(bert.BERT_BASE, dtype=torch.bfloat16,
-                              max_positions=TRAIN_SEQ)
+                              max_positions=TRAIN_SEQ,
+                              remat=remat is not None,
+                              remat_policy=remat or "full")
     config = Config(model=model, dataset="mlm_synthetic", epochs=1,
                     batch_size=TRAIN_BATCH, log_every=LOG_EVERY,
-                    precision="bf16")
+                    precision="bf16", optimizer=optimizer)
+    enc_dec = model == "encdec_t5"
     torch.cuda.reset_peak_memory_stats(dev)
     set_flash_counts({k: 0 for k in FLASH})
     losses = []
-    make = gspmd.make_train_step
+    calls = {False: 0, True: 0}          # flash calls, by causal
+    make, flash = gspmd.make_train_step, bert.flash_attention
 
     def recording(*a, **kw):
         step = make(*a, **kw)
@@ -1683,37 +1709,53 @@ def train_full_width(dev, model: str = "bert_base") -> tuple:
             return state, metrics
         return call
 
-    gspmd.make_train_step = recording
+    def counted(q, k, v, causal):
+        calls[causal] += 1
+        return flash(q, k, v, causal)
+
+    gspmd.make_train_step, bert.flash_attention = recording, counted
     try:
         res = mlm_loop.train_mlm(config, cfg, seq_len=TRAIN_SEQ,
-                                 train_n=TRAIN_N, test_n=TEST_N, device=dev)
+                                 train_n=TRAIN_N, test_n=TEST_N, device=dev,
+                                 lr_schedule=schedule)
     finally:
-        gspmd.make_train_step = make
+        gspmd.make_train_step, bert.flash_attention = make, flash
     torch.cuda.synchronize(dev)
     launches = flash_counts()
     losses = [float(x) for x in losses]
     steps = res.num_steps
     eval_forwards = len(res.history) * -(-min(TEST_N, 4 * TRAIN_BATCH)
                                          // TRAIN_BATCH)
-    want = {"flash_fwd": cfg.layers * (steps + eval_forwards),
-            "flash_dq": cfg.layers * steps,
-            "flash_dkdv": cfg.layers * steps}
-    if launches != want:
-        raise AssertionError(f"flash launches {launches} != {want} (12 "
-                             f"layers x {steps} steps, {eval_forwards} "
-                             f"eval forwards)")
+    # each stack's layers; a rematted layer runs its forward twice a step
+    stack = cfg.layers
+    fwd = stack * ((2 if remat else 1) * steps + eval_forwards)
+    want = {"flash_fwd": fwd * (2 if enc_dec else 1),
+            "flash_dq": stack * steps * (2 if enc_dec else 1),
+            "flash_dkdv": stack * steps * (2 if enc_dec else 1)}
+    causal = model in ("gpt_base", "encdec_t5")
+    want_calls = {False: 0 if model == "gpt_base" else fwd,
+                  True: fwd if causal else 0}
+    if launches != want or calls != want_calls:
+        raise AssertionError(
+            f"flash launches {launches} != {want}, calls by causal "
+            f"{calls} != {want_calls} ({stack} layers a stack, {steps} "
+            f"steps, {eval_forwards} eval forwards, remat {remat})")
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite training loss {losses}")
-    if model == "gpt_base" and not np.mean(losses[-2:]) < losses[0]:
-        raise AssertionError(f"the causal loss did not fall: {losses}")
+    if causal and not np.mean(losses[-2:]) < losses[0]:
+        raise AssertionError(f"the {model} loss did not fall: {losses}")
     if [t for t, _ in res.history] != [4, 7]:
         raise AssertionError(f"unexpected history {res.history}")
-    causal = model == "gpt_base"
-    model_flops = flops.transformer_train_flops(
-        cfg, TRAIN_BATCH, TRAIN_SEQ,
-        head_positions=TRAIN_SEQ if causal else None)
+    if enc_dec:
+        model_flops = flops.encdec_train_flops(
+            cfg, res.state.model.n_dec, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ)
+    else:
+        model_flops = flops.transformer_train_flops(
+            cfg, TRAIN_BATCH, TRAIN_SEQ,
+            head_positions=TRAIN_SEQ if model == "gpt_base" else None)
     stats = {
-        "model": model, "causal": causal,
+        "model": model, "causal": causal, "remat": remat,
+        "optimizer": optimizer, "schedule": schedule,
         "layers": cfg.layers, "hidden": cfg.hidden, "heads": cfg.heads,
         "vocab": cfg.vocab_size, "precision": "bf16", "seq_len": TRAIN_SEQ,
         "batch": TRAIN_BATCH, "dropout": cfg.dropout, "steps": steps,
@@ -1724,31 +1766,54 @@ def train_full_width(dev, model: str = "bert_base") -> tuple:
         "model_flops_per_step": model_flops,
         "mfu_bf16": flops.mfu(model_flops, res.step_time_seconds, "bf16"),
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-        "launches": launches}
-    log(f"[train {model}] " + json.dumps(stats))
+        "launches": launches,
+        "flash_calls": {"bidirectional": calls[False],
+                        "causal": calls[True]}}
+    if model == "moe_bert":
+        # the last forward's (the final trace point's eval batch)
+        stats["dropped_share"] = res.state.model.dropped_share()
+    log(f"[train {label or model}] " + json.dumps(stats))
     return launches, stats
 
 
 # ---------------------------------------------------------------- phase 8
 
+def train_batches(dev, family, cfg, n: int = 3, seq: int = 512, B: int = 2,
+                  seed: int = 5) -> list:
+    """``n`` batches of ``B`` rows at ``seq`` for ``family``: the
+    synthetic MLM stream, or the enc-dec family's reversal pairs."""
+    from mpi_tensorflow_torch.data import synthetic
+    from mpi_tensorflow_torch.models import encdec
+
+    put = lambda a: torch.from_numpy(a).to(dev)
+    rows = [slice(i * B, (i + 1) * B) for i in range(n)]
+    if issubclass(family, encdec.EncDecLm):
+        src, tgt = synthetic.seq2seq_batches(
+            n * B, src_len=seq, tgt_len=seq, vocab_size=cfg.vocab_size,
+            seed=seed)
+        return [({"src": put(src[r]), "tgt": put(tgt[r])}, put(tgt[r]))
+                for r in rows]
+    tokens, targets, mask = synthetic.mlm_batches(
+        n * B, seq_len=seq, vocab_size=cfg.vocab_size, seed=seed)
+    return [({"tokens": put(tokens[r]), "mask": put(mask[r])},
+             put(targets[r])) for r in rows]
+
+
 def cross_check_train(dev, family=None, label: str = "mlm") -> None:
     """float32, 2 layers at full width, S=512, B=2, dropout 0: the loss
     and gradients at the start, and the losses and parameters of three
     train steps, with ``attention="flash"`` against ``"dense"``;
-    ``family``: ``BertMlm`` (phase 8) or ``TrainableCausalLm`` (phase
-    18b: both routes causal)."""
-    from mpi_tensorflow_torch.data import synthetic
+    ``family``: ``BertMlm`` (phase 8), ``TrainableCausalLm`` (phase
+    18b: both routes causal), ``MoeBertMlm`` or ``EncDecLm`` (phase
+    19a: its encoder bidirectional, its decoder causal; the
+    cross-attention dense on both routes)."""
     from mpi_tensorflow_torch.models import bert
     from mpi_tensorflow_torch.train import gspmd, optimizer
 
     family = family or bert.BertMlm
 
     cfg = dataclasses.replace(bert.BERT_BASE, layers=2, dropout=0.0)
-    tokens, targets, mask = synthetic.mlm_batches(
-        6, seq_len=512, vocab_size=cfg.vocab_size, seed=5)
-    put = lambda a: torch.from_numpy(a).to(dev)
-    batches = [({"tokens": put(tokens[i:i + 2]), "mask": put(mask[i:i + 2])},
-                put(targets[i:i + 2])) for i in (0, 2, 4)]
+    batches = train_batches(dev, family, cfg)
     saved = flash_counts()
     runs = {}
     for attention in ("flash", "dense"):
@@ -1781,7 +1846,7 @@ def cross_check_train(dev, family=None, label: str = "mlm") -> None:
     p_err, bk_err = 0.0, 0.0
     for name, a, b in zip(names, p_f, p_d):
         e = float((a - b).abs().max())
-        if name.endswith(".bk"):
+        if name.endswith((".bk", ".xbk")):
             bk_err = max(bk_err, e)
         else:
             p_err = max(p_err, e)
@@ -2682,6 +2747,9 @@ def dp_phase(card: str, cnn: dict) -> dict:
     every50 = lambda n: [t for t in range(1, n) if t % 50 == 0] + [n - 1]
     me = os.path.abspath(__file__)
     phase("11a")
+    # cut for the script's time: 11a's NCCL psum check runs in 11b's
+    # batch of check worlds, side by side with them (its profile then
+    # shares the card, as 11b's gloo one does)
     t0 = time.perf_counter()
     out = torchrun(1, ["-m", "mpi_tensorflow_torch", "--data-dir",
                        CNN_DATA_DIR, "--epochs", "1"], 600)
@@ -2699,17 +2767,17 @@ def dp_phase(card: str, cnn: dict) -> dict:
         f" phase 10b's {ref['images_per_sec']:.1f} images/s, "
         f"{ref['step_ms']:.3f} ms (no process group); wall {wall:.1f} s; "
         f"{card}")
-    nccl_steps = dp_result(torchrun(1, [me, "--worker", "psum_steps",
-                                        "nccl"], 300))
-    check_psum_steps(nccl_steps)
     phase("11b")
-    # the check-only gloo worlds side by side, 13d's two ResNet worlds
-    # with them (for the script's time): 13d reads their results
-    gloo_steps, avg, *resnet_worlds = map(dp_result, torchrun_all(
-        [(2, [me, "--worker", "psum_steps", "gloo"]),
+    # the check-only worlds side by side, 11a's NCCL psum world and 13d's
+    # two ResNet worlds with them (for the script's time): 13d reads
+    # their results
+    nccl_steps, gloo_steps, avg, *resnet_worlds = map(dp_result, torchrun_all(
+        [(1, [me, "--worker", "psum_steps", "nccl"]),
+         (2, [me, "--worker", "psum_steps", "gloo"]),
          (2, [me, "--worker", "avg50_epoch", "gloo"]),
          (2, [me, "--worker", "resnet_psum_steps", "gloo"]),
          (2, [me, "--worker", "resnet_avg50", "gloo"])], 900))
+    check_psum_steps(nccl_steps)
     check_psum_steps(gloo_steps)
     trace = check_trace(avg["lines"], 2, every50(390), "avg50, 2 ranks")
     errs = [e for _, e in avg["history"]]
@@ -4727,6 +4795,180 @@ def gpt_train_phase(dev, card: str, flash_timing: dict) -> dict:
     return {"launches": launches, "stats": stats}
 
 
+# --------------------------------------------------------------- phase 19
+
+REMAT_POLICIES = ("full", "dots")
+CORPUS_DIR = "build/corpus19"            # git-ignored; removed after
+CORPUS_WORDS = ("the quick brown fox jumps over a lazy dog while seven "
+                "wizards quietly hex jovial bakers and some running "
+                "jumped unbelievable").split()
+CORPUS_ARGS = ["--model", "bert_base", "--epochs", "1", "--batch-size", "8",
+               "--seq-len", "128", "--log-every", "4", "--precision", "bf16"]
+
+
+def remat_check(dev) -> dict:
+    """19b: float32, 2 layers at full width, dropout 0.1, flash forced,
+    S=512, B=2: three train steps with remat "full" and "dots" against
+    remat off, for BERT and the enc-dec family, losses and parameters
+    bit-equal (the flash backward has no atomics, and a rematted layer
+    draws the forward's masks again); then one float32 ResNet-20 step
+    (batch 128, cuDNN deterministic) with remat against one without, the
+    update and the BatchNorm state bit-equal."""
+    from mpi_tensorflow_torch.config import Config
+    from mpi_tensorflow_torch.models import bert, encdec, resnet
+    from mpi_tensorflow_torch.train import gspmd, optimizer
+    from mpi_tensorflow_torch.train import step as step_lib
+    from mpi_tensorflow_torch.utils import tree as tree_lib
+
+    saved = flash_counts()
+    cfg = dataclasses.replace(bert.BERT_BASE, layers=2, dropout=0.1)
+    out = {}
+    for name, family in (("bert", bert.BertMlm), ("encdec", encdec.EncDecLm)):
+        batches = train_batches(dev, family, cfg, seed=6)
+        runs = {}
+        for policy in (None, *REMAT_POLICIES):
+            c = dataclasses.replace(cfg, remat=policy is not None,
+                                    remat_policy=policy or "full")
+            model = family.from_seed(c, 0, "flash").to(dev)
+            tx = optimizer.transformer_tx(1e-4, 3)
+            state = gspmd.init_state(model, tx)
+            step = gspmd.make_train_step(tx)
+            losses = torch.stack([step(state, b, y, gspmd.step_generator(
+                3, t, dev))[1]["loss"] for t, (b, y) in enumerate(batches)])
+            runs[policy] = (losses.cpu(), [p.detach().clone()
+                                           for p in model.parameters()])
+        for policy in REMAT_POLICIES:
+            same_loss = torch.equal(runs[policy][0], runs[None][0])
+            same = [torch.equal(a, b) for a, b in zip(runs[policy][1],
+                                                      runs[None][1])]
+            if not (same_loss and all(same)):
+                diff = max(float((a - b).abs().max()) for a, b in
+                           zip(runs[policy][1], runs[None][1]))
+                raise AssertionError(
+                    f"{name} remat {policy} is not bit-equal to remat off: "
+                    f"losses {runs[policy][0].tolist()} vs "
+                    f"{runs[None][0].tolist()}, parameters max|diff| {diff}")
+        out[name] = runs[None][0].tolist()
+        log(f"[remat check {name}] fp32, 2 layers, dropout 0.1, flash, "
+            f"S=512, B=2: remat full and dots bit-equal to remat off over 3 "
+            f"steps (losses {out[name]})")
+    set_flash_counts(saved)
+    deterministic = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        rng = np.random.default_rng(2)
+        x = torch.from_numpy(rng.normal(size=(128, 32, 32, 3)).astype(
+            np.float32) * 0.3).to(dev)
+        y = torch.from_numpy(rng.integers(0, 10, 128)).to(dev)
+        steps = {}
+        for remat in (False, True):
+            model = resnet.build("resnet20", 10, seed=0, remat=remat).to(dev)
+            state = step_lib.init_state(model)
+            step = step_lib.make_train_step(
+                model, Config(model="resnet20", batch_size=128), 1, 50000)
+            loss = step(state, x, y, None)[1]["loss"]
+            steps[remat] = [loss] + [p.detach().clone() for p in
+                                     model.parameters()] \
+                + tree_lib.leaves(state.model_state)
+        if not all(torch.equal(a, b) for a, b in zip(*steps.values())):
+            raise AssertionError("ResNet-20's remat step is not bit-equal "
+                                 "to its plain step (update or BatchNorm "
+                                 "state)")
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = deterministic
+    out["resnet20_loss"] = float(steps[True][0])
+    log(f"[remat check resnet20] fp32 batch 128, cuDNN deterministic: the "
+        f"remat step's loss, {len(steps[True]) - 1} parameters and "
+        f"statistics bit-equal to the plain step's (loss "
+        f"{out['resnet20_loss']:.6f})")
+    return out
+
+
+def corpus_run(card: str) -> dict:
+    """19g: ``python -m mpi_tensorflow_torch --model bert_base
+    --text-file F --vocab-file V`` for one short epoch on a corpus and a
+    WordPiece vocabulary written here: the reference's trace lines at
+    its cadence.  Cut for the script's time: the entry point's
+    ``cli.main`` runs in this process (``cli_run``), not in a child."""
+    from mpi_tensorflow_torch.data import corpus
+
+    shutil.rmtree(CORPUS_DIR, ignore_errors=True)
+    os.makedirs(CORPUS_DIR)
+    text, vocab = (os.path.join(CORPUS_DIR, n) for n in ("corpus.txt",
+                                                         "vocab.txt"))
+    rng = np.random.default_rng(19)
+    with open(text, "w") as f:
+        f.write("\n".join(" ".join(rng.choice(CORPUS_WORDS, 16))
+                          for _ in range(900)))
+    with open(vocab, "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]",
+                           "un", "##believ", "##able", "##ning", "##ed",
+                           *sorted(set(CORPUS_WORDS))]))
+    try:
+        rows = len(corpus.load_mlm(text, seq_len=128, vocab_file=vocab)[0])
+        train = rows - max(rows // 10, 1)
+        steps = train // 8
+        want = [t for t in range(steps) if (t > 0 and t % 4 == 0)
+                or t == steps - 1]
+        res, lines = cli_run([*CORPUS_ARGS, "--text-file", text,
+                              "--vocab-file", vocab], train_fn="mlm")
+        trace = check_trace(lines, 1, want, "19g --text-file")
+        timing = {"step_ms": res.step_time_seconds * 1e3,
+                  "tokens_per_sec": res.tokens_per_sec}
+    finally:
+        shutil.rmtree(CORPUS_DIR, ignore_errors=True)
+    res = {"rows": rows, "steps": steps, "trace": trace, **timing}
+    log(f"[corpus] bert_base bf16 --text-file (WordPiece, {rows} rows of "
+        f"128, {steps} steps of 8): trace {trace}, step "
+        f"{timing['step_ms']:.3f} ms; {card}")
+    return res
+
+
+def training_rest_phase(dev, card: str, phase7: dict) -> dict:
+    """Phase 19: the rest of transformer training.  19a: phase 8's
+    check for the MoE and the enc-dec family; 19b: remat bit-equality
+    (``remat_check``); 19c: ``train_mlm`` with ``moe_bert`` at phase 7's
+    shape; 19d: ``encdec_t5`` at S = T = 4096 with remat; 19e: config 5
+    with remat full and dots; 19f: config 5 with LAMB under
+    warmup-cosine; 19g: the ``--text-file`` CLI run."""
+    from mpi_tensorflow_torch.models import encdec, moe
+
+    out = {}
+    phase("19a")
+    cross_check_train(dev, moe.MoeBertMlm, "moe")
+    cross_check_train(dev, encdec.EncDecLm, "encdec")
+    phase("19b")
+    out["remat_check"] = remat_check(dev)
+    phase("19c")
+    out["moe"] = train_full_width(dev, "moe_bert")
+    phase("19d")
+    out["encdec"] = train_full_width(dev, "encdec_t5", remat="full")
+    phase("19e")
+    for policy in REMAT_POLICIES:
+        out[f"remat_{policy}"] = train_full_width(
+            dev, remat=policy, label=f"bert_base remat {policy}")
+    phase("19f")
+    out["lamb"] = train_full_width(dev, optimizer="lamb",
+                                   schedule="warmup_cosine",
+                                   label="bert_base lamb warmup_cosine")
+    phase("19g")
+    out["corpus"] = corpus_run(card)
+    for key in ("moe", "encdec", "remat_full", "remat_dots", "lamb"):
+        st = out[key][1]
+        log(f"[rest of training] {key}: {st['step_ms']:.3f} ms a step "
+            f"(config 5, phase 7: {phase7['step_ms']:.3f}), "
+            f"{st['tokens_per_sec']:.1f} tokens/s, MFU "
+            f"{100 * st['mfu_bf16']:.3f} % of bf16 peak, peak "
+            f"{st['peak_memory_gib']:.3f} GiB (phase 7: "
+            f"{phase7['peak_memory_gib']:.3f})"
+            + (f", dropped share {st['dropped_share']:.5f}"
+               if "dropped_share" in st else "") + f"; {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda reports no card; nothing was run",
@@ -4774,6 +5016,8 @@ def main() -> int:
     cross_check_train(dev)
     phase("18 gpt_base training")
     gpt_train = gpt_train_phase(dev, card, flash_timing)
+    phase("19 the rest of transformer training")
+    rest = training_rest_phase(dev, card, phase7)
     # no path runs the fused kernels: their counts stay at 0 through
     # every main path above, and the comparison launches below are reset
     fused_launches = fused_counts()
@@ -4862,6 +5106,15 @@ def main() -> int:
             "launches_resumed": long_run["14c"]["launches_resumed"][name],
             # phase 18: gpt_base, the causal mode, counted from 0
             "launches_gpt_causal": gpt_train["launches"][name],
+            # phase 19, each run counted from 0: the MoE (19c), the
+            # enc-dec family with remat (19d: its encoder's and decoder's
+            # layers, each forward twice a step), config 5 with remat
+            # (19e) and with LAMB (19f)
+            "launches_moe": rest["moe"][0][name],
+            "launches_encdec": rest["encdec"][0][name],
+            "launches_remat": {p: rest[f"remat_{p}"][0][name]
+                               for p in REMAT_POLICIES},
+            "launches_lamb": rest["lamb"][0][name],
             "max_abs_err": max(flash_worst[name, torch.float32],
                                flash_worst[name, torch.bfloat16]),
             "max_abs_err_fp32": flash_worst[name, torch.float32],

@@ -13,12 +13,15 @@ Layout mirrors the reference so each counterpart is easy to find:
 - ``data``     — MNIST, CIFAR-10 (its local archive extracted) and the
                  ImageNet-shaped set (each with its synthetic stand-in;
                  a JPEG tree ingested once, ``imagenet_jpeg``), the
-                 synthetic MLM stream, and the windows of the image loop
+                 synthetic MLM stream and reversal pairs, real-text
+                 corpora (``corpus``), and the windows of the image loop
                  assembled inline or on a thread (``prefetch``);
 - ``models``   — the MNIST CNN (``cnn``), ResNet-20/50 (``resnet``),
-                 the transformer layer math and ``BertMlm`` (``bert``),
-                 the causal LM with its paged forward (``gpt``), and the
-                 parameter-tree converter (``convert``);
+                 the transformer layer math, remat and ``BertMlm``
+                 (``bert``), the MoE BERT (``moe``), the
+                 encoder-decoder LM (``encdec``), the causal LM with its
+                 paged forward (``gpt``), and the parameter-tree
+                 converter (``convert``);
 - ``ops``      — the CUDA paged-attention, flash-attention and fused
                  kernels with their plain PyTorch twins, paged KV-cache
                  ops, the MLM head's masked-position packing, and the
@@ -27,7 +30,7 @@ Layout mirrors the reference so each counterpart is easy to find:
 - ``serving``  — block allocator, scheduler, per-iteration loop,
                  continuous-batching engine, trace generator and the
                  ``python -m mpi_tensorflow_torch.serving`` entry point;
-- ``train``    — TF momentum and adamw, the image family's train/eval
+- ``train``    — TF momentum, adamw and LAMB, the image family's train/eval
                  steps and loop (``step``, ``loop``), the transformer's
                  (``gspmd``) and the MLM host loop ``train_mlm``;
                  checkpoints in the reference's formats (``checkpoint``,

@@ -37,10 +37,15 @@ card's line):
     torchrun --nproc_per_node 4 -m mpi_tensorflow_torch.bench \\
         --mode allreduce
 
-``--mode train --model bert_base`` (or ``gpt_base``): the counterpart of
-the one-step arm of the reference's ``measure_bert``: the BERT-base MLM
-train step (``gpt_base``: the causal LM's next-token step, the causal
-flash kernels at ``--seq-len 4096`` and the chunked CE)
+``--mode train --model bert_base`` (or ``gpt_base``, ``moe_bert``,
+``encdec_t5``): the counterpart of the one-step arm of the reference's
+``measure_bert``: the BERT-base MLM train step (``gpt_base``: the causal
+LM's next-token step, the causal flash kernels at ``--seq-len 4096`` and
+the chunked CE; ``moe_bert``: routed experts on every other layer, its
+flops the dense formula's, one expert of the dense width a token;
+``encdec_t5``: the encoder-decoder on the reversal pairs, source and
+target both ``--seq-len`` long; ``--remat`` with ``--remat-policy
+full|dots`` recomputes each layer in the backward)
 (``train.gspmd``, adamw through ``transformer_tx`` at a constant 1e-4,
 dropout 0.1) at ``--batch-size`` sequences per card of ``--seq-len``
 tokens (``max_positions`` raised to it), ``--grad-accum`` microbatches
@@ -50,8 +55,10 @@ rotating banks of the global batch, each rank feeding its rows.  Under
 card with no process group.  The mean over ``--steps`` timed steps
 (default 20, after 3 untimed) between two synchronisations of rank 0's
 card; prints one JSON line from rank 0: tokens/sec per card, step ms,
-MFU (``utils/flops.py``, the per-card batch), the card's peak allocated
-GiB and this rank's bytes at rest, the world size, and the card's line.
+MFU (``utils/flops.py``, the per-card batch; ``mfu_bf16`` against the
+bf16 peak whatever the precision), the card's peak allocated GiB and
+this rank's bytes at rest, the remat policy, the world size, and the
+card's line.
 The reference's bench runs ``optax.adamw(1e-4)`` without clipping; the
 port's runs the trainer's optimizer, one global norm more a step:
 
@@ -59,6 +66,9 @@ port's runs the trainer's optimizer, one global norm more a step:
         --seq-len 4096 --batch-size 4 --precision bf16
     python -m mpi_tensorflow_torch.bench --mode train --model gpt_base \\
         --seq-len 4096 --batch-size 4 --precision bf16
+    python -m mpi_tensorflow_torch.bench --mode train --model encdec_t5 \\
+        --seq-len 4096 --batch-size 4 --precision bf16 --remat \\
+        [--remat-policy dots]
     torchrun --nproc_per_node 4 -m mpi_tensorflow_torch.bench --mode train \\
         --model bert_base --seq-len 4096 --batch-size 4 --precision bf16 \\
         [--grad-accum 2] [--param-sharding zero1|fsdp]
@@ -156,11 +166,13 @@ IMAGE_SPECS = {
 
 def measure_train(model_name: str = "mnist_cnn", batch_size: int = 64,
                   precision: str = "fp32", steps: int = 1000,
-                  warmup: int = 50, device="cuda") -> dict:
+                  warmup: int = 50, device="cuda",
+                  remat: bool = False) -> dict:
     """Mean time of one train step after ``warmup`` untimed ones."""
     spec = IMAGE_SPECS[model_name]
     cfg = Config(model=model_name, batch_size=batch_size,
-                 precision=precision, num_classes=spec["classes"])
+                 precision=precision, num_classes=spec["classes"],
+                 remat=remat)
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.empty(0, device=dev)      # the allocator up, for its stats
@@ -209,7 +221,8 @@ def measure_train(model_name: str = "mnist_cnn", batch_size: int = 64,
                             if dev.type == "cuda" else None),
         "num_devices": 1, "batch_size_per_chip": batch_size,
         "image_shape": list(spec["shape"]), "num_classes": cfg.num_classes,
-        "precision": precision, "steps": steps, "warmup": warmup,
+        "precision": precision, "remat": remat, "steps": steps,
+        "warmup": warmup,
         "final_loss": float(loss), "device": device_name(dev),
         "card": card_line(dev),
     }
@@ -219,21 +232,24 @@ def measure_bert(batch_size: int = 4, seq_len: int = 128,
                  precision: str = "fp32", grad_accum: int = 1,
                  param_sharding: str = "replicated", steps: int = 20,
                  warmup: int = 3, device="cuda",
-                 model_name: str = "bert_base") -> dict:
-    """Mean time of one BERT-base MLM (``gpt_base``: causal LM) train
-    step over the process group that is up (none: one card), after
-    ``warmup`` untimed ones."""
+                 model_name: str = "bert_base", remat: bool = False,
+                 remat_policy: str = "full") -> dict:
+    """Mean time of one BERT-base MLM (``gpt_base``: causal LM;
+    ``moe_bert``; ``encdec_t5``) train step over the process group that
+    is up (none: one card), after ``warmup`` untimed ones."""
     from mpi_tensorflow_torch.data import synthetic
-    from mpi_tensorflow_torch.models import bert, gpt
+    from mpi_tensorflow_torch.models import bert
 
     dev = resolve_device(device)
     world, rank = meshlib.process_count(), meshlib.process_index()
     causal = model_name == "gpt_base"
+    enc_dec = model_name == "encdec_t5"
     cfg = Config(model=model_name, batch_size=batch_size,
                  precision=precision, grad_accum=grad_accum,
-                 param_sharding=param_sharding)
+                 param_sharding=param_sharding, remat=remat)
     bcfg = dataclasses.replace(
-        bert.BERT_BASE, dtype=cfg.compute_dtype,
+        bert.BERT_BASE, dtype=cfg.compute_dtype, remat=remat,
+        remat_policy=remat_policy,
         max_positions=max(bert.BERT_BASE.max_positions, seq_len))
     b = batch_size * world
     if batch_size % grad_accum:
@@ -242,19 +258,24 @@ def measure_bert(batch_size: int = 4, seq_len: int = 128,
     if dev.type == "cuda":
         torch.empty(0, device=dev)      # the allocator up, for its stats
         torch.cuda.reset_peak_memory_stats(dev)
-    family = gpt.TrainableCausalLm if causal else bert.BertMlm
-    model = family.from_seed(bcfg, cfg.seed).to(dev)
+    model = mlm_loop.FAMILIES[model_name].from_seed(bcfg, cfg.seed).to(dev)
     tx = opt_lib.transformer_tx(1e-4, warmup + steps, schedule="constant")
     state = gspmd.init_for(param_sharding, model, tx)
     train_step = gspmd.make_train_step(tx, grad_accum=grad_accum)
-    toks, tgts, mask = synthetic.mlm_batches(
-        N_BANKS * b, seq_len=seq_len, vocab_size=bcfg.vocab_size, seed=0)
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     banks = []
+    if enc_dec:
+        src, tgts = synthetic.seq2seq_batches(
+            N_BANKS * b, src_len=seq_len, tgt_len=seq_len,
+            vocab_size=bcfg.vocab_size, seed=0)
+    else:
+        toks, tgts, mask = synthetic.mlm_batches(
+            N_BANKS * b, seq_len=seq_len, vocab_size=bcfg.vocab_size, seed=0)
     for k in range(N_BANKS):
         rows = mlm_loop.rank_rows(k * b, b, grad_accum, rank, world)
-        banks.append(({"tokens": put(toks[rows]), "mask": put(mask[rows])},
-                      put(tgts[rows])))
+        inputs = ({"src": put(src[rows]), "tgt": put(tgts[rows])} if enc_dec
+                  else {"tokens": put(toks[rows]), "mask": put(mask[rows])})
+        banks.append((inputs, put(tgts[rows])))
 
     def run(i):
         gens = [step_generator(cfg.seed + 2, i, dev, rank, j)
@@ -273,11 +294,17 @@ def measure_bert(batch_size: int = 4, seq_len: int = 128,
         loss = run(i)
     sync()
     sec = (time.perf_counter() - t0) / steps
-    # the causal family puts every position through the head
-    step_flops = flops.transformer_train_flops(
-        bcfg, batch_size, seq_len, head_positions=seq_len if causal else None)
-    mfu = flops.mfu(step_flops, sec, precision) if dev.type == "cuda" \
-        else None
+    # the causal family puts every position through the head; the MoE
+    # keeps the dense formula (one expert of the dense width a token)
+    if enc_dec:
+        step_flops = flops.encdec_train_flops(bcfg, model.n_dec, batch_size,
+                                              seq_len, seq_len)
+    else:
+        step_flops = flops.transformer_train_flops(
+            bcfg, batch_size, seq_len,
+            head_positions=seq_len if causal else None)
+    on_card = dev.type == "cuda"
+    mfu = flops.mfu(step_flops, sec, precision) if on_card else None
     return {
         "mode": "train", "model": model_name,
         "tokens_per_sec": b * seq_len / sec,
@@ -285,9 +312,11 @@ def measure_bert(batch_size: int = 4, seq_len: int = 128,
         "step_time_ms": sec * 1e3,
         "model_flops_per_step": step_flops,
         "mfu_pct": None if mfu is None else 100.0 * mfu,
+        "mfu_bf16": flops.mfu(step_flops, sec, "bf16") if on_card else None,
         "peak_memory_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
-                            if dev.type == "cuda" else None),
+                            if on_card else None),
         "bytes_at_rest": gspmd.bytes_at_rest(state),
+        "remat": remat, "remat_policy": remat_policy if remat else None,
         "num_devices": world, "batch_size_per_chip": batch_size,
         "seq_len": seq_len, "grad_accum": grad_accum,
         "param_sharding": param_sharding, "precision": precision,
@@ -568,10 +597,10 @@ def main(argv=None) -> int:
                     default="train")
     ap.add_argument("--model", default="mnist_cnn",
                     choices=["mnist_cnn", "resnet20", "resnet50", "vit",
-                             "bert_base", "gpt_base"])
+                             *mlm_loop.FAMILIES])
     ap.add_argument("--batch-size", type=int, default=None,
                     help="per-card batch (default: mnist_cnn 64, resnet20 "
-                         "128, resnet50 32, bert_base and gpt_base 4)")
+                         "128, resnet50 32, the transformers 4)")
     ap.add_argument("--precision", choices=["fp32", "bf16"], default="fp32")
     ap.add_argument("--steps", type=int, default=None,
                     help="timed train steps (default: mnist_cnn 1000, "
@@ -581,13 +610,21 @@ def main(argv=None) -> int:
                          "mnist_cnn 50, resnet20 20, resnet50 5, bert_base"
                          " 3)")
     ap.add_argument("--seq-len", type=int, default=128,
-                    help="bert_base, gpt_base: tokens per sequence")
+                    help="transformers: tokens per sequence")
     ap.add_argument("--grad-accum", type=int, default=1,
-                    help="bert_base, gpt_base: microbatches per step")
+                    help="transformers: microbatches per step")
     ap.add_argument("--param-sharding", default="replicated",
                     choices=["replicated", "zero1", "fsdp"],
-                    help="bert_base, gpt_base: the state's layout over "
+                    help="transformers: the state's layout over "
                          "the ranks")
+    ap.add_argument("--remat", action="store_true",
+                    help="train: recompute each transformer layer "
+                         "(ResNet block) in the backward")
+    ap.add_argument("--remat-policy", choices=["full", "dots"],
+                    default="full",
+                    help="what a rematted transformer layer saves: full "
+                         "= nothing, dots = the products without batch "
+                         "dimensions (the weight projections)")
     ap.add_argument("--payload-mb", type=float, default=25.4,
                     help="allreduce: float32 MB on each rank")
     ap.add_argument("--device", default="cuda",
@@ -603,6 +640,13 @@ def main(argv=None) -> int:
     ap.add_argument("--hostio-dir", default="build",
                     help="hostio: where the temporary .npy is written")
     args = ap.parse_args(argv)
+    # the reference bench's checks
+    if args.remat_policy != "full" and not args.remat:
+        ap.error("--remat-policy only applies with --remat")
+    if args.remat_policy != "full" and (
+            args.mode != "train" or args.model not in mlm_loop.FAMILIES):
+        ap.error("--remat-policy applies to the transformer families in "
+                 "train mode only: other paths would silently ignore it")
     if args.mode == "hostio":
         on_card = torch.device(args.device).type == "cuda"
         print(json.dumps(measure_hostio(
@@ -612,8 +656,7 @@ def main(argv=None) -> int:
             card=card_line(torch.device(args.device)) if on_card
             else None)), flush=True)
         return 0
-    bert_run = args.mode == "train" and args.model in ("bert_base",
-                                                        "gpt_base")
+    bert_run = args.mode == "train" and args.model in mlm_loop.FAMILIES
     if args.mode == "train" and args.model == "vit":
         raise NotImplementedError("model 'vit' is not ported yet: ROADMAP "
                                   "Queue 1 item 14")
@@ -623,8 +666,8 @@ def main(argv=None) -> int:
         (args.batch_size, args.steps, args.warmup), defaults))
     if args.mode == "train" and not bert_run:
         print(json.dumps(measure_train(args.model, batch, args.precision,
-                                       steps, warmup, args.device)),
-              flush=True)
+                                       steps, warmup, args.device,
+                                       args.remat)), flush=True)
         return 0
     dev = meshlib.rank_device(args.device)
     if bert_run:            # the launcher's world, else none
@@ -632,7 +675,8 @@ def main(argv=None) -> int:
         try:
             res = measure_bert(batch, args.seq_len, args.precision,
                                args.grad_accum, args.param_sharding, steps,
-                               warmup, dev, args.model)
+                               warmup, dev, args.model, args.remat,
+                               args.remat_policy)
             if meshlib.process_index() == 0:
                 print(json.dumps(res), flush=True)
         finally:

@@ -12,7 +12,12 @@ train the ResNets through the same loop (CIFAR-10's binary files when
 its shapes; ``imagenet_npy`` shards when present, else the synthetic
 224x224 set); the transformer path runs with ``--model bert_base
 --dataset mlm_synthetic`` (or ``--model gpt_base``: the causal LM's
-next-token training on the same stream):
+next-token training on the same stream; ``--model moe_bert``: routed
+expert MLPs on every other layer; ``--model encdec_t5``: the
+encoder-decoder on the synthetic reversal task).  ``--remat``
+recomputes each layer in the backward, ``--optimizer lamb`` swaps adamw
+for LAMB, and ``--text-file`` (with ``--vocab-file``, a WordPiece
+vocabulary) trains bert_base, moe_bert or gpt_base on a local text:
 
     python -m mpi_tensorflow_torch                     # on the card
     python -m mpi_tensorflow_torch --device cpu --epochs 1 \\
@@ -32,6 +37,16 @@ next-token training on the same stream):
     python -m mpi_tensorflow_torch --model gpt_base \
         --dataset mlm_synthetic --precision bf16 --seq-len 4096 \
         --batch-size 4                                 # on the card
+    python -m mpi_tensorflow_torch --model moe_bert --precision bf16 \
+        --seq-len 4096 --batch-size 4                  # on the card
+    python -m mpi_tensorflow_torch --model encdec_t5 --precision bf16 \
+        --seq-len 4096 --batch-size 4 --remat          # on the card
+    python -m mpi_tensorflow_torch --model encdec_t5 --device cpu \
+        --tiny --epochs 1 --batch-size 4 --seq-len 32 --train-n 64 \
+        --test-n 16 --log-every 4 [--remat] [--optimizer lamb]
+    python -m mpi_tensorflow_torch --model bert_base --device cpu --tiny \
+        --epochs 1 --batch-size 4 --seq-len 32 --log-every 4 \
+        --text-file corpus.txt [--vocab-file vocab.txt]
 
 Under ``torchrun`` the trainer runs one rank per card over
 ``torch.distributed`` (NCCL for the card's tensors, gloo for the host's;
@@ -66,6 +81,7 @@ microbatches, and ``--param-sharding`` zero1/fsdp shards the
 transformer's state over the ranks (``train.gspmd``; a world of one
 rank raises, as the reference does without a data axis).
 
+``--remat`` also recomputes each residual block of the ResNets.
 ``--fused-steps`` defaults to ``--log-every`` under psum and to 1 under
 avg50, as in the reference.  ``--tiny``, ``--seq-len``, ``--train-n``
 and ``--test-n`` have no counterpart in the reference's CLI: they size
@@ -159,8 +175,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "optimizer state and loss stay float32)")
     p.add_argument("--optimizer", choices=["adamw", "lamb"],
                    default=d.optimizer,
-                   help="transformer-family optimizer (lamb: not ported "
-                        "yet)")
+                   help="transformer-family optimizer (lamb = layer-wise "
+                        "trust ratios)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each transformer layer (ResNet block) "
+                        "in the backward: compute for peak memory")
+    p.add_argument("--text-file", default=None,
+                   help="train bert_base, moe_bert or gpt_base on a local "
+                        "text file instead of the synthetic stream")
+    p.add_argument("--vocab-file", default=None,
+                   help="WordPiece vocabulary for --text-file (one token "
+                        "per line); default: byte-level (vocab 261)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; the rank's own card under "
                         "torchrun) or cpu; cuda without a card fails")
@@ -199,6 +224,8 @@ def config_from_args(args) -> Config:
         checkpoint_dir=args.checkpoint_dir, resume=args.resume,
         metrics_dir=args.metrics_dir, precision=args.precision,
         optimizer=args.optimizer, prefetch=args.prefetch,
+        remat=args.remat, text_file=args.text_file,
+        vocab_file=args.vocab_file,
         grad_accum=args.grad_accum, param_sharding=args.param_sharding,
         fused_steps=(args.fused_steps if args.fused_steps is not None
                      else (args.log_every if args.sync == "psum" else 1)))
@@ -207,6 +234,20 @@ def config_from_args(args) -> Config:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     config = config_from_args(args)
+    # the reference's flag checks, before any device is touched
+    if config.text_file and config.model not in ("bert_base", "moe_bert",
+                                                 "gpt_base"):
+        raise SystemExit(
+            f"--text-file applies to the language-model families "
+            f"(bert_base, moe_bert, gpt_base); --model {config.model} "
+            f"would silently ignore it")
+    if config.vocab_file and not config.text_file:
+        raise SystemExit("--vocab-file only applies with --text-file")
+    if config.optimizer != "adamw" and config.model not in TRANSFORMER_MODELS:
+        raise SystemExit(
+            f"--optimizer {config.optimizer} applies to the transformer "
+            f"families; the image families train with the reference's "
+            f"momentum SGD (mpipy.py:65) and would silently ignore it")
     if config.param_sharding != "replicated" \
             and config.model not in TRANSFORMER_MODELS:
         raise SystemExit(
@@ -237,7 +278,7 @@ def _run(config: Config, args, device) -> None:
     # a sequence longer than the geometry's positions gets its own, as
     # bench.py does for its long-sequence runs
     bert_cfg = dataclasses.replace(
-        base, dtype=config.compute_dtype,
+        base, dtype=config.compute_dtype, remat=config.remat,
         max_positions=max(base.max_positions, args.seq_len))
     mlm_loop.train_mlm(config, bert_cfg, seq_len=args.seq_len,
                        train_n=args.train_n, test_n=args.test_n,

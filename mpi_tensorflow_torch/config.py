@@ -63,8 +63,11 @@ class Config:
                                           # and stops
     resume: bool = False          # restart from checkpoint_dir's latest
     metrics_dir: Optional[str] = None   # metrics.jsonl (rank 0)
-    optimizer: str = "adamw"      # transformer-family optimizer
-    remat: bool = False           # recompute layer activations in backward
+    optimizer: str = "adamw"      # transformer-family optimizer: adamw
+                                  # or lamb (layer-wise trust ratios)
+    remat: bool = False           # recompute each transformer layer's
+                                  # (ResNet block's) activations in the
+                                  # backward
     grad_accum: int = 1           # microbatches per optimizer step: the
                                   # gradients accumulate before the one
                                   # reduction and update
@@ -73,6 +76,8 @@ class Config:
                                         # sharded over the ranks) or fsdp
                                         # (parameters and moments)
     text_file: Optional[str] = None     # real-text corpus (None: synthetic)
+    vocab_file: Optional[str] = None    # WordPiece vocabulary for
+                                        # text_file (None: byte-level)
 
     # --- serving (continuous-batching decode engine, serving/) ---
     serve_pool_blocks: int = 128  # paged-KV pool size in blocks (block 0
@@ -142,10 +147,6 @@ class Config:
 
     def __post_init__(self):
         not_ported = (
-            (self.remat, "remat=True", "13 (remat)"),
-            (self.optimizer == "lamb", "optimizer='lamb'", "13 (lamb)"),
-            (self.text_file is not None, "text_file",
-             "13 (corpus data)"),
             (any(v > 1 for k, v in (self.mesh_shape or {}).items()
                  if k != "data"),
              f"mesh_shape={self.mesh_shape}", "14 (model parallelism)"),

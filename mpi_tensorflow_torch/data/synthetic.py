@@ -1,10 +1,10 @@
 """Deterministic synthetic data (numpy only): images for the ResNet
-datasets and masked-LM sequences.
+datasets, masked-LM sequences and the encoder-decoder's reversal pairs.
 
-The port's own copy of ``image_classification`` and ``mlm_batches``
-from ``mpi_tensorflow_tpu/data/synthetic.py``: the same draws in the
-same order from ``numpy.random.default_rng(seed)``, so one seed gives
-the same bytes in both packages.
+The port's own copy of ``image_classification``, ``mlm_batches`` and
+``seq2seq_batches`` from ``mpi_tensorflow_tpu/data/synthetic.py``: the
+same draws in the same order from ``numpy.random.default_rng(seed)``, so
+one seed gives the same bytes in both packages.
 """
 
 from __future__ import annotations
@@ -66,3 +66,22 @@ def mlm_batches(num_examples: int, *, seq_len: int, vocab_size: int,
     mask = rng.random((num_examples, seq_len)) < mask_rate
     tokens = np.where(mask, mask_token, clean)
     return (tokens.astype(np.int32), clean.astype(np.int32), mask)
+
+
+def seq2seq_batches(num_examples: int, *, src_len: int, tgt_len: int,
+                    vocab_size: int, bos_token: int = 0, seed: int = 0):
+    """Synthetic pairs for the encoder-decoder family: the target is the
+    REVERSED source, BOS first, cut to ``tgt_len`` (position t of the
+    target copies position S - t of the source, which only the
+    cross-attention can reach).  Returns ``(src, tgt)`` int32 (N,
+    src_len) and (N, tgt_len)."""
+    if tgt_len > src_len + 1:
+        raise ValueError(
+            f"tgt_len {tgt_len} > src_len + 1 ({src_len + 1}): the "
+            f"reversed source cannot fill the target")
+    rng = np.random.default_rng(seed)
+    src = rng.integers(5, vocab_size, size=(num_examples, src_len))
+    tgt = np.concatenate(
+        [np.full((num_examples, 1), bos_token), src[:, ::-1][:, :tgt_len - 1]],
+        axis=1)
+    return src.astype(np.int32), tgt.astype(np.int32)

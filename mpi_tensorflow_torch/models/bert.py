@@ -7,8 +7,18 @@ the seeded parameter init, the layer math
 and the LM head's ``head_hidden``) as ``nn.Module``s, and ``BertMlm``
 with ``encode``, ``head_hidden``, ``apply`` and ``loss`` for training
 (``models/gpt.TrainableCausalLm`` adds the causal mask and the
-next-token loss on top).  The sequence-parallel attention branches wait
-for the parallelism slices (ROADMAP Queue 1 item 14).
+next-token loss on top, ``models/moe`` routed expert MLPs through the
+layer's ``mlp_block`` hook, ``models/encdec`` a decoder after the same
+encoder).  The sequence-parallel attention branches wait for the
+parallelism slices (ROADMAP Queue 1 item 14).
+
+``cfg.remat`` recomputes each layer's activations in the backward
+(``torch.utils.checkpoint``, non-reentrant; ``remat_policy`` "full"
+saves nothing, "dots" saves the products without batch dimensions, the
+weight projections, as ``jax.checkpoint_policies.
+dots_with_no_batch_dims_saveable`` does).  A rematted layer draws its
+dropout masks again from the generator's state at the layer's start
+(``run_layer``), so remat on and off draw the same masks.
 
 Parameters keep the JAX layouts — ``wq/wk/wv`` (E, H, D), ``wo``
 (H, D, E), ``w1`` (E, F), ``w2`` (F, E), ``tok_emb`` (V, E) — so the
@@ -39,6 +49,7 @@ Two numerics traps the reference sets, kept here on purpose:
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -78,8 +89,15 @@ class BertConfig:
                                          # the flash kernels at S >= this
                                          # (the reference's TPU threshold;
                                          # the card's own is not measured)
+    remat: bool = False                  # recompute each layer in the
+                                         # backward (module note)
+    remat_policy: str = "full"           # what a rematted layer saves:
+                                         # "full" nothing, "dots" the
+                                         # products without batch dims
 
     def __post_init__(self):
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
         if self.pos_kind not in ("learned", "rope"):
             raise ValueError(f"pos_kind must be 'learned' or 'rope', "
                              f"got {self.pos_kind!r}")
@@ -142,6 +160,54 @@ def ce_capacity(cfg: BertConfig, S: int) -> int:
     """Packed-buffer width for the masked-position head: ``ce_capacity_frac
     * S`` rounded up to a multiple of 8, floored at 8, capped at S."""
     return min(S, max(8, -(-int(cfg.ce_capacity_frac * S) // 8) * 8))
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    """Save the products without batch dimensions: ``mm``/``addmm`` and a
+    ``bmm`` of batch 1 (an einsum against a weight); recompute the rest,
+    the attention's batched score and value products among them."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if func in (aten.mm.default, aten.addmm.default) or (
+            func is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def run_layer(cfg: BertConfig, fn, h, generator, *args):
+    """``fn(h, generator, *args)``, under ``cfg.remat`` (with gradients
+    on) through ``torch.utils.checkpoint``: the layer's activations are
+    recomputed in the backward, and the recomputation draws its dropout
+    masks from a copy of ``generator`` at the state it had when the layer
+    began, so they are the forward's masks.  ``generator`` ends where
+    the forward left it, as without remat."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(h, generator, *args)
+    from torch.utils import checkpoint as ckpt
+
+    start = None if generator is None else generator.get_state()
+    end = []
+
+    def body(h, *args):
+        gen = None
+        if start is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(start)
+        out = fn(h, gen, *args)
+        if gen is not None and not end:
+            end.append(gen.get_state())
+        return out
+
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    out = ckpt.checkpoint(body, h, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    if end:
+        generator.set_state(end[0])
+    return out
 
 
 def _param(t, dtype: torch.dtype, trainable: bool = False) -> nn.Parameter:
@@ -221,15 +287,26 @@ class EncoderLayer(nn.Module):
         to the MLP output before each residual add; ``reduce`` is the
         tensor-parallel sum of the two row-parallel products
         (``serving/tp``)."""
+        return self.forward_aux(h, attention, dt, drop, reduce)[0]
+
+    def forward_aux(self, h, attention, dt, drop=None, reduce=None):
+        """``forward`` and the MLP's auxiliary loss (None for a dense
+        MLP): ``(h, aux)``."""
         q, k, v = self.qkv_proj(h, dt)
         a = self.attn_out_proj(attention(q, k, v), dt, reduce)
         if drop is not None:
             a = drop(a)
         h = self.ln1(h + a).to(dt)
-        m = self.gelu_mlp(h, dt, reduce)
+        m, aux = self.mlp_block(h, dt, reduce)
         if drop is not None:
             m = drop(m)
-        return self.ln2(h + m).to(dt)
+        return self.ln2(h + m).to(dt), aux
+
+    def mlp_block(self, h, dt, reduce=None):
+        """The position-wise MLP and its auxiliary loss: ``(out,
+        None)`` here; ``models/moe.MoeLayer`` routes it through experts
+        and returns the load-balance loss."""
+        return self.gelu_mlp(h, dt, reduce), None
 
     def qkv_proj(self, h: torch.Tensor, dt: torch.dtype):
         """(B, S, E) -> per-head q, k, v, each (B, H, S, D)."""
@@ -299,7 +376,9 @@ class BertMlm(nn.Module):
     every layer's attention to the keys at or before each query, on
     either route.  The loss's CE over the vocabulary (``_ce``) is the
     dense (B, P, V) logits or the chunked ``mlm_head.tied_softmax_ce``
-    by ``cfg.ce_impl`` (``_use_chunked_ce``).
+    by ``cfg.ce_impl`` (``_use_chunked_ce``).  ``loss_terms`` gives the
+    loss's numerator and the layers' summed auxiliary loss, which
+    ``loss`` adds at ``aux_weight()`` (0 here; the MoE's 0.01).
     """
 
     causal = False
@@ -316,9 +395,22 @@ class BertMlm(nn.Module):
         self.pos_emb = _param(params["pos_emb"], f32, trainable=True)
         self.emb_ln = LayerNorm(params["emb_ln"], trainable=True)
         self.layers = nn.ModuleList(
-            EncoderLayer(lp, cfg.dtype, trainable=True)
-            for lp in params["layers"])
-        self.mlm = LmHead(params["mlm"], cfg.dtype, trainable=True)
+            self._make_layer(i, lp) for i, lp in enumerate(params["layers"]))
+        self._init_head(params)
+
+    def _make_layer(self, idx: int, lp: dict) -> EncoderLayer:
+        """Encoder layer ``idx`` from its parameters (``models/moe``
+        makes its expert layers here)."""
+        return EncoderLayer(lp, self.cfg.dtype, trainable=True)
+
+    def _init_head(self, params: dict) -> None:
+        """The parameters after the encoder: the MLM head here."""
+        self.mlm = LmHead(params["mlm"], self.cfg.dtype, trainable=True)
+
+    @classmethod
+    def init_params(cls, cfg: BertConfig, generator) -> dict:
+        """Seeded parameters in the family's tree."""
+        return init_params(cfg, generator)
 
     @classmethod
     def from_seed(cls, cfg: BertConfig, seed: int = 0,
@@ -326,7 +418,7 @@ class BertMlm(nn.Module):
         """Random weights from ``seed`` (``init_params`` on a CPU
         ``torch.Generator``)."""
         gen = torch.Generator().manual_seed(seed)
-        return cls(cfg, init_params(cfg, gen), attention)
+        return cls(cfg, cls.init_params(cfg, gen), attention)
 
     def param_tree(self) -> dict:
         """The parameters in the reference's pytree layout (nested dicts,
@@ -337,14 +429,26 @@ class BertMlm(nn.Module):
                 "layers": [layer.tree() for layer in self.layers],
                 "mlm": self.mlm.tree()}
 
-    def _attention(self, q, k, v):
+    def _attention(self, q, k, v, causal=None):
+        """Self-attention of one layer, causal as the model (or as
+        ``causal`` says: the enc-dec decoder's)."""
+        causal = self.causal if causal is None else causal
         S = q.shape[2]
         flash = self.attention == "flash" or (
             self.attention == "auto" and q.device.type == "cuda"
             and S >= self.cfg.flash_min_seq)
         if flash:
-            return flash_attention(q, k, v, self.causal)
-        return dense_attention(q, k, v, causal=self.causal)
+            return flash_attention(q, k, v, causal)
+        return dense_attention(q, k, v, causal=causal)
+
+    def _dropout_generator(self, train: bool, generator):
+        """The generator dropout draws from: ``generator`` in train mode
+        with ``cfg.dropout > 0``, else None (no dropout)."""
+        if not (train and self.cfg.dropout > 0.0):
+            return None
+        if generator is None:
+            raise ValueError("dropout needs a generator in train mode")
+        return generator
 
     def encode(self, tokens, *, train: bool = False, generator=None):
         """Embeddings + encoder stack: ``tokens`` (B, S) int ids ->
@@ -352,24 +456,23 @@ class BertMlm(nn.Module):
         mode, ``cfg.dropout > 0``) draws from ``generator`` at the
         reference's sites, in its order: the embedding, then the
         attention and MLP outputs of each layer."""
+        return self.encode_aux(tokens, train=train, generator=generator)[0]
+
+    def encode_aux(self, tokens, *, train: bool = False, generator=None):
+        """``encode`` and the layers' summed auxiliary loss (float32
+        scalar): ``(h, aux)``."""
         c = self.cfg
         S = tokens.shape[1]
         if c.pos_kind != "rope" and S > c.max_positions:
             raise ValueError(f"sequence length {S} exceeds max_positions "
                              f"{c.max_positions}")
-        drop = None
-        if train and c.dropout > 0.0:
-            if generator is None:
-                raise ValueError("dropout needs a generator in train mode")
-
-            def drop(x):
-                return dropout_mask(x, c.dropout, generator)
+        gen = self._dropout_generator(train, generator)
         h = F.embedding(tokens.long(), self.tok_emb)
         if c.pos_kind != "rope":
             h = h + self.pos_emb[None, :S]
         h = self.emb_ln(h)
-        if drop is not None:
-            h = drop(h)
+        if gen is not None:
+            h = dropout_mask(h, c.dropout, gen)
         h = h.to(c.dtype)
 
         def attention(q, k, v):
@@ -378,18 +481,37 @@ class BertMlm(nn.Module):
                 q, k = rope(q, pos), rope(k, pos)
             return self._attention(q, k, v)
 
+        def layer_fn(layer):
+            def fn(h, g):
+                drop = None if g is None else functools.partial(
+                    dropout_mask, rate=c.dropout, generator=g)
+                return layer.forward_aux(h, attention, c.dtype, drop)
+            return fn
+
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for layer in self.layers:
-            h = layer(h, attention, c.dtype, drop)
-        return h
+            h, a = run_layer(c, layer_fn(layer), h, gen)
+            if a is not None:
+                aux = aux + a
+        return h, aux
+
+    def aux_weight(self) -> float:
+        """The weight of the layers' auxiliary loss in ``loss`` (0 for
+        the dense MLP; ``models/moe``'s load-balance weight)."""
+        return 0.0
 
     def head_hidden(self, h):
         """MLM head transform (dense + GELU + LN) in the compute dtype."""
         return self.mlm.head_hidden(h, self.cfg.dtype)
 
+    def _out_b(self):
+        """The tied decoder's float32 output bias."""
+        return self.mlm.out_b
+
     def _logits(self, t):
         """Tied vocab decoder: float32 logits of head hidden ``t``."""
         dt = self.cfg.dtype
-        return (t @ self.tok_emb.to(dt).t() + self.mlm.out_b).to(
+        return (t @ self.tok_emb.to(dt).t() + self._out_b()).to(
             torch.float32)
 
     def apply(self, tokens, *, train: bool = False, generator=None):
@@ -418,7 +540,7 @@ class BertMlm(nn.Module):
         ``labels`` (B, P)."""
         if self._use_chunked_ce():
             return mlm_head.tied_softmax_ce(
-                t, self.tok_emb, self.mlm.out_b, labels,
+                t, self.tok_emb, self._out_b(), labels,
                 chunk=self.cfg.ce_chunk, dtype=self.cfg.dtype)
         logits = self._logits(t)
         gold = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -432,21 +554,25 @@ class BertMlm(nn.Module):
 
     def loss(self, batch: dict, labels, *, train: bool = False,
              generator=None):
-        """Masked-LM loss: mean CE over the masked positions.  ``batch``
-        holds ``tokens`` (B, S) and ``mask`` (B, S) bool; ``labels``
-        (B, S) the original ids.  The denominator counts every masked
-        position, overflow-dropped ones included, as the reference's."""
-        return self.masked_ce_sum(batch, labels, train=train,
-                                  generator=generator) / torch.clamp(
-            self.loss_weights(batch).sum(), min=1.0)
+        """Masked-LM loss: mean CE over the masked positions, plus the
+        auxiliary loss at ``aux_weight()``.  ``batch`` holds ``tokens``
+        (B, S) and ``mask`` (B, S) bool; ``labels`` (B, S) the original
+        ids.  The denominator counts every masked position,
+        overflow-dropped ones included, as the reference's."""
+        ce, aux = self.loss_terms(batch, labels, train=train,
+                                  generator=generator)
+        return ce / torch.clamp(self.loss_weights(batch).sum(), min=1.0) \
+            + self.aux_weight() * aux
 
-    def masked_ce_sum(self, batch: dict, labels, *, train: bool = False,
-                      generator=None):
-        """The loss's numerator: the CE summed over the masked positions
-        that reach the head.  A data-parallel step divides it by the
+    def loss_terms(self, batch: dict, labels, *, train: bool = False,
+                   generator=None):
+        """``(ce_sum, aux)``: the loss's numerator, the CE summed over
+        the masked positions that reach the head, and the layers'
+        auxiliary loss.  A data-parallel step divides the sum by the
         masked count of the GLOBAL batch, as the reference's GSPMD loss
         does (``train.gspmd``)."""
-        h = self.encode(batch["tokens"], train=train, generator=generator)
+        h, aux = self.encode_aux(batch["tokens"], train=train,
+                                 generator=generator)
         mask = batch["mask"].to(torch.bool)
         labels = labels.long()
         if self.cfg.ce_positions == "masked":
@@ -454,4 +580,4 @@ class BertMlm(nn.Module):
                 h, labels, mask, ce_capacity(self.cfg, h.shape[1]))
         else:
             weights = mask.to(torch.float32)
-        return (self._ce(self.head_hidden(h), labels) * weights).sum()
+        return (self._ce(self.head_hidden(h), labels) * weights).sum(), aux

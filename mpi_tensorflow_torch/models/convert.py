@@ -8,7 +8,10 @@ dicts, ``layers`` stays a list.
 
 - ``params_from_jax``: numpy leaves (``jax.tree.map(np.asarray,
   params)``) -> float32 CPU tensors, which ``models.gpt.CausalLm(cfg,
-  tree)`` and ``models.bert.BertMlm(cfg, tree)`` consume;
+  tree)``, ``models.bert.BertMlm(cfg, tree)``, ``models.moe.MoeBertMlm``
+  (the expert layers' ``router``, ``ew1``, ``eb1``, ``ew2``, ``eb2``)
+  and ``models.encdec.EncDecLm`` (``dec_*`` and the cross-attention's
+  ``x*`` leaves) consume;
 - ``params_to_numpy``: a port tree (``BertMlm.param_tree()``) -> float32
   numpy leaves, to compare with a JAX model's parameters;
 - ``cnn_params_from_jax`` / ``cnn_params_to_numpy``: the same for the

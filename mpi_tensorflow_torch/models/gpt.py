@@ -389,16 +389,17 @@ class TrainableCausalLm(bert_lib.BertMlm):
     def loss_weights(self, batch: dict):
         return shift_targets(batch["tokens"])[1]
 
-    def masked_ce_sum(self, batch: dict, labels=None, *,
-                      train: bool = False, generator=None):
+    def loss_terms(self, batch: dict, labels=None, *,
+                   train: bool = False, generator=None):
         """The CE summed over the supervised positions, B x (S - 1) of
-        them; ``loss`` (``BertMlm``'s) divides it by their count:
-        ``sum(ce * w) / max(sum(w), 1)``, the reference's loss."""
+        them, and the (zero) auxiliary loss; ``loss`` (``BertMlm``'s)
+        divides the sum by their count: ``sum(ce * w) / max(sum(w), 1)``,
+        the reference's loss."""
         tokens = batch["tokens"]
-        h = self.encode(tokens, train=train, generator=generator)
+        h, aux = self.encode_aux(tokens, train=train, generator=generator)
         targets, w = shift_targets(tokens.long())
         ce = self._ce(self.head_hidden(h), targets)
-        return (ce * w).sum()
+        return (ce * w).sum(), aux
 
     def serving(self) -> CausalLm:
         """A ``CausalLm`` on copies of these parameters (frozen, in the

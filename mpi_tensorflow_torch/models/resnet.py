@@ -35,8 +35,11 @@ Counterpart of ``ResNet`` and ``build`` in
   the residual add in bf16, the global mean accumulated in float32 and
   returned in bf16, the fc a bf16 product cast to float32, then
   ``+ b``.  Parameters, gradients and statistics stay float32;
-- ``remat`` (recomputing block activations in the backward) is not
-  ported yet: ROADMAP Queue 1 item 13.
+- ``remat``: each residual block runs under ``torch.utils.checkpoint``
+  (non-reentrant), its activations recomputed in the backward.  The
+  block returns its BatchNorm statistics and changes none in place, so
+  the recomputation's statistics are dropped and the state is the
+  forward's, as without remat.
 """
 
 from __future__ import annotations
@@ -147,9 +150,11 @@ class ResNet(nn.Module):
     port's layout; fresh ones from ``from_seed``)."""
 
     def __init__(self, geo: Geometry, params: dict, *,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.geo = geo
+        self.remat = remat
         self.num_classes = geo.num_classes
         self.compute_dtype = compute_dtype
         shapes = param_shapes(geo)
@@ -216,9 +221,17 @@ class ResNet(nn.Module):
         if not self.geo.cifar_stem:
             h = ops.max_pool(h, window=3, stride=2)
         stages = [[] for _ in self.geo.stage_sizes]
+        block = self._block
+        if self.remat and torch.is_grad_enabled():
+            from torch.utils import checkpoint as ckpt
+
+            def block(*args):
+                return ckpt.checkpoint(self._block, *args,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
         for s, b, in_w, width, stride in self.geo.blocks():
-            h, ns = self._block(p["stages"][s][b],
-                                model_state["stages"][s][b], h, stride, bn)
+            h, ns = block(p["stages"][s][b], model_state["stages"][s][b], h,
+                          stride, bn)
             stages[s].append(ns)
         h = ops.global_avg_pool(h)
         dt = self.compute_dtype
@@ -263,9 +276,7 @@ class ResNet(nn.Module):
 def build(name: str, num_classes=None, seed: int = 0,
           compute_dtype: torch.dtype = torch.float32,
           remat: bool = False) -> ResNet:
-    """``resnet20`` or ``resnet50`` with random weights from ``seed``."""
-    if remat:
-        raise NotImplementedError(
-            "remat=True is not ported yet: ROADMAP Queue 1 item 13 (remat)")
+    """``resnet20`` or ``resnet50`` with random weights from ``seed``;
+    ``remat`` recomputes each residual block in the backward."""
     return ResNet.from_seed(geometry(name, num_classes), seed,
-                            compute_dtype=compute_dtype)
+                            compute_dtype=compute_dtype, remat=remat)

@@ -11,11 +11,17 @@ by hand, and without a process group each one is the identity:
 
 - **the loss** of a microbatch is its CE summed over this rank's rows'
   supervised positions (``model.loss_weights``: the masked positions of
-  the MLM family, B x (S - 1) shifted targets of the causal one)
-  divided by their count over the microbatch's GLOBAL rows (the counts
-  of all microbatches all-reduced in one call before the forward), so
-  the sum over the ranks is the reference's global mean, not a mean of
-  per-rank means;
+  the MLM family, B x (S - 1) shifted targets of the causal one and of
+  the enc-dec family's target side) divided by their count over the
+  microbatch's GLOBAL rows (the counts of all microbatches all-reduced
+  in one call before the forward), so the sum over the ranks is the
+  reference's global mean, not a mean of per-rank means; plus the
+  model's auxiliary loss (the MoE's load balance) at its weight, each
+  rank's over the world size, so the sum is the ranks' mean (each rank
+  routes its own rows: ROADMAP Queue 3);
+- **the batch** is ``{"tokens", "mask"}`` (the MLM and causal families)
+  or ``{"src", "tgt"}`` (the enc-dec family, labels the targets), each
+  (B, S) and split into microbatches alike;
 - **accumulation** (``grad_accum`` = A): the rank's batch holds A
   microbatches, microbatch i being this rank's rows of the global
   microbatch i (``train.mlm_loop.rank_rows``: the reference reshapes
@@ -288,8 +294,9 @@ def make_train_step(tx: TransformerTx, grad_accum: int = 1,
                     across_ranks: Optional[bool] = None):
     """``train_step(state, batch, labels, generator) -> (state, {"loss":
     float32 scalar tensor})``: ``batch`` holds ``tokens`` and ``mask``
-    (B, S) (the causal family reads ``tokens`` alone), this rank's rows
-    of ``grad_accum`` microbatches in order;
+    (B, S) (the causal family reads ``tokens`` alone; the enc-dec family
+    ``src`` and ``tgt``), this rank's rows of ``grad_accum`` microbatches
+    in order;
     ``labels`` (B, S); ``generator`` feeds dropout: one
     ``torch.Generator`` a microbatch (a list, or one generator when
     ``grad_accum`` is 1), None when ``cfg.dropout == 0``.  Across the
@@ -307,7 +314,7 @@ def make_train_step(tx: TransformerTx, grad_accum: int = 1,
         if sh is not None and not across:
             raise ValueError(f"a {sh.kind} state steps across the ranks")
         gens = _generators(generator, accum)
-        n = batch["tokens"].shape[0]
+        n = next(iter(batch.values())).shape[0]
         if n % accum:
             raise ValueError(f"batch dim {n} not divisible by grad_accum "
                              f"{accum}")
@@ -320,15 +327,17 @@ def make_train_step(tx: TransformerTx, grad_accum: int = 1,
         counts = model.loss_weights(batch).reshape(accum, -1).sum(1)
         if across:
             collectives.allreduce_sum(counts)
+        aux_w = model.aux_weight() / (meshlib.process_count() if across
+                                      else 1)
         for p in params:
             p.grad = None
         loss = None
         for i in range(accum):
             rows = slice(i * m, (i + 1) * m)
-            part = model.masked_ce_sum(
+            ce, aux = model.loss_terms(
                 {k: v[rows] for k, v in batch.items()}, labels[rows],
-                train=True, generator=gens[i]) / torch.clamp(counts[i],
-                                                             min=1.0)
+                train=True, generator=gens[i])
+            part = ce / torch.clamp(counts[i], min=1.0) + aux_w * aux
             part.backward()
             loss = part.detach() if loss is None else loss + part.detach()
         with torch.no_grad():
@@ -357,12 +366,14 @@ def make_train_step(tx: TransformerTx, grad_accum: int = 1,
 
 
 def make_eval_step():
-    """``eval_step(state, tokens) -> float32 logits (B, S, V)``: the
-    forward in eval mode (no dropout), without gradients."""
+    """``eval_step(state, inputs) -> float32 logits (B, S, V)``: the
+    forward in eval mode (no dropout), without gradients; ``inputs`` are
+    the tokens (B, S), or the enc-dec family's ``{"src", "tgt"}`` pair
+    (logits over the target positions)."""
 
     @torch.no_grad()
-    def eval_step(state: TrainState, tokens):
+    def eval_step(state: TrainState, inputs):
         with full_params(state):
-            return state.model.apply(tokens, train=False)
+            return state.model.apply(inputs, train=False)
 
     return eval_step

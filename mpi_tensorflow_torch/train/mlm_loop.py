@@ -2,13 +2,20 @@
 device or data-parallel over the ranks of a ``torch.distributed`` world.
 
 Counterpart of ``mpi_tensorflow_tpu/train/mlm_loop.py``'s ``train_mlm``
-for ``model`` ``"bert_base"`` (``BertMlm``) and ``"gpt_base"``
-(``models/gpt.TrainableCausalLm``: the causal mask, the next-token loss
-through the chunked CE) on a ``data`` mesh of W ranks (W = 1 without a
-process group):
+for ``model`` ``"bert_base"`` (``BertMlm``), ``"moe_bert"``
+(``models/moe.MoeBertMlm``: routed expert MLPs, the load-balance loss),
+``"gpt_base"`` (``models/gpt.TrainableCausalLm``: the causal mask, the
+next-token loss through the chunked CE) and ``"encdec_t5"``
+(``models/encdec.EncDecLm``) on a ``data`` mesh of W ranks (W = 1
+without a process group):
 
-- the synthetic MLM stream (every rank makes the whole of it from the
-  seed), the global batch ``b = batch_size * W`` and the wraparound
+- the data: the synthetic MLM stream; the reversal pairs of
+  ``synthetic.seq2seq_batches`` for the enc-dec family (``text_file``
+  refused); or, with ``text_file``, its rows (``data/corpus``: masked
+  for the MLM families, ``load_causal`` for the causal one; byte-level,
+  or WordPiece with ``vocab_file``, whose size the model adopts), the
+  trailing 10 % held out.  Every rank makes the whole of it from the
+  seed; the global batch ``b = batch_size * W`` and the wraparound
   window ``lo = (t*b) % max(train_n - b, 1)`` over it; rank r feeds its
   rows of each of the ``grad_accum`` global microbatches
   (``rank_rows``), and the step (``train.gspmd``, in the layout of
@@ -22,8 +29,8 @@ process group):
   predicts its ``batch_size`` rows of every window, then one host
   gather, and the error is counted over the window's real rows as the
   reference counts it: at the masked positions (MLM), or of position t
-  predicting token t + 1 (causal; the causal family trains on the
-  stream's input tokens, as the reference's does);
+  predicting token t + 1 (causal, on the stream's input tokens, as the
+  reference trains it; enc-dec, on the target side);
 - rank 0 prints (the reference's one process of a W-device mesh);
   ``tokens_per_sec = b*seq_len/sec`` with the global ``b``, and
   ``num_devices = W``;
@@ -35,10 +42,11 @@ process group):
   seeded by the step, so a resumed run repeats the uninterrupted one;
 - with ``metrics_dir``, rank 0 writes ``eval/heldout_error_pct`` and
   ``train/loss`` at each trace point and ``perf/tokens_per_sec`` at the
-  end.
-
-The MoE and encoder-decoder families are not ported yet (ROADMAP
-Queue 1 item 13).
+  end;
+- ``config.remat`` recomputes every layer in the backward (the default
+  ``bert_cfg``'s; a given one keeps its own), and ``lr_schedule`` names
+  the warmup schedule (``warmup_linear`` or ``warmup_cosine``) of adamw
+  or lamb (``config.optimizer``).
 """
 
 from __future__ import annotations
@@ -50,8 +58,8 @@ import numpy as np
 import torch
 
 from mpi_tensorflow_torch.config import Config
-from mpi_tensorflow_torch.data import synthetic
-from mpi_tensorflow_torch.models import bert, gpt
+from mpi_tensorflow_torch.data import corpus, synthetic
+from mpi_tensorflow_torch.models import bert, encdec, gpt, moe
 from mpi_tensorflow_torch.parallel import collectives, mesh as meshlib
 from mpi_tensorflow_torch.train import gspmd
 from mpi_tensorflow_torch.train import optimizer as opt_lib
@@ -102,22 +110,66 @@ def eval_windows(test_n: int, b: int):
         yield np.resize(np.arange(i, i + take), b), take
 
 
+FAMILIES = {"bert_base": bert.BertMlm, "moe_bert": moe.MoeBertMlm,
+            "gpt_base": gpt.TrainableCausalLm, "encdec_t5": encdec.EncDecLm}
+
+
+def load_data(config: Config, bert_cfg: bert.BertConfig, seq_len: int,
+              train_n: int, test_n: int):
+    """``(bert_cfg, train, test)``: each split a dict of ``inputs``
+    (the tokens, or the enc-dec family's sources), ``targets`` and
+    ``mask`` (None for the enc-dec family, whose every target position
+    carries loss); ``bert_cfg`` takes a WordPiece vocabulary's size."""
+    def split(inputs, targets, mask):
+        return {"inputs": inputs, "targets": targets, "mask": mask}
+
+    if config.model == "encdec_t5":
+        if config.text_file:
+            raise ValueError(
+                "--text-file is a single-stream input; the encoder-decoder "
+                "family trains on (src, tgt) pairs (synthetic reversal "
+                "task)")
+        # tgt = BOS + reverse(src): the decoder must read the encoder
+        pairs = [synthetic.seq2seq_batches(
+            n, src_len=seq_len, tgt_len=seq_len,
+            vocab_size=bert_cfg.vocab_size, seed=seed)
+            for n, seed in ((train_n, config.seed), (test_n, config.seed + 1))]
+        return bert_cfg, *(split(s, t, None) for s, t in pairs)
+    if not config.text_file:
+        return bert_cfg, *(split(*synthetic.mlm_batches(
+            n, seq_len=seq_len, vocab_size=bert_cfg.vocab_size, seed=seed))
+            for n, seed in ((train_n, config.seed),
+                            (test_n, config.seed + 1)))
+    vocab = None
+    if config.vocab_file:
+        vocab = corpus.WordPieceVocab.from_file(config.vocab_file)
+        bert_cfg = dataclasses.replace(bert_cfg, vocab_size=vocab.size)
+    if config.model == "gpt_base":
+        rows = corpus.load_causal(config.text_file, seq_len=seq_len,
+                                  vocab_file=vocab)
+        inp, tgt, msk = rows, rows, np.ones(rows.shape, bool)
+    else:
+        inp, tgt, msk = corpus.load_mlm(config.text_file, seq_len=seq_len,
+                                        seed=config.seed, vocab_file=vocab)
+    n_test = max(len(inp) // 10, 1)
+    n = len(inp) - n_test
+    return (bert_cfg, split(inp[:n], tgt[:n], msk[:n]),
+            split(inp[n:], tgt[n:], msk[n:]))
+
+
 def train_mlm(config: Config, bert_cfg: Optional[bert.BertConfig] = None,
               seq_len: int = 128, train_n: int = 4096, test_n: int = 512,
               learning_rate: float = 1e-4,
               lr_schedule: str = "warmup_linear", verbose: bool = True,
               device="cuda") -> MlmResult:
-    """Train ``BertMlm`` (``gpt_base``: ``TrainableCausalLm``; weights
-    drawn from ``config.seed``) on the synthetic MLM stream on ``device`` (``cuda`` unless the caller asks
-    for the CPU), over every rank of the process group that is up.
-    ``bert_cfg`` defaults to ``BERT_BASE`` in the config's compute
-    dtype, with 512 positions as the reference's default: pass a config
-    with ``max_positions >= seq_len`` for longer sequences."""
-    if config.model in ("moe_bert", "encdec_t5"):
-        raise NotImplementedError(
-            f"model {config.model!r} is not ported yet: ROADMAP Queue 1 "
-            f"item 13")
-    if config.model not in ("bert_base", "gpt_base"):
+    """Train ``config.model``'s family (``FAMILIES``; weights drawn from
+    ``config.seed``) on ``device`` (``cuda`` unless the caller asks for
+    the CPU), over every rank of the process group that is up.
+    ``bert_cfg`` defaults to ``BERT_BASE`` in the config's compute dtype
+    with ``config.remat``, with 512 positions as the reference's
+    default: pass a config with ``max_positions >= seq_len`` for longer
+    sequences."""
+    if config.model not in FAMILIES:
         raise ValueError(f"train_mlm trains the transformer families, got "
                          f"model {config.model!r}")
     world = meshlib.data_axis_size(meshlib.make_mesh(config.mesh_shape))
@@ -126,14 +178,12 @@ def train_mlm(config: Config, bert_cfg: Optional[bert.BertConfig] = None,
     dev = resolve_device(device)
     if bert_cfg is None:
         bert_cfg = dataclasses.replace(bert.BERT_BASE,
-                                       dtype=config.compute_dtype)
-
-    tokens, targets, mask = synthetic.mlm_batches(
-        train_n, seq_len=seq_len, vocab_size=bert_cfg.vocab_size,
-        seed=config.seed)
-    ts_tokens, ts_targets, ts_mask = synthetic.mlm_batches(
-        test_n, seq_len=seq_len, vocab_size=bert_cfg.vocab_size,
-        seed=config.seed + 1)
+                                       dtype=config.compute_dtype,
+                                       remat=config.remat)
+    bert_cfg, train, test = load_data(config, bert_cfg, seq_len, train_n,
+                                      test_n)
+    train_n, test_n = len(train["inputs"]), len(test["inputs"])
+    enc_dec = config.model == "encdec_t5"
 
     bs = config.batch_size
     b = bs * world
@@ -156,8 +206,7 @@ def train_mlm(config: Config, bert_cfg: Optional[bert.BertConfig] = None,
                                 schedule=lr_schedule,
                                 optimizer=config.optimizer)
     causal = config.model == "gpt_base"
-    family = gpt.TrainableCausalLm if causal else bert.BertMlm
-    model = family.from_seed(bert_cfg, config.seed).to(dev)
+    model = FAMILIES[config.model].from_seed(bert_cfg, config.seed).to(dev)
     state = gspmd.init_for(config.param_sharding, model, tx)
     train_step = gspmd.make_train_step(tx, grad_accum=accum)
     eval_step = gspmd.make_eval_step()
@@ -165,25 +214,39 @@ def train_mlm(config: Config, bert_cfg: Optional[bert.BertConfig] = None,
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    def batch_of(split, rows):
+        """The model's input dict for ``rows`` of a split."""
+        if enc_dec:
+            return {"src": put(split["inputs"][rows]),
+                    "tgt": put(split["targets"][rows])}
+        return {"tokens": put(split["inputs"][rows]),
+                "mask": put(split["mask"][rows])}
+
     def masked_error() -> float:
         windows = list(eval_windows(test_n, b))
         # this rank's rows of each window, then one gather
-        preds = np.stack([eval_step(state, put(
-            ts_tokens[idx[rank * bs:(rank + 1) * bs]])).argmax(-1).cpu()
-            .numpy() for idx, _ in windows])
+        preds = []
+        for idx, _ in windows:
+            own = idx[rank * bs:(rank + 1) * bs]
+            inputs = batch_of(test, own) if enc_dec \
+                else put(test["inputs"][own])
+            preds.append(eval_step(state, inputs).argmax(-1).cpu().numpy())
+        preds = np.stack(preds)
         if world > 1:
             preds = collectives.host_allgather(preds).transpose(1, 0, 2, 3)
         errs, tot = 0, 0
         for (idx, take), pred in zip(windows, preds.reshape(
                 len(windows), b, seq_len)):
             real = idx[:take]
-            if causal:
-                tgt = ts_tokens[real]
+            if causal or enc_dec:
+                # position t predicts token t + 1 of the sequence (the
+                # enc-dec family's target side)
+                tgt = test["targets" if enc_dec else "inputs"][real]
                 errs += int((pred[:take, :-1] != tgt[:, 1:]).sum())
                 tot += tgt[:, 1:].size
                 continue
-            m = ts_mask[real]
-            errs += int(((pred[:take] != ts_targets[real]) & m).sum())
+            m = test["mask"][real]
+            errs += int(((pred[:take] != test["targets"][real]) & m).sum())
             tot += int(m.sum())
         return 100.0 * errs / max(tot, 1)
 
@@ -203,12 +266,12 @@ def train_mlm(config: Config, bert_cfg: Optional[bert.BertConfig] = None,
         timer.start()
         for t in range(start_step, num_steps):
             rows = rank_rows(window(t, b, train_n), b, accum, rank, world)
-            batch = {"tokens": put(tokens[rows]), "mask": put(mask[rows])}
+            batch = batch_of(train, rows)
             gens = ([gspmd.step_generator(config.seed + 2, t, dev, rank, i)
                      for i in range(accum)] if bert_cfg.dropout > 0.0
                     else None)
-            state, metrics = train_step(state, batch, put(targets[rows]),
-                                        gens)
+            state, metrics = train_step(state, batch,
+                                        put(train["targets"][rows]), gens)
             pending += 1
             if hooks.stop_now(t):
                 hooks.preempt_save(state, t)

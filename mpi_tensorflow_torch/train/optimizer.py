@@ -1,6 +1,6 @@
 """The port's optimizers: TF momentum under the reference's staircase
-decay (the image families), and adamw under a warmup schedule with
-global-norm clipping (the transformer family).
+decay (the image families), and adamw or LAMB under a warmup schedule
+with global-norm clipping (the transformer family).
 
 Counterpart of ``mpi_tensorflow_tpu/train/optimizer.py``.
 
@@ -19,8 +19,8 @@ The image families (``exponential_decay``, ``reference_schedule``,
   applied at update time.  ``torch.optim.SGD`` folds its LR and
   dampening differently, so the update is written out.
 
-The transformer family (``warmup_linear``, ``decay_mask``,
-``transformer_tx``) is written out to match optax rather than
+The transformer family (``warmup_linear``, ``warmup_cosine``,
+``decay_mask``, ``transformer_tx``) is written out to match optax rather than
 ``torch.optim.AdamW`` — the two differ in where the schedule is read
 and in how clipping scales:
 
@@ -30,13 +30,16 @@ and in how clipping scales:
 - adamw: b1 0.9, b2 0.999, eps 1e-8, bias correction at ``count + 1``,
   ``u = m_hat / (sqrt(v_hat) + eps) + wd * p`` with the decay only on
   ``decay_mask`` leaves, then ``p -= lr * u``;
+- lamb (``optax.lamb``): the same moments with eps 1e-6, the masked
+  decay added, then each leaf's update scaled by its trust ratio
+  ``|p| / |u|`` (1 where either norm is 0, as on a zero-initialised
+  bias at step 0), on every leaf, LayerNorm and biases included;
 - the learning rate is read at ``count`` BEFORE the increment, so step 0
-  runs at LR 0 under warmup-linear.
+  runs at LR 0 under the warmup schedules.
 
 Both update in place on the parameter tensors (optax returns new
 arrays; here the parameters live in an ``nn.Module``), with ``torch``'s
-multi-tensor ops, and read nothing back to the host.  LAMB is not
-ported yet (ROADMAP Queue 1 item 13).
+multi-tensor ops, and read nothing back to the host.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ _F32 = np.float32
 # bias-like leaf names across the families (the reference's regex)
 _BIAS_NAME = re.compile(r"^x?(b[a-z0-9]?|eb\d)$")
 B1, B2, EPS = 0.9, 0.999, 1e-8          # optax.adamw's defaults
+LAMB_EPS = 1e-6                         # optax.lamb's
 
 
 def constant(base_lr: float):
@@ -74,6 +78,25 @@ def warmup_linear(base_lr: float, warmup_steps: int, total_steps: int,
             / np.maximum(_F32(total_steps - warmup_steps), _F32(1.0))
         decay = _F32(1.0) - _F32(1.0 - end_fraction) \
             * np.clip(frac, _F32(0.0), _F32(1.0))
+        return _F32(base_lr) * (warm if step < warmup_steps else decay)
+    return schedule
+
+
+def warmup_cosine(base_lr: float, warmup_steps: int, total_steps: int,
+                  end_fraction: float = 0.0):
+    """Linear warmup to ``base_lr``, then a cosine decay to ``end_fraction
+    * base_lr`` at ``total_steps`` (flat after), in float32 with the
+    reference's operation order.  The cosine is the float64 one rounded
+    to float32; XLA's float32 cosine is not correctly rounded, so the
+    two differ by an ulp at some steps."""
+    def schedule(step):
+        step = _F32(step)
+        warm = step / np.maximum(_F32(warmup_steps), _F32(1.0))
+        frac = np.clip((step - _F32(warmup_steps))
+                       / np.maximum(_F32(total_steps - warmup_steps),
+                                    _F32(1.0)), _F32(0.0), _F32(1.0))
+        decay = _F32(end_fraction) + _F32((1.0 - end_fraction) * 0.5) \
+            * (_F32(1.0) + _F32(np.cos(np.float64(_F32(np.pi) * frac))))
         return _F32(base_lr) * (warm if step < warmup_steps else decay)
     return schedule
 
@@ -148,10 +171,12 @@ class AdamWState:
 
 @dataclasses.dataclass(frozen=True)
 class TransformerTx:
-    """clip_by_global_norm then adamw, over a parameter tree's leaves."""
+    """clip_by_global_norm then adamw or lamb, over a parameter tree's
+    leaves."""
     lr: object                    # schedule: step -> float32 LR
     weight_decay: float = 0.01
     grad_clip_norm: float = 1.0   # 0 disables clipping
+    optimizer: str = "adamw"      # "adamw" | "lamb"
 
     def init(self, tree) -> AdamWState:
         leaves = tree_lib.leaves(tree)
@@ -168,9 +193,10 @@ class TransformerTx:
         ``sharded`` (a bool per leaf) marks the leaves that are this
         rank's slice of a parameter sharded over the process group
         (``train.gspmd``'s zero1 and fsdp): their squares are summed
-        over the ranks for the global norm, while every other leaf is
-        whole on every rank and counted once.  The rest of the update
-        is elementwise and runs on a slice as on a whole leaf."""
+        over the ranks for the global norm and for lamb's per-leaf
+        norms, while every other leaf is whole on every rank and counted
+        once.  The rest of the update is elementwise and runs on a slice
+        as on a whole leaf."""
         named = tree_lib.named_leaves(tree)
         params = [p for _, p in named]
         grads = list(grads)
@@ -190,7 +216,8 @@ class TransformerTx:
         mu_hat = torch._foreach_div(state.mu, 1 - B1 ** c)
         denom = torch._foreach_div(state.nu, 1 - B2 ** c)
         torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, EPS)
+        lamb = self.optimizer == "lamb"
+        torch._foreach_add_(denom, LAMB_EPS if lamb else EPS)
         u = torch._foreach_div(mu_hat, denom)
         decay = [i for i, (name, p) in enumerate(named)
                  if _decayable(name, p)]
@@ -198,7 +225,33 @@ class TransformerTx:
             torch._foreach_add_([u[i] for i in decay],
                                 [params[i] for i in decay],
                                 alpha=self.weight_decay)
+        if lamb:
+            torch._foreach_mul_(u, trust_ratios(params, u, sharded))
         torch._foreach_add_(params, u, alpha=-lr)
+
+
+def _sum_sq(norms: list, sharded) -> torch.Tensor:
+    """The squares of per-leaf ``norms``, each leaf ``sharded`` marks
+    summed over the ranks in one all-reduce of the whole vector (a
+    whole leaf keeps its own value)."""
+    sq = torch.stack(norms).square()
+    if sharded is None or not any(sharded):
+        return sq
+    mask = torch.tensor(list(sharded), device=sq.device)
+    return torch.where(mask, collectives.allreduce_sum(sq * mask), sq)
+
+
+def trust_ratios(params: list, updates: list, sharded=None) -> list:
+    """LAMB's per-leaf ``|p| / |u|`` (optax's ``scale_by_trust_ratio``),
+    1 where either norm is 0; a sharded leaf's norms are its whole
+    leaf's."""
+    n = len(params)
+    sq = _sum_sq(torch._foreach_norm(params) + torch._foreach_norm(updates),
+                 None if sharded is None else list(sharded) * 2)
+    norms = torch.sqrt(sq)
+    p, u = norms[:n], norms[n:]
+    ratio = torch.where((p == 0) | (u == 0), torch.ones_like(p), p / u)
+    return list(ratio.unbind())
 
 
 def global_norm(grads: list, sharded=None) -> torch.Tensor:
@@ -225,24 +278,20 @@ def transformer_tx(base_lr: float, num_steps: int, *,
                    weight_decay: float = 0.01,
                    grad_clip_norm: float = 1.0,
                    optimizer: str = "adamw") -> TransformerTx:
-    """The transformer-family optimizer under the named schedule
-    (``"warmup_linear"`` or ``"constant"``), with the reference's
-    defaults: warmup over 10 % of the steps, weight decay 0.01, global
-    norm clipped at 1.0."""
+    """The transformer-family optimizer (``"adamw"`` or ``"lamb"``) under
+    the named schedule (``"warmup_linear"``, ``"warmup_cosine"`` or
+    ``"constant"``), with the reference's defaults: warmup over 10 % of
+    the steps, weight decay 0.01, global norm clipped at 1.0."""
     warmup = max(1, int(warmup_fraction * num_steps))
     if schedule == "constant":
         lr = constant(base_lr)
     elif schedule == "warmup_linear":
         lr = warmup_linear(base_lr, warmup, num_steps)
     elif schedule == "warmup_cosine":
-        raise NotImplementedError("the warmup_cosine schedule is not "
-                                  "ported yet: ROADMAP Queue 1 item 13")
+        lr = warmup_cosine(base_lr, warmup, num_steps)
     else:
         raise ValueError(f"unknown schedule {schedule!r}")
-    if optimizer == "lamb":
-        raise NotImplementedError("optimizer='lamb' is not ported yet: "
-                                  "ROADMAP Queue 1 item 13")
-    if optimizer != "adamw":
+    if optimizer not in ("adamw", "lamb"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
     return TransformerTx(lr, weight_decay=weight_decay,
-                         grad_clip_norm=grad_clip_norm)
+                         grad_clip_norm=grad_clip_norm, optimizer=optimizer)

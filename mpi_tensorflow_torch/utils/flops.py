@@ -1,11 +1,13 @@
 """Analytic model FLOPs of a train step, and the card's peak.
 
-The port's own copy of ``transformer_train_flops`` and
-``image_train_flops`` from ``mpi_tensorflow_tpu/utils/flops.py``
-(transformers: PaLM-appendix accounting, 6 N flops per token for a
-matmul of N parameters with its backward, 12 B S^2 E per layer for
-attention scores and values, the tied decoder counted at the positions
-that reach the head; image models: the forward GFLOPs per image at the
+The port's own copy of ``transformer_train_flops``,
+``encdec_train_flops`` and ``image_train_flops`` from
+``mpi_tensorflow_tpu/utils/flops.py`` (transformers: PaLM-appendix
+accounting, 6 N flops per token for a matmul of N parameters with its
+backward, 12 B S^2 E per layer for attention scores and values, the tied
+decoder counted at the positions that reach the head; the MoE family
+keeps the dense formula, each token routed through one expert of the
+dense MLP's width; image models: the forward GFLOPs per image at the
 input geometry, times 3 for forward and backward).  The peaks are the
 H100 SXM's (NVIDIA data sheet, dense): 989 TFLOP/s in bf16 on the tensor
 cores, 67 TFLOP/s in float32 outside them, and 3.35 TB/s of HBM3.
@@ -44,6 +46,24 @@ def transformer_train_flops(cfg, batch: int, seq_len: int,
     P = B * head_positions
     head = 6 * P * (E * E + V * E)          # transform + tied decoder
     return float(enc + attn + head)
+
+
+def encdec_train_flops(cfg, n_dec: int, batch: int, src_len: int,
+                       tgt_len: int) -> float:
+    """One forward+backward step of the encoder-decoder family: the
+    encoder's accounting without a head, the decoder layers' matmuls
+    (self-attention and MLP at T, the cross-attention's q and out at T,
+    its k and v at S), causal self-attention (T^2) and cross-attention
+    (T S) counted as full products, and the tied head at every target
+    position."""
+    E, M, V = cfg.hidden, cfg.mlp, cfg.vocab_size
+    B, S, T = batch, src_len, tgt_len
+    enc = transformer_train_flops(cfg, B, S, head_positions=0)
+    dec_mm = 6 * n_dec * (B * T * (6 * E * E + 2 * E * M)
+                          + B * S * 2 * E * E)
+    attn = 12 * n_dec * B * E * (T * T + T * S)
+    head = 6 * B * T * V * E
+    return float(enc + dec_mm + attn + head)
 
 
 def image_train_flops(model_name: str, batch: int) -> float | None:

@@ -3,6 +3,9 @@
 
     python3 scripts/torch_train_profile.py                  # BERT_BASE
     python3 scripts/torch_train_profile.py --one-rank-world # its DP step
+    python3 scripts/torch_train_profile.py --model moe_bert
+    python3 scripts/torch_train_profile.py --model encdec_t5 --remat full
+    python3 scripts/torch_train_profile.py --remat dots    # or full
     python3 scripts/torch_train_profile.py --model mnist_cnn [--precision bf16]
     python3 scripts/torch_train_profile.py --model resnet50 [--precision bf16]
     python3 scripts/torch_train_profile.py --model resnet50 --loop
@@ -15,7 +18,9 @@ clipping at 1.0), runs two warmup steps, times three steps (host clock
 around synchronised steps), then profiles one more step.  With
 ``--one-rank-world`` it first joins a world of one rank over NCCL, so
 the step is the data-parallel one (the gradients packed into one flat
-buffer and all-reduced).
+buffer and all-reduced).  ``moe_bert`` and ``encdec_t5`` (the reversal
+pairs, S = T = 4096) step the same way at the same widths, and
+``--remat full|dots`` recomputes each layer in the backward.
 
 ``mnist_cnn``: the zero-flag CNN's train step (batch 64, dropout 0.5,
 the momentum step of ``train/step.py``) over one window of the windowed
@@ -320,8 +325,12 @@ def host_ops(fn, steps: int, top: int = 15) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=["bert_base", "mnist_cnn",
-                                        *RESNET], default="bert_base")
+    ap.add_argument("--model", choices=["bert_base", "moe_bert",
+                                        "encdec_t5", "mnist_cnn", *RESNET],
+                    default="bert_base")
+    ap.add_argument("--remat", choices=["full", "dots"], default=None,
+                    help="the transformers: recompute each layer in the "
+                         "backward under this policy")
     ap.add_argument("--precision", choices=["fp32", "bf16"], default=None,
                     help="the image models (default fp32); bert_base runs "
                          "bf16")
@@ -358,21 +367,32 @@ def main(argv=None) -> int:
         mesh.initialize_distributed(
             dev, init_method=f"tcp://127.0.0.1:{mesh.free_port()}", rank=0,
             world_size=1)
+    from mpi_tensorflow_torch.train import mlm_loop
+
     cfg = dataclasses.replace(bert.BERT_BASE, dtype=torch.bfloat16,
-                              max_positions=SEQ)
-    model = bert.BertMlm.from_seed(cfg, 0).to(dev)
+                              max_positions=SEQ,
+                              remat=args.remat is not None,
+                              remat_policy=args.remat or "full")
+    model = mlm_loop.FAMILIES[args.model].from_seed(cfg, 0).to(dev)
+    enc_dec = args.model == "encdec_t5"
     total = 2 + STEPS + 2
     tx = optimizer.transformer_tx(1e-4, total)
     state = gspmd.init_state(model, tx)
     step = gspmd.make_train_step(tx)
-    tokens, targets, mask = synthetic.mlm_batches(
-        BATCH * total, seq_len=SEQ, vocab_size=cfg.vocab_size, seed=1)
+    if enc_dec:
+        tokens, targets = synthetic.seq2seq_batches(
+            BATCH * total, src_len=SEQ, tgt_len=SEQ,
+            vocab_size=cfg.vocab_size, seed=1)
+    else:
+        tokens, targets, mask = synthetic.mlm_batches(
+            BATCH * total, seq_len=SEQ, vocab_size=cfg.vocab_size, seed=1)
 
     def run(t):
         sl = slice(t * BATCH, (t + 1) * BATCH)
-        batch = {"tokens": torch.from_numpy(tokens[sl]).to(dev),
-                 "mask": torch.from_numpy(mask[sl]).to(dev)}
-        return step(state, batch, torch.from_numpy(targets[sl]).to(dev),
+        put = lambda a: torch.from_numpy(a[sl]).to(dev)
+        batch = ({"src": put(tokens), "tgt": put(targets)} if enc_dec
+                 else {"tokens": put(tokens), "mask": put(mask)})
+        return step(state, batch, put(targets),
                     gspmd.step_generator(3, t, dev))[1]["loss"]
 
     for t in range(2):
@@ -387,9 +407,12 @@ def main(argv=None) -> int:
 
     kernels = profiled_kernels(lambda: run(total - 2),
                                lambda: run(total - 1))
-    model_flops = flops.transformer_train_flops(cfg, BATCH, SEQ)
+    model_flops = (flops.encdec_train_flops(cfg, model.n_dec, BATCH, SEQ, SEQ)
+                   if enc_dec else flops.transformer_train_flops(cfg, BATCH,
+                                                                 SEQ))
     print(json.dumps({
-        "card": card, "config": "BERT_BASE bf16 S=4096 B=4 dropout 0.1",
+        "card": card, "model": args.model, "remat": args.remat,
+        "config": "BERT_BASE bf16 S=4096 B=4 dropout 0.1",
         "one_rank_world": args.one_rank_world,
         "steps_timed": STEPS, "step_ms": step_s * 1e3,
         "tokens_per_sec": BATCH * SEQ / step_s,

@@ -365,8 +365,11 @@ def test_trees_match_reference(name):
     assert model.num_classes == jmodel.num_classes
     assert all(p.is_contiguous(memory_format=torch.channels_last)
                for p in model.parameters() if p.ndim == 4)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        resnet.build(name, remat=True)
+    # remat changes nothing of the tree (the reference's jax.checkpoint
+    # neither)
+    rematted = resnet.build(name, remat=True)
+    assert rematted.remat and not model.remat
+    assert shapes(rematted.param_tree()) == shapes(model.param_tree())
 
 
 # ----------------------------------------------------------- psum steps
