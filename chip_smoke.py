@@ -128,7 +128,8 @@ fails:
    finite loss, a final test error below 30 % and no higher than the
    first trace point's, the card named in the result; images/sec, step
    ms, MFU and the test-error history printed beside the card's name and
-   power limit; then one bf16 epoch the same way; 10c: every hand
+   power limit (the bf16 epoch that followed is cut for the script's
+   time: 10a holds bf16 steps, 13e times them); 10c: every hand
    kernel's launch count (paged, flash, fused) set to 0 before 10b and
    still 0 after it (its bench lines: 13e);
 11. the data axis over ``torch.distributed`` (no hand kernel lies on it;
@@ -150,7 +151,7 @@ fails:
    390 steps, 8 trace points of 2 lines, every average watched: the
    replicas apart before it, bit-identical after it, and within 1 ulp of
    the mean of the gathered replicas; final error < 30 % and <= the
-   first (both worlds side by side with 13d's two); 11c: ``python -m
+   first (both worlds side by side with 13d's three); 11c: ``python -m
    mpi_tensorflow_torch.bench --mode allreduce`` (a world of one over
    NCCL: a launch and a copy on the card, not a link), its line printed
    (run through ``bench.main`` in 13e's bench child);
@@ -173,10 +174,9 @@ fails:
    on the global rows and (zero1, fsdp) against replicated, within
    ``DP_TOL``; each rank's bytes at rest: zero1's moments and fsdp's
    parameters + moments 0.50-0.51 of a replica's, every leaf that stays
-   whole under 1024 elements; 12c: ``python -m mpi_tensorflow_torch.bench
-   --mode train --model bert_base --seq-len 4096 --batch-size 4
-   --precision bf16`` under ``torchrun --nproc_per_node 1``, its line
-   printed (plain: 13e).
+   whole under 1024 elements; 12c: the bench's transformer lines run
+   under ``torchrun --nproc_per_node 1`` in 13e's child, each joining
+   the launcher's world over NCCL (recorded and checked there).
 
 13. ResNet-20 and ResNet-50 training (no hand kernel lies on it: conv,
    pool, BatchNorm and the fc are PyTorch's) — 13a: single float32
@@ -196,26 +196,36 @@ fails:
    --dataset cifar10 --batch-size 128`` runs it (the synthetic CIFAR-10,
    1 epoch, 358 steps, trace every 50), fp32 and bf16, and ``--model
    resnet50 --dataset imagenet_synthetic --num-classes 1000 --batch-size
-   64 --log-every 10`` (1 epoch, 29 steps), bf16 and fp32: the trace in
+   64 --log-every 10`` (1 epoch, 29 steps), bf16 (its fp32 epoch is cut
+   for the script's time: 13e times its fp32 step): the trace in
    the reference's format, the ``[timing]`` line, a finite loss, and
    for ResNet-20 a final test error no higher than the first trace
    point's (ResNet-50's, at chance on 1000 synthetic classes, printed);
    images/s, step ms, MFU and peak GiB printed beside the
    card's name and power limit; 13c: every hand kernel's launch count 0
    before 13b and still 0 after it (the ``launches_resnet`` of the
-   kernels line); 13d: ResNet-20 through ``torchrun --nproc_per_node 1``
-   (NCCL, world 1), then two ranks on ``cuda:0`` over gloo: 3 psum steps
+   kernels line); 13d: ResNet-20 fp32 psum through ``torchrun
+   --nproc_per_node 1 -m mpi_tensorflow_torch`` (``cli.main`` joins
+   the launcher's world over NCCL, recorded) on 14b's 13 000 rows (93
+   steps, a trace every 10, cuDNN deterministic; its full epoch is cut
+   for the script's time, 13b runs it without a world): the trace in
+   the reference's format, the error not rising, and 14b holds the
+   trace to its own run's without a world; two ranks on ``cuda:0`` over
+   gloo: 3 psum steps
    against the in-process two-shard step (parameters and BatchNorm
    state within ``RESNET_DP_TOL``), and an avg50 run (the first 13 000
    rows, 46 steps, 4 averages) with every average watched: replicas
    (their BatchNorm statistics too) apart before it, bit-identical
-   after it, within 1 ulp of the gathered mean (the two gloo worlds
-   run beside 11b's); 13e: the bench's
-   one-card lines, ``python -m mpi_tensorflow_torch.bench --mode train``
-   through ``bench.main`` in one child process (``--worker
-   bench_lines``, no profiler session before it): the CNN (200 timed
-   steps), BERT_BASE at S = 4096 bf16 (10), ResNet-20 (30) and ResNet-50
-   (8), fp32 and bf16, each line printed.
+   after it, within 1 ulp of the gathered mean (the three worlds run
+   beside 11b's); 13e: the bench's
+   one-card lines, ``torchrun --nproc_per_node 1 -m
+   mpi_tensorflow_torch.bench --mode train`` through ``bench.main`` in
+   one child process under torchrun (``--worker bench_lines``, no
+   profiler session before it; each transformer line joins the
+   launcher's world over NCCL, each image line none, and the image
+   lines run first): the CNN (200 timed steps), ResNet-20 (30) and
+   ResNet-50 (8), fp32 and bf16, BERT_BASE at S = 4096 bf16 (10), each
+   line printed.
 14. the trainers' long-run services (no kernel is added; 14c runs the
    flash kernels) — 14a: 13b's ResNet-50 bf16 trainer, ResNet-20 fp32
    and the CNN through ``cli.main``, each with ``--prefetch`` off, then
@@ -250,9 +260,11 @@ fails:
    launches counted from 0 and equal to layers x forward dispatches
    summed over the replicas, every request ``ok`` — 16a: two replicas of
    phase 3's engine on ``cuda:0`` (one CUDA stream each, the model
-   shared), phase 3's trace sequentially and then a thread a replica:
-   tokens/s, p50, p99 and ``speedup_vs_single_replica`` beside phase 3's
-   run; then float32, 2 layers at full width, 6 requests at once: the
+   shared), phase 3's trace sequentially: tokens/s, p50, p99 and
+   ``speedup_vs_single_replica`` beside phase 3's run (the threaded run
+   at full width, a thread a replica, is cut for the script's time: the
+   float32 check runs both modes); then float32, 2 layers at full
+   width, 6 requests at once: the
    fleet's tokens (both modes) == the single engine's; 16b: that check
    with a transient fault at replica 0's tick 3 (outputs == the
    unfaulted fleet's, one failover, the replica probed back to
@@ -291,11 +303,9 @@ fails:
    (a cut of phase 3's trace): the tokens identical where the reference
    holds them so (cuda == gather, speculation and mixed batching ==
    off), every arm's paged launches == layers x its dispatches (0 on
-   gather); 17f: ``--serve-spec-ab`` (ngram) and ``--serve-mixed-ab``
-   timed at full width through ``harness.measure_serving`` (BERT_BASE
-   bf16, phase 3's trace; the kernel and kv arms are phase 3b's), every
-   request ``ok``, each arm's launches == layers x its dispatches, each
-   block printed with the card;
+   gather); 17f, the spec and mixed arms timed at full width, is cut
+   for the script's time (15c and 15d time the same comparisons at
+   phase 3's setup);
 18. gpt_base next-token training — 18a: phase 6's causal kernels at
    the training shape logged beside SDPA's causal forward and backward
    (their bound at half the product flops); 18b: phase 8's check for
@@ -321,6 +331,39 @@ fails:
    tokens/s, MFU and peak GiB printed beside phase 7's; the ``kernels``
    line's flash rows gain ``launches_moe``, ``launches_encdec``,
    ``launches_remat`` and ``launches_lamb``.
+20. ViT and the reference bench's levers (20e right after 17, on phase
+   3's engine; 20a-d after 14, the profile last) — 20a: ``VIT_TINY_CIFAR``
+   at batch 128, float32, ``VIT_STEPS`` image steps each on the card
+   from the CPU's state, the loss and the whole update within
+   ``VIT_TOL`` (a few times the CPU's own distance from float64,
+   ``scripts/torch_vit_conditioning.py``), TF32 on outside it; bf16
+   evaluation logits within ``VIT_BF16_EVAL_TOL`` of the card's float32
+   by |bf16 - float32| / |float32| (twice the CPU's own bf16 distance,
+   2.27e-2), and the control, every parameter through float8 e4m3
+   first, outside it;
+   remat on bit-equal to off at dropout 0.1; 20b: ``cli.main`` with
+   ``--model vit --dataset cifar10`` on 13 000 rows (93 steps, the
+   reference's trace lines; errors printed, not held: the reference's
+   ViT stays at chance), no hand kernel launched (``launches_vit``),
+   the bench's ViT lines fp32 and bf16 (13e's child), and a profiled
+   window of each precision (idle share); 20c: config 5's bench line
+   with ``--fused-qkv``, ``--params-bf16`` and ``--ce chunked`` beside
+   the plain one (flash launches 12 x 13 each), phase 8's check of fused
+   against three products, and ``--params-bf16``'s live parameters ==
+   its masters cast after each of 3 steps; 20d: BERT_BASE bf16 at S =
+   1024, batch 16, at the default ``flash_min_seq`` (dense, no flash
+   launch) and at 0 (flash launches 12 x 13): tokens/s of each; 20e:
+   ``--serve-queue-depth 1 --serve-deadline-ms 3000
+   --serve-max-evictions 3 --serve-failover-backoff-ms 75``, then
+   ``--serve-drain-ms 300`` with a stop at 3 s, each through the
+   harness's parser and ``harness.build_serving`` at phase 3's cell
+   (its trace; the engine's policy the flags') on a virtual clock:
+   every status counted (shed, ``deadline_exceeded`` and ``drained`` >
+   0 where their flag is set), paged launches == layers x dispatches.
+   Cut for this phase's time: 10b's bf16 epoch, 13b's ResNet-50 fp32
+   epoch, 13d's torchrun ResNet-20 epoch (93 of its 358 steps run), 16a's
+   threaded fleet at full width and 17f (the spec and mixed arms timed
+   at full width), each noted where it ran.
 
 Prints one ``kernels`` JSON line, then the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a card it
@@ -1799,25 +1842,31 @@ def train_batches(dev, family, cfg, n: int = 3, seq: int = 512, B: int = 2,
              put(targets[r])) for r in rows]
 
 
-def cross_check_train(dev, family=None, label: str = "mlm") -> None:
+def cross_check_train(dev, family=None, label: str = "mlm",
+                      arms=None) -> None:
     """float32, 2 layers at full width, S=512, B=2, dropout 0: the loss
     and gradients at the start, and the losses and parameters of three
-    train steps, with ``attention="flash"`` against ``"dense"``;
-    ``family``: ``BertMlm`` (phase 8), ``TrainableCausalLm`` (phase
-    18b: both routes causal), ``MoeBertMlm`` or ``EncDecLm`` (phase
-    19a: its encoder bidirectional, its decoder causal; the
-    cross-attention dense on both routes)."""
+    train steps, of the first of ``arms`` against the second (each
+    ``name: (attention, config changes)``; default ``attention="flash"``
+    against ``"dense"``); ``family``: ``BertMlm`` (phase 8),
+    ``TrainableCausalLm`` (phase 18b: both routes causal),
+    ``MoeBertMlm`` or ``EncDecLm`` (phase 19a: its encoder
+    bidirectional, its decoder causal; the cross-attention dense on both
+    routes); phase 20c's arms are ``fused_qkv`` on and off."""
     from mpi_tensorflow_torch.models import bert
     from mpi_tensorflow_torch.train import gspmd, optimizer
 
     family = family or bert.BertMlm
+    arms = arms or {"flash": ("flash", {}), "dense": ("dense", {})}
+    a_name, b_name = arms
 
     cfg = dataclasses.replace(bert.BERT_BASE, layers=2, dropout=0.0)
     batches = train_batches(dev, family, cfg)
     saved = flash_counts()
     runs = {}
-    for attention in ("flash", "dense"):
-        model = family.from_seed(cfg, 0, attention).to(dev)
+    for arm, (attention, changes) in arms.items():
+        model = family.from_seed(dataclasses.replace(cfg, **changes), 0,
+                                 attention).to(dev)
         loss = model.loss(*batches[0], train=True)
         loss.backward()
         grads = [p.grad.clone() for p in model.parameters()]
@@ -1826,19 +1875,20 @@ def cross_check_train(dev, family=None, label: str = "mlm") -> None:
         state = gspmd.init_state(model, tx)
         step = gspmd.make_train_step(tx)
         losses = [float(step(state, *b)[1]["loss"]) for b in batches]
-        runs[attention] = (loss.item(), grads, losses,
-                           [p.detach() for p in model.parameters()],
-                           [n for n, _ in model.named_parameters()])
+        runs[arm] = (loss.item(), grads, losses,
+                     [p.detach() for p in model.parameters()],
+                     [n for n, _ in model.named_parameters()])
     set_flash_counts(saved)
     (l_f, g_f, ls_f, p_f, names), (l_d, g_d, ls_d, p_d, _) = (
-        runs["flash"], runs["dense"])
+        runs[a_name], runs[b_name])
+    vs = f"{a_name} vs {b_name}"
     if abs(l_f - l_d) > 1e-4 or max(abs(a - b)
                                     for a, b in zip(ls_f, ls_d)) > 1e-4:
-        raise AssertionError(f"flash vs dense losses differ: {l_f} "
+        raise AssertionError(f"{vs} losses differ: {l_f} "
                              f"{ls_f} vs {l_d} {ls_d} (tolerance 1e-4)")
     g_err = max(float((a - b).abs().max()) for a, b in zip(g_f, g_d))
     if g_err > 1e-4:
-        raise AssertionError(f"flash vs dense gradients differ by {g_err} "
+        raise AssertionError(f"{vs} gradients differ by {g_err} "
                              f"(tolerance 1e-4)")
     # bk's gradient is zero in exact arithmetic (the softmax ignores a
     # per-query constant): adamw normalises each side's float noise, so
@@ -1851,9 +1901,10 @@ def cross_check_train(dev, family=None, label: str = "mlm") -> None:
         else:
             p_err = max(p_err, e)
     if p_err > 1e-5 or bk_err > 3e-4:
-        raise AssertionError(f"flash vs dense parameters differ by {p_err} "
+        raise AssertionError(f"{vs} parameters differ by {p_err} "
                              f"(bk {bk_err}) after 3 steps")
-    log(f"[train cross-check {label}] fp32, 2 layers, S=512, B=2: loss "
+    log(f"[train cross-check {label}] {vs}, fp32, 2 layers, S=512, B=2: "
+        f"loss "
         f"{l_f:.6f} vs {l_d:.6f}, step losses max|diff| "
         f"{max(abs(a - b) for a, b in zip(ls_f, ls_d)):.3e}, gradients "
         f"max|diff| {g_err:.3e} (tolerance 1e-4), parameters after 3 "
@@ -2303,28 +2354,87 @@ def bench_main_line(argv) -> dict:
 
 # the bench's one-card lines, all in one child process with no
 # torch.profiler session before it (13e; one launch for phases 10, 11c,
-# 12c and 13e, for the script's time): the zero-flag CNN's step (200
-# timed after 20), BERT_BASE at S = 4096 (10 after 3), ResNet-20 (30
-# after 3) and ResNet-50 (8 after 2), fp32 and bf16 (BERT bf16); after
-# them 11c's allreduce bench
+# 12c, 13e and 20, for the script's time): the image lines first, before
+# any world is joined (no world's threads beside a host-paced step): the
+# zero-flag CNN's step (200 timed after 20), ResNet-20 (30 after 3) and
+# ResNet-50 (8 after 2), fp32 and bf16, and phase 20's ViT (30 after 3,
+# a cut of the bench's 200 after 20: ~85 ms a step), fp32 and bf16
+# (20b); then the transformer lines, each in the launcher's world:
+# BERT_BASE at S = 4096 bf16 (10 after 3), config 5 with each reference
+# lever (20c), and BERT_BASE bf16 at S = 1024, batch 16, at the default
+# flash_min_seq and at 0 (20d); after them 11c's allreduce bench
+CONFIG5_BENCH = ["--model", "bert_base", "--seq-len", "4096", "--batch-size",
+                 "4", "--precision", "bf16", "--steps", "10", "--warmup", "3"]
+CROSSOVER_BENCH = ["--model", "bert_base", "--seq-len", "1024",
+                   "--batch-size", "16", "--precision", "bf16", "--steps",
+                   "10", "--warmup", "3"]
+LEVERS = {"fused_qkv": ["--fused-qkv"], "params_bf16": ["--params-bf16"],
+          "ce chunked": ["--ce", "chunked"]}
 BENCH_LINES = tuple(
     [(f"cnn {p}", ["--precision", p, "--steps", "200", "--warmup", "20"])
      for p in ("fp32", "bf16")]
-    + [("bert_base bf16", ["--model", "bert_base", "--seq-len", "4096",
-                           "--batch-size", "4", "--precision", "bf16",
-                           "--steps", "10", "--warmup", "3"])]
     + [(f"{m} {p}", ["--model", m, "--precision", p, "--steps", n,
                      "--warmup", w])
        for m, n, w in (("resnet20", "30", "3"), ("resnet50", "8", "2"))
-       for p in ("fp32", "bf16")])
+       for p in ("fp32", "bf16")]
+    + [(f"vit {p}", ["--model", "vit", "--precision", p, "--steps", "30",
+                      "--warmup", "3"])
+       for p in ("fp32", "bf16")]
+    + [("bert_base bf16", CONFIG5_BENCH)]
+    + [(f"bert_base bf16 {k}", CONFIG5_BENCH + v) for k, v in LEVERS.items()]
+    + [("bert_base bf16 S=1024", CROSSOVER_BENCH),
+       ("bert_base bf16 S=1024 flash_min_seq 0",
+        CROSSOVER_BENCH + ["--flash-min-seq", "0"])])
+
+
+@contextlib.contextmanager
+def recorded_joins():
+    """The worlds ``mesh.initialize_distributed`` creates inside the
+    block (the yielded list): each one's backend and size, and whether
+    a launcher's environment described it."""
+    import torch.distributed as dist
+
+    from mpi_tensorflow_torch.parallel import mesh
+
+    real, worlds = mesh.initialize_distributed, []
+
+    def join(*a, **kw):
+        joined = real(*a, **kw)
+        if joined:
+            worlds.append({"backend": str(dist.get_backend()),
+                           "size": dist.get_world_size(),
+                           "launched": kw.get("init_method") is None})
+        return joined
+
+    mesh.initialize_distributed = join
+    try:
+        yield worlds
+    finally:
+        mesh.initialize_distributed = real
+
+
+def joined_launch(worlds) -> bool:
+    """``recorded_joins``' list holds one world: the launcher's world of
+    one, over NCCL."""
+    return len(worlds) == 1 and "nccl" in worlds[0]["backend"] \
+        and worlds[0]["size"] == 1 and worlds[0]["launched"]
 
 
 def worker_bench_lines(_backend: str) -> None:
-    """13e: each of ``BENCH_LINES`` through ``bench.main``, then 11c's
-    allreduce bench (a world of one made and ended in this process)."""
-    lines = {label: bench_main_line(["--mode", "train", *argv])
-             for label, argv in BENCH_LINES}
-    lines["allreduce"] = bench_main_line(["--mode", "allreduce"])
+    """13e, in a torchrun world of one: each of ``BENCH_LINES`` through
+    ``bench.main``, each line's flash launches counted from 0
+    (``flash_launches``) and the worlds it joined (``worlds``: the
+    transformer lines join the launcher's, over NCCL), then 11c's
+    allreduce bench."""
+    lines = {}
+    for label, argv in BENCH_LINES + (("allreduce", None),):
+        set_flash_counts({k: 0 for k in FLASH})
+        with recorded_joins() as worlds:
+            lines[label] = bench_main_line(
+                ["--mode", "train", *argv] if argv else
+                ["--mode", "allreduce"])
+        torch.cuda.synchronize()
+        lines[label].update(flash_launches=flash_counts(), worlds=worlds)
     print(DP_RESULT + json.dumps({"case": "bench_lines", "lines": lines}),
           flush=True)
 
@@ -2333,20 +2443,18 @@ def cnn_phase(dev, card: str) -> dict:
     """Phase 10: the zero-flag CNN trainer.  10a holds the card's float32
     training against the CPU's; 10b runs ``python -m
     mpi_tensorflow_torch``'s zero-flag path (2 epochs, 1562 steps, 32
-    trace lines) and one bf16 epoch; 10c checks that no hand kernel
-    launched on either run (its bench lines: 13e)."""
+    trace lines); 10c checks that no hand kernel launched on it (its
+    bench lines: 13e)."""
     cross = cnn_cross_check(dev)
     phase("10b")
     saved = hand_kernel_counts()
     set_hand_kernel_counts({k: 0 for k in saved})
     every50 = lambda n: [t for t in range(1, n) if t % 50 == 0] + [n - 1]
-    runs = {
-        "fp32": cnn_zero_flag(dev, card, ["--data-dir", CNN_DATA_DIR],
-                              1562, every50(1562)),
-        "bf16_one_epoch": cnn_zero_flag(
-            dev, card, ["--data-dir", CNN_DATA_DIR, "--precision", "bf16",
-                        "--epochs", "1"], 781, every50(781)),
-    }
+    # the bf16 epoch is cut for the script's time: 10a holds bf16 steps
+    # to the CPU's, 13e times its step, and 13b and 14a run the loop in
+    # bf16
+    runs = {"fp32": cnn_zero_flag(dev, card, ["--data-dir", CNN_DATA_DIR],
+                                  1562, every50(1562))}
     torch.cuda.synchronize(dev)
     moved = {k: v for k, v in hand_kernel_counts().items() if v}
     set_hand_kernel_counts(saved)
@@ -2743,7 +2851,7 @@ def dp_phase(card: str, cnn: dict) -> dict:
     ranks on ``cuda:0`` over gloo — psum steps against the in-process
     two-shard step, and one avg50 epoch with every average watched;
     11c: the allreduce bench at world size 1 over NCCL (in 13e's bench
-    child).  Returns, besides, 13d's two gloo worlds' results."""
+    child).  Returns, besides, 13d's three worlds' results."""
     every50 = lambda n: [t for t in range(1, n) if t % 50 == 0] + [n - 1]
     me = os.path.abspath(__file__)
     phase("11a")
@@ -2769,14 +2877,15 @@ def dp_phase(card: str, cnn: dict) -> dict:
         f"{card}")
     phase("11b")
     # the check-only worlds side by side, 11a's NCCL psum world and 13d's
-    # two ResNet worlds with them (for the script's time): 13d reads
+    # three ResNet worlds with them (for the script's time): 13d reads
     # their results
     nccl_steps, gloo_steps, avg, *resnet_worlds = map(dp_result, torchrun_all(
         [(1, [me, "--worker", "psum_steps", "nccl"]),
          (2, [me, "--worker", "psum_steps", "gloo"]),
          (2, [me, "--worker", "avg50_epoch", "gloo"]),
          (2, [me, "--worker", "resnet_psum_steps", "gloo"]),
-         (2, [me, "--worker", "resnet_avg50", "gloo"])], 900))
+         (2, [me, "--worker", "resnet_avg50", "gloo"]),
+         (1, [me, "--worker", "resnet_nccl", "nccl"])], 900))
     check_psum_steps(nccl_steps)
     check_psum_steps(gloo_steps)
     trace = check_trace(avg["lines"], 2, every50(390), "avg50, 2 ranks")
@@ -3010,8 +3119,7 @@ def bert_dp_phase(card: str, phase7: dict) -> dict:
     """Phase 12: data-parallel BERT-base training.  12a: NCCL at world
     size 1 through the CLI, the flash kernels counted, beside phase 7;
     12b: two ranks on ``cuda:0`` over gloo, every layout against the
-    one-process step; 12c: the bench's BERT line, plain and under
-    torchrun."""
+    one-process step (12c, the bench under torchrun: 13e's child)."""
     me = os.path.abspath(__file__)
     phase("12a")
     res = dp_result(torchrun(1, [me, "--worker", "bert_train", "nccl"], 600))
@@ -3100,19 +3208,9 @@ def bert_dp_phase(card: str, phase7: dict) -> dict:
           f"largest of {max(steps['replicated_leaves'])} elements")
     if bad:
         raise AssertionError(f"phase 12b: {bad}")
-    phase("12c")
-    # the BERT bench under torchrun (plain: 13e's bench child)
-    line = json.loads(torchrun(1, [
-        "-m", "mpi_tensorflow_torch.bench", "--mode", "train", "--model",
-        "bert_base", "--seq-len", str(TRAIN_SEQ), "--batch-size",
-        str(TRAIN_BATCH), "--precision", "bf16", "--steps", "10",
-        "--warmup", "3"], 300).strip().splitlines()[-1])
-    if not (line["num_devices"] == 1 and line["step_time_ms"] > 0
-            and np.isfinite(line["final_loss"])):
-        raise AssertionError(f"phase 12c, torchrun: {line}")
-    log(f"[dp bert bench] torchrun: {json.dumps(line)}")
-    return {"bert_train": res, "bert_steps": steps,
-            "bench": {"torchrun": line}, "ckpt_save": ckpt_save}
+    # 12c, the bench's transformer lines under torchrun, runs in 13e's
+    # child (one launch for all of the bench's lines)
+    return {"bert_train": res, "bert_steps": steps, "ckpt_save": ckpt_save}
 
 
 # --------------------------------------------------------------- phase 13
@@ -3430,13 +3528,14 @@ def resnet_cross_check(dev) -> dict:
 
 
 def resnet_cli(dev, card: str, argv, want_steps: int, want_trace: list,
-               gate_error: bool) -> dict:
-    """13b: ``cli.main(argv)`` as ``python -m mpi_tensorflow_torch`` runs
-    it, on the card: the steps, the trace lines in the reference's
-    format, the ``[timing]`` line, a finite loss and the card named in
-    the result; with ``gate_error``, a final test error no higher than
-    the first trace point's.  Images/s, step ms, MFU and peak GiB are
-    printed beside the card's name and power limit."""
+               gate_error: bool, label: str = "resnet") -> dict:
+    """13b (and 20b, the ViT): ``cli.main(argv)`` as ``python -m
+    mpi_tensorflow_torch`` runs it, on the card: the steps, the trace
+    lines in the reference's format, the ``[timing]`` line, a finite
+    loss and the card named in the result; with ``gate_error``, a final
+    test error no higher than the first trace point's.  Images/s, step
+    ms, MFU and peak GiB are printed beside the card's name and power
+    limit."""
     from mpi_tensorflow_torch import cli
     from mpi_tensorflow_torch.train import loop
     from mpi_tensorflow_torch.utils import flops
@@ -3476,9 +3575,11 @@ def resnet_cli(dev, card: str, argv, want_steps: int, want_trace: list,
             or (gate_error and res.final_test_error > errs[0]):
         problems.append(f"loss {res.final_loss}, errors {errs}")
     if problems:
-        raise AssertionError(f"ResNet run {argv}: {problems}")
+        raise AssertionError(f"{label} run {argv}: {problems}")
     config = cli.config_from_args(cli.build_parser().parse_args(argv))
-    step_flops = flops.image_train_flops(config.model, config.batch_size)
+    step_flops = flops.image_train_flops(
+        config.model, config.batch_size,
+        getattr(res.state.model, "cfg", None))
     summary = {
         "argv": argv, "card": card, "device": res.device,
         "model": config.model, "precision": config.precision,
@@ -3490,7 +3591,7 @@ def resnet_cli(dev, card: str, argv, want_steps: int, want_trace: list,
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "final_loss": res.final_loss, "history": res.history,
         "wall_s": wall}
-    log("[resnet] " + json.dumps(summary))
+    log(f"[{label}] " + json.dumps(summary))
     return summary
 
 
@@ -3553,18 +3654,39 @@ def resnet_avg50_splits(config, num_shards, verbose=True):
     return cifar.load_splits(config.data_dir, *RESNET_AVG50_ROWS)
 
 
+def worker_resnet_nccl(_backend: str) -> None:
+    """13d: ``torchrun --nproc_per_node 1 -m mpi_tensorflow_torch`` with
+    14b's ResNet-20 fp32 psum arguments: ``cli.main`` in this rank, which
+    joins the launcher's world over NCCL (recorded), on 14b's
+    ``RESNET_AVG50_ROWS`` rows with cuDNN's deterministic algorithms, as
+    14b runs it without a world: its printed lines."""
+    from mpi_tensorflow_torch import cli
+    from mpi_tensorflow_torch.train import loop
+
+    torch.backends.cudnn.deterministic = True
+    loop.load_dataset = resnet_avg50_splits
+    out = io.StringIO()
+    with recorded_joins() as worlds, contextlib.redirect_stdout(out):
+        rc = cli.main(CKPT_IMAGE_ARGS)
+    print(out.getvalue(), end="")
+    print(DP_RESULT + json.dumps({
+        "case": "resnet_nccl", "rc": rc, "worlds": worlds,
+        "lines": out.getvalue().splitlines()}), flush=True)
+
+
 WORKERS.update(resnet_psum_steps=worker_resnet_psum_steps,
                resnet_avg50=lambda backend: worker_avg50_epoch(
-                   backend, RESNET_AVG50_ARGS, load=resnet_avg50_splits))
+                   backend, RESNET_AVG50_ARGS, load=resnet_avg50_splits),
+               resnet_nccl=worker_resnet_nccl)
 
 
 def resnet_phase(dev, card: str, resnet_worlds) -> dict:
     """Phase 13: ResNet-20 and ResNet-50 training.  13a: single steps on
     the card against the CPU's; 13b: one epoch of each through
-    ``cli.main``, fp32 and bf16; 13c: no hand kernel launched on 13b's
-    runs; 13d: ResNet-20 through torchrun at world 1 over NCCL, then two
-    gloo ranks on ``cuda:0``: psum steps against the in-process two-shard
-    step, and an avg50 run with every average watched (``resnet_worlds``,
+    ``cli.main`` (ResNet-50 in bf16 only); 13c: no hand kernel launched
+    on 13b's runs; 13d: two gloo ranks on ``cuda:0``: psum steps against
+    the in-process two-shard step, and an avg50 run with every average
+    watched (``resnet_worlds``,
     their results: the worlds ran beside 11b's); 13e: the bench's lines
     and 11c's allreduce line."""
     from mpi_tensorflow_torch.train import loop
@@ -3587,10 +3709,13 @@ def resnet_phase(dev, card: str, resnet_worlds) -> dict:
     loop.load_dataset = cached_load
     try:
         runs = {}
+        # ResNet-50 in bf16 only: its fp32 epoch is cut for the script's
+        # time (13e times its fp32 step; this run's checks are the bf16
+        # run's)
         for name, argv, steps, k in (("resnet20", RESNET20_ARGS, 358, 50),
                                      ("resnet50", RESNET50_ARGS, 29, 10)):
             for prec in (("fp32", "bf16") if name == "resnet20"
-                         else ("bf16", "fp32")):
+                         else ("bf16",)):
                 runs[name, prec] = resnet_cli(
                     dev, card, argv + ["--precision", prec], steps,
                     every(steps, k), gate_error=name == "resnet20")
@@ -3606,20 +3731,26 @@ def resnet_phase(dev, card: str, resnet_worlds) -> dict:
     log("[resnet] no hand kernel launched on the ResNet runs (paged, flash "
         "and fused counts all 0)")
     phase("13d")
-    me = os.path.abspath(__file__)
-    lines = torchrun(1, ["-m", "mpi_tensorflow_torch", *RESNET20_ARGS],
-                     600).splitlines()
-    trace = check_trace(lines, 1, every(358, 50), "torchrun ResNet-20")
-    if trace[-1][1] > trace[0][1]:
-        raise AssertionError(f"torchrun ResNet-20: errors {trace}")
-    world1 = trainer_timing(lines)
+    # the three worlds ran beside 11b's.  ResNet-20 through torchrun at
+    # world 1 over NCCL runs 14b's 93 steps on 13 000 rows (its full
+    # epoch is cut for the script's time: 13b runs it without a process
+    # group); 14b holds its trace to its own run's without a world
+    psum, avg, nccl = resnet_worlds
+    want_nccl = every(93, 10)
+    nccl_trace = check_trace(nccl["lines"], 1, want_nccl,
+                             "torchrun ResNet-20 (NCCL)")
+    joined = nccl["worlds"]
+    if nccl["rc"] != 0 or nccl_trace[-1][1] > nccl_trace[0][1] \
+            or not joined_launch(joined):
+        raise AssertionError(f"torchrun ResNet-20 (NCCL): {nccl_trace}, "
+                             f"worlds {joined}, rc {nccl['rc']}")
     log(f"[resnet dp] torchrun --nproc_per_node 1 -m mpi_tensorflow_torch "
-        f"{' '.join(RESNET20_ARGS)} (NCCL, world 1): 358 steps, errors "
-        f"{trace[0][1]} -> {trace[-1][1]} %; {json.dumps(world1)} beside "
-        f"13b's {runs['resnet20', 'fp32']['images_per_sec']:.1f} images/s "
-        f"(no process group); {card}")
-    # the two check-only worlds ran beside 11b's
-    psum, avg = resnet_worlds
+        f"{' '.join(CKPT_IMAGE_ARGS)} on the first {RESNET_AVG50_ROWS[0]} "
+        f"rows (psum; the launcher's world over {joined[0]['backend']}, "
+        f"world 1; cuDNN deterministic): {len(nccl_trace)} trace points, "
+        f"errors {nccl_trace[0][1]} -> {nccl_trace[-1][1]} %; "
+        f"{json.dumps(trainer_timing(nccl['lines']))} (beside 11b's "
+        f"worlds); {card}")
     log(f"[resnet dp] psum, 2 ranks on cuda:0 over gloo, ResNet-20 float32, "
         f"{RESNET_DP_STEPS} steps of {RESNET_DP_ROWS} rows a rank from the "
         f"seed-0 state against the in-process two-shard step: "
@@ -3647,20 +3778,27 @@ def resnet_phase(dev, card: str, resnet_worlds) -> dict:
         f"test error {trace[0][1]} -> {trace[-1][1]} %; {card}")
     phase("13e")
     me = os.path.abspath(__file__)
-    benches = dp_result(run_sub([sys.executable, me, "--worker",
-                                 "bench_lines", "none"], 600))["lines"]
+    # the bench's lines under torchrun --nproc_per_node 1 (the bench's
+    # multi-card entry): each transformer line joins the launcher's
+    # world over NCCL (12c), the image lines join none
+    benches = dp_result(torchrun(1, [me, "--worker", "bench_lines",
+                                     "none"], 600))["lines"]
     allreduce = benches.pop("allreduce")
     if not (allreduce["num_devices"] == 1 and allreduce["allreduce_ms"] > 0
-            and "nccl" in allreduce["backend"]):
+            and "nccl" in allreduce["backend"]
+            and joined_launch(allreduce["worlds"])):
         raise AssertionError(f"allreduce bench: {allreduce}")
     log(f"[dp bench] 11c: {json.dumps(allreduce)}")
     for label, line in benches.items():
         rate = line.get("images_per_sec", line.get("tokens_per_sec"))
-        if not (rate and rate > 0 and np.isfinite(line["final_loss"])):
+        world = (joined_launch(line["worlds"]) if "tokens_per_sec" in line
+                 else line["worlds"] == [])
+        if not (rate and rate > 0 and np.isfinite(line["final_loss"])
+                and line["num_devices"] == 1 and world):
             raise AssertionError(f"bench {label}: {line}")
         log(f"[bench] {label}: {json.dumps(line)}")
     return {"cross_check": cross, "runs": runs, "launches": launched,
-            "world1": world1, "psum": psum, "avg50": avg,
+            "psum": psum, "avg50": avg, "nccl_trace": nccl_trace,
             "bench": benches}
 
 
@@ -3898,12 +4036,14 @@ def prefetch_phase(card: str) -> dict:
             "hostio": hostio}
 
 
-def ckpt_image_phase(dev, card: str) -> dict:
+def ckpt_image_phase(dev, card: str, nccl_trace) -> dict:
     """14b: ResNet-20 fp32 psum through cli.main with --checkpoint-dir and
     --metrics-dir, stopped by request_stop after STOP_IMAGE and resumed:
     the trace, parameters, velocity and BatchNorm state of the
     uninterrupted run (bit-equal if two uninterrupted runs are, else
-    within twice their distance), and the metrics' tags."""
+    within twice their distance), and the metrics' tags; the
+    uninterrupted run's trace is 13d's run's at world 1 over NCCL
+    (``nccl_trace``: its all-reduces over one rank change no value)."""
     from mpi_tensorflow_torch.train import checkpoint, loop
 
     cache = {}
@@ -3944,6 +4084,9 @@ def ckpt_image_phase(dev, card: str) -> dict:
     problems = []
     if want[0] != want[1]:
         problems.append(f"two uninterrupted runs trace differently: {want}")
+    if check_trace(want[0], 1, want_steps, "14b") != nccl_trace:
+        problems.append(f"13d's run at world 1 over NCCL traced "
+                        f"{nccl_trace}, this run {want[0]}")
     if _joined(stop_lines, res_lines) != want[0]:
         problems.append(f"stopped + resumed trace {stop_lines} + "
                         f"{res_lines} != {want[0]}")
@@ -3969,7 +4112,8 @@ def ckpt_image_phase(dev, card: str) -> dict:
             if own == 0.0 else f"within {got:.3e}, the uninterrupted runs "
             f"{own:.3e} apart (bound: twice that)")
     log(f"[checkpoint] 14b ResNet-20 fp32 psum, stopped after step "
-        f"{STOP_IMAGE} and resumed: trace identical; state {held}; "
+        f"{STOP_IMAGE} and resumed: trace identical (and the uninterrupted "
+        f"run's identical to 13d's at world 1 over NCCL); state {held}; "
         f"{json.dumps(out)}")
     shutil.rmtree(d, ignore_errors=True)
     return out
@@ -4203,12 +4347,15 @@ def ckpt_dp_phase(dev, card: str, save: dict) -> dict:
     return out
 
 
-def ckpt_phase(dev, card: str, phase7: dict, save: dict) -> dict:
+def ckpt_phase(dev, card: str, phase7: dict, save: dict,
+               nccl_trace) -> dict:
     """Phase 14: the long-run services (module note); ``save``: 14d's
-    two-rank save, run beside 12b."""
+    two-rank save, run beside 12b; ``nccl_trace``: 13d's ResNet-20 run
+    at world 1 over NCCL."""
     out = {}
     for name, run in (("14a", lambda: prefetch_phase(card)),
-                      ("14b", lambda: ckpt_image_phase(dev, card)),
+                      ("14b", lambda: ckpt_image_phase(dev, card,
+                                                       nccl_trace)),
                       ("14c", lambda: ckpt_mlm_phase(dev, card, phase7)),
                       ("14d", lambda: ckpt_dp_phase(dev, card, save))):
         phase(name)
@@ -4403,12 +4550,11 @@ def fleet_phase(dev, card: str, ref: dict, ref_engine, trace) -> dict:
     phase("16a")
     r = router.ReplicaRouter(harness.fleet_of(ref_engine, 2))
     seq = fleet_run(r, trace.requests(), "16a sequential", parallel=False)
-    r.reset()
-    par = fleet_run(r, trace.requests(), "16a parallel", parallel=True)
     fleet_line("bf16 sequential", seq, ref)
-    fleet_line("bf16 parallel", par, ref)
-    out["launches_fleet"] = {"sequential": seq["launches"],
-                             "parallel": par["launches"]}
+    # cut for the script's time: the threaded (parallel) fleet's timed run
+    # at full width; the fp32 check below runs both modes, its tokens and
+    # launches held
+    out["launches_fleet"] = {"sequential": seq["launches"]}
     eng32, tr32 = harness.build_serving(**FLEET_CHECK, device=dev)
     single = eng32.run(tr32.requests())
     r32 = router.ReplicaRouter(harness.fleet_of(eng32, 2))
@@ -4529,9 +4675,6 @@ DECODE_CHECK = dict(batch=4, prompt=16, new=16, beams=4)
 # 17b's timed pairs a decode length (a cut for the script's time: the
 # bench's default is 5)
 DECODE_ITERS = 3
-# 17f: the A/B arms timed at full width (BERT_BASE bf16, phase 3's
-# trace); the kernel and kv arms are phase 3b's
-FULL_WIDTH_AB = ("spec_ab", "mixed_ab")
 BEAM_RESCORE_TOL = 1e-4
 
 
@@ -4747,23 +4890,12 @@ def decode_arms_phase(dev, card: str, ref: dict, ref_engine, trace) -> dict:
                 f"{ARMS_TRACE['output_max']} tokens, all at once; its "
                 f"times judge nothing): " + json.dumps(block))
 
-    phase("17f")
-    out["full_width_ab"] = {}
-    for name in FULL_WIDTH_AB:
-        det = harness.measure_serving(serving_args(
-            AB_ARMS[name] + ["--precision", "bf16", "--device", "cuda"]))
-        block = det[name]
-        check_arm_launches(f"17f {name}", block, det["layers"])
-        if det["ok_requests"] != det["num_requests"]:
-            raise AssertionError(f"17f {name}: {det['status_counts']}")
-        out["full_width_ab"][name] = block
-        extra = ({"speculation": det["speculation"]} if name == "spec_ab"
-                 else {})
-        log(f"[arms {name}] BERT_BASE bf16, phase 3's trace ("
-            f"{det['num_requests']} requests at {det['rate_rps']} rps): "
-            + json.dumps({**block, **extra})
-            + f"; speedup_vs_static {det['speedup_vs_static']:.3f}; "
-            f"{card}")
+    # 17f (spec_ab and mixed_ab timed at full width through
+    # measure_serving) is cut for the script's time: each replayed phase
+    # 3's trace four times to time what 15d (ngram against its control,
+    # the same rope model and trace) and 15c (mixed batching beside phase
+    # 3's run of the same trace) time; 17d runs both arms' code and holds
+    # their tokens and launches
     return out
 
 
@@ -4969,6 +5101,399 @@ def training_rest_phase(dev, card: str, phase7: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 20
+
+# 20a: VIT_TINY_CIFAR (12 layers of width 192, 4 px patches), dropout
+# off, at batch VIT_BATCH of the synthetic CIFAR-10, float32 with TF32
+# off: VIT_STEPS image steps, each on the card from the CPU's state
+# before it.  scripts/torch_vit_conditioning.py (the CPU, 8 threads):
+# the CPU's float32 update (the velocity a step leaves, |delta| / |v|
+# over every parameter) lies 3.09e-7 and 2.63e-7 from float64's at these
+# two steps, its loss 0.0 (the head's LayerNorm and the loss are
+# float32 on both sides); the bounds allow about 5x the update's
+# distance and 4 float32 ulps of the loss (ln 10 ~ 2.3); the control,
+# TF32 on, must miss the update's.  In bf16 the evaluation logits are
+# held to the card's float32 ones by |bf16 - float32| / |float32| over
+# the whole (batch, classes) block, within VIT_BF16_EVAL_TOL: the script
+# above reads 2.27e-2 on the CPU (12 post-LN layers round the residual
+# stream to bf16; the largest difference over max|logit|, 3.19e-2 at
+# this state's small logits, max ~0.46, is printed beside it), so the
+# bound is twice that; the control, the same bf16 path with every
+# parameter rounded through float8 e4m3 first, reads 6.44e-2 there and
+# must miss it (the head's LayerNorm in bf16 reads 2.34e-2, which no
+# bound on the logits can tell from bf16 itself); remat on must be
+# bit-equal to off at dropout 0.1
+VIT_STEPS, VIT_BATCH = 2, 128
+VIT_TOL = {"loss": 1e-6, "update": 1.6e-6}
+VIT_BF16_EVAL_TOL = 4.5e-2
+# 20b: the trainer through cli.main on the first VIT_ROWS rows of the
+# synthetic CIFAR-10 (13d's 13 000; cut for the script's time: 93 steps
+# of 128, a trace every 10).  The reference's ViT under momentum SGD
+# stays at chance (docs/convergence_trace_vit_sgd_floor.txt), so its
+# errors are printed, not held; then a profiled window of VIT_PROFILE
+# steps in each precision (the last thing the script times: a profiler
+# session slows later launches)
+VIT_ARGS = ["--model", "vit", "--dataset", "cifar10", "--data-dir",
+            RESNET_DATA_DIR, "--epochs", "1", "--batch-size",
+            str(VIT_BATCH), "--log-every", "10"]
+VIT_ROWS = (13000, 2000)
+VIT_PROFILE = 5
+# 20c: config 5's bench lines with each lever (13e's child), beside its
+# plain line; fused_qkv against three products in phase 8's check;
+# params_bf16's live parameters == its masters cast to bf16 after each
+# of PARAMS_BF16_STEPS steps (BERT_BASE widths, 2 layers, S = 512, B = 2)
+PARAMS_BF16_STEPS = 3
+# 20e: the admission flags at phase 3's cell (BERT_BASE bf16, the CUDA
+# kernel, 24 requests): each argv parsed by the serving entry points'
+# parser and its checks, the engine built by ``harness.build_serving``
+# from the parsed policy as ``measure_serving`` builds it, each replay
+# on a virtual clock of ADMISSION_STEP_S a reading (~30 ms an iteration)
+# so its statuses are the scheduler's whatever the card's speed: a
+# queue of depth 1 with a 3000 ms deadline (shed and deadline_exceeded;
+# the failover backoff and the eviction cap carried, a single engine
+# neither fails over nor runs out of blocks), then a stop at
+# DRAIN_STOP_S of the clock with a 300 ms drain budget (shed and
+# drained); every status counted, summing to the requests
+SERVE_CELL = {"precision": "bf16", "kernel": "cuda", "kv_dtype": "fp32"}
+ADMISSION_ARGV = ["--serve-queue-depth", "1", "--serve-deadline-ms", "3000",
+                  "--serve-max-evictions", "3",
+                  "--serve-failover-backoff-ms", "75"]
+DRAIN_ARGV = ["--serve-drain-ms", "300"]
+ADMISSION_STEP_S, DRAIN_STOP_S = 0.01, 3.0
+
+
+class ClockStop:
+    """A drain guard: ``should_stop`` once ``clock`` reads ``at`` s."""
+
+    def __init__(self, clock, at: float):
+        self.clock, self.at = clock, at
+
+    @property
+    def should_stop(self) -> bool:
+        return self.clock.now >= self.at
+
+
+def admission_phase(dev, card: str, trace) -> dict:
+    """20e (module note): each argv through the serving entry points'
+    parser (``harness.add_serving_args``, its checks), the engine built
+    at phase 3's cell (``trace``: phase 3's, which the build must
+    repeat) from the parsed policy (``harness.admission_policy``)."""
+    from collections import Counter
+
+    from mpi_tensorflow_torch.serving import harness
+
+    out = {}
+    for name, argv, want in (
+            ("admission", ADMISSION_ARGV, ("shed", "deadline_exceeded")),
+            ("drain", DRAIN_ARGV, ("shed", "drained"))):
+        args = serving_args(argv)
+        policy = harness.admission_policy(args)
+        engine, tr = harness.build_serving(**SERVE_CELL, **policy,
+                                           device=dev)
+        serve = engine.serve
+        carried = {k: getattr(serve, k) for k in policy}
+        if tr.prompts != trace.prompts or any(
+                v is not None and carried[k] != v
+                for k, v in policy.items()):
+            raise AssertionError(f"20e {name}: the engine's policy "
+                                 f"{carried} for the flags {policy}, or "
+                                 f"not phase 3's trace")
+        clock = VirtualClock(ADMISSION_STEP_S)
+        guard = ClockStop(clock, DRAIN_STOP_S) if name == "drain" else None
+        res, launches = harness.counted(lambda: engine.run(
+            tr.requests(), time_fn=clock, guard=guard))
+        counts = dict(Counter(res["statuses"].values()))
+        layers = engine.model.cfg.layers
+        log(f"[admission {name}] {' '.join(argv)} at phase 3's cell "
+            f"(harness.build_serving, the engine's policy "
+            f"{json.dumps(carried)}) on a virtual clock of "
+            f"{ADMISSION_STEP_S * 1e3:g} ms a reading: statuses "
+            f"{json.dumps(counts)} of {len(tr.prompts)} requests; faults "
+            f"{json.dumps(res['faults'])}; drain {json.dumps(res['drain'])};"
+            f" {res['tokens']} tokens, paged launches {launches} == "
+            f"{layers} x {res['forward_dispatches']}; {card}")
+        if sum(counts.values()) != len(tr.prompts) \
+                or any(counts.get(k, 0) < 1 for k in want) \
+                or launches != layers * res["forward_dispatches"]:
+            raise AssertionError(f"20e {name}: statuses {counts} (want "
+                                 f"{want} > 0), launches {launches}")
+        out[name] = {"statuses": counts, "launches": launches,
+                     "policy": carried}
+        del engine
+    return out
+
+
+def vit_model_step(cfg, before, batch, dev, tf32: bool = False,
+                   seed: int = 1):
+    """One image step of a ViT of ``cfg`` on ``dev`` from ``before`` =
+    (parameter tree, velocity, counter) (CPU tensors), TF32 as asked, its
+    dropout (``cfg.dropout``) drawn from the step's generator: ``(loss,
+    parameter tree, velocity)`` after it, on the CPU."""
+    from mpi_tensorflow_torch.config import Config
+    from mpi_tensorflow_torch.models import vit
+    from mpi_tensorflow_torch.train import optimizer, step
+    from mpi_tensorflow_torch.train.gspmd import step_generator
+    from mpi_tensorflow_torch.utils import tree as tree_lib
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        params, velocity, count = before
+        model = vit.VisionTransformer(cfg, params).to(dev)
+        state = step.init_state(model)
+        state.opt = optimizer.MomentumState(
+            [v.to(dev, copy=True) for v in velocity], count)
+        x, y = batch
+        train = step.make_train_step(model, Config(batch_size=len(y)), 1,
+                                     decay_steps=50000)
+        gen = (step_generator(seed, int(count), dev) if cfg.dropout > 0
+               else None)
+        state, m = train(state, torch.from_numpy(x).to(dev),
+                         torch.from_numpy(y).to(dev), gen)
+        return (float(m["loss"]), tree_lib.map_leaves(
+            lambda _, t: t.detach().cpu(), model.param_tree()),
+            [v.cpu() for v in state.opt.velocity])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def vit_cross_check(dev) -> dict:
+    """20a (module note)."""
+    from mpi_tensorflow_torch.data import synthetic
+    from mpi_tensorflow_torch.models import vit
+    from mpi_tensorflow_torch.utils import tree as tree_lib
+
+    cfg = dataclasses.replace(vit.VIT_TINY_CIFAR, dropout=0.0)
+    b = VIT_BATCH
+    data = synthetic.image_classification(b * VIT_STEPS * 12 // 11 + 12, 1,
+                                          size=32, channels=3,
+                                          num_classes=10, seed=7)
+    batches = [(data.train_data[i * b:(i + 1) * b],
+                data.train_labels[i * b:(i + 1) * b])
+               for i in range(VIT_STEPS)]
+    p = vit.VisionTransformer.from_seed(cfg, 0).param_tree()
+    p = tree_lib.map_leaves(lambda _, t: t.detach().clone(), p)
+    v = [torch.zeros_like(t) for t in tree_lib.leaves(p)]
+    cpu, t0 = [], time.perf_counter()
+    for t, batch in enumerate(batches):
+        before = (p, v, np.float32(t))
+        after = vit_model_step(cfg, before, batch, torch.device("cpu"))
+        cpu.append((before, after))
+        _, p, v = after
+    cpu_s = time.perf_counter() - t0
+
+    def apart(tf32):
+        loss, update = 0.0, []
+        for (before, (c_loss, _, c_v)), batch in zip(cpu, batches):
+            g_loss, _, g_v = vit_model_step(cfg, before, batch, dev, tf32)
+            loss = max(loss, abs(g_loss - c_loss))
+            update.append(whole_rel_diff(g_v, c_v))
+        return {"loss": loss, "update": max(update)}
+
+    got, ctl = apart(False), apart(True)
+    losses = [after[0] for _, after in cpu]
+    log(f"[vit cross-check] VIT_TINY_CIFAR, {VIT_STEPS} steps of batch {b} "
+        f"at 32x32x3, float32, each from the CPU's state (CPU {cpu_s:.1f} "
+        f"s): CPU losses {losses}; card vs CPU: loss {got['loss']:.3e}, "
+        f"update rel. {got['update']:.3e} (tolerance {VIT_TOL}); control, "
+        f"TF32 on: loss {ctl['loss']:.3e}, update {ctl['update']:.3e}")
+    if not np.isfinite(losses).all() \
+            or any(got[k] > VIT_TOL[k] for k in VIT_TOL):
+        raise AssertionError(f"20a: ViT card vs CPU {got} (tolerance "
+                             f"{VIT_TOL})")
+    if not ctl["update"] > VIT_TOL["update"]:
+        raise AssertionError(f"20a: the TF32 control reads {ctl}, inside "
+                             f"the tolerance {VIT_TOL}")
+    # bf16: evaluation logits from the CPU's state after the steps, and
+    # the control's (every parameter through float8 e4m3 first)
+    x = torch.from_numpy(batches[0][0]).to(dev)
+    fp8 = tree_lib.map_leaves(
+        lambda _, t: t.to(torch.float8_e4m3fn).to(torch.float32), p)
+    with torch.no_grad():
+        logits = {name: vit.VisionTransformer(
+            dataclasses.replace(cfg, dtype=dt), tree).to(dev)(x).double()
+            for name, dt, tree in (("fp32", torch.float32, p),
+                                   ("bf16", torch.bfloat16, p),
+                                   ("fp8", torch.bfloat16, fp8))}
+    want = logits["fp32"]
+    bf16, ctl8 = ({"rel": float((logits[k] - want).norm() / want.norm()),
+                   "maxrel": float((logits[k] - want).abs().max()
+                                   / want.abs().max())}
+                  for k in ("bf16", "fp8"))
+    log(f"[vit cross-check] bf16 evaluation logits on the card, batch {b}, "
+        f"from the CPU's state after the steps: |bf16 - float32| / "
+        f"|float32| {bf16['rel']:.3e} (tolerance {VIT_BF16_EVAL_TOL:.3e}; "
+        f"max|diff| / max|logit| {bf16['maxrel']:.3e}, max|logit| "
+        f"{float(want.abs().max()):.3e}); control, parameters through "
+        f"float8 e4m3: {ctl8['rel']:.3e} (max {ctl8['maxrel']:.3e})")
+    if not bf16["rel"] <= VIT_BF16_EVAL_TOL:
+        raise AssertionError(f"20a: ViT bf16 logits {bf16}")
+    if not ctl8["rel"] > VIT_BF16_EVAL_TOL:
+        raise AssertionError(f"20a: the float8 control reads {ctl8}, "
+                             f"inside the tolerance {VIT_BF16_EVAL_TOL}")
+    # remat on the card, dropout 0.1: bit-equal to remat off
+    runs = {}
+    for remat in (False, True):
+        rcfg = dataclasses.replace(vit.VIT_TINY_CIFAR, remat=remat)
+        runs[remat] = vit_model_step(rcfg, (p, v, np.float32(VIT_STEPS)),
+                                     batches[0], dev)
+    same = runs[False][0] == runs[True][0] and all(
+        torch.equal(a, c) for a, c in zip(
+            tree_lib.leaves(runs[False][1]) + runs[False][2],
+            tree_lib.leaves(runs[True][1]) + runs[True][2]))
+    log(f"[vit cross-check] remat on vs off on the card, dropout 0.1, one "
+        f"step: loss, parameters and velocity bit-equal: {same}")
+    if not same:
+        raise AssertionError("20a: ViT remat changed the step")
+    return {"card_vs_cpu": got, "control_tf32": ctl, "bf16_eval": bf16,
+            "control_fp8": ctl8, "cpu_losses": losses}
+
+
+def vit_profile(dev, card: str) -> dict:
+    """20b's profiled window: ``VIT_PROFILE`` bench steps of the ViT at
+    batch 128 in each precision (``profiling.device_summary``)."""
+    from mpi_tensorflow_torch.config import Config
+    from mpi_tensorflow_torch.train import loop, step
+    from mpi_tensorflow_torch.train.gspmd import step_generator
+    from mpi_tensorflow_torch.utils import profiling
+
+    out = {}
+    for prec in ("fp32", "bf16"):
+        cfg = Config(model="vit", dataset="cifar10", image_size=32,
+                     batch_size=VIT_BATCH, precision=prec)
+        model = loop.build_model(cfg).to(dev)
+        state = step.init_state(model)
+        train = step.make_train_step(model, cfg, 1, decay_steps=50000)
+        g = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(VIT_BATCH, 32, 32, 3, device=dev, generator=g) * 0.3
+        y = torch.randint(0, 10, (VIT_BATCH,), device=dev, generator=g)
+
+        def window():
+            for i in range(VIT_PROFILE):
+                train(state, x, y, step_generator(2, i, dev))
+
+        summary = profiling.device_summary(profiling.profiled_kernels(
+            window, window))
+        summary["kernels_a_step"] = summary["kernel_events"] / VIT_PROFILE
+        log(f"[vit profile] {prec}, batch {VIT_BATCH}, {VIT_PROFILE} steps: "
+            + json.dumps(summary) + f"; {card}")
+        out[prec] = summary
+        del model, state
+    return out
+
+
+def vit_lever_phase(dev, card: str, bench_lines: dict) -> dict:
+    """Phase 20a-d (module note): the ViT's checks, its trainer run, its
+    and the levers' bench lines (13e's child), the levers' checks, and
+    the ViT's profiled window.  Every hand kernel's count is 0 before
+    20a and must be 0 after 20b (the ViT launches none)."""
+    from mpi_tensorflow_torch.data import cifar
+    from mpi_tensorflow_torch.models import bert
+    from mpi_tensorflow_torch.train import gspmd, loop, optimizer
+    from mpi_tensorflow_torch.utils import tree as tree_lib
+
+    out = {}
+    saved = hand_kernel_counts()
+    set_hand_kernel_counts({k: 0 for k in saved})
+    phase("20a")
+    out["cross_check"] = vit_cross_check(dev)
+    phase("20b")
+    every = [t for t in range(10, 93, 10)] + [92]
+    real_load = loop.load_dataset
+    loop.load_dataset = lambda config, num_shards, *a, **kw: \
+        cifar.load_splits(config.data_dir, *VIT_ROWS)
+    try:
+        out["cli"] = resnet_cli(dev, card, VIT_ARGS, 93, every,
+                                gate_error=False, label="vit")
+    finally:
+        loop.load_dataset = real_load
+    torch.cuda.synchronize(dev)
+    launched = hand_kernel_counts()
+    set_hand_kernel_counts(saved)
+    if any(launched.values()):
+        raise AssertionError(f"the ViT path launched hand kernels: "
+                             f"{launched}")
+    out["launches"] = launched
+    for prec in ("fp32", "bf16"):
+        line = bench_lines[f"vit {prec}"]
+        if any(line["flash_launches"].values()):
+            raise AssertionError(f"20b: the ViT bench launched flash: "
+                                 f"{line}")
+        log(f"[vit bench] {prec}: {line['images_per_sec']:.1f} images/s, "
+            f"step {line['step_time_ms']:.3f} ms, MFU "
+            f"{line['mfu_pct']:.3f} %, peak {line['peak_memory_gib']:.3f} "
+            f"GiB (13e's line); no hand kernel launched; {card}")
+    phase("20c")
+    base = bench_lines["bert_base bf16"]
+    out["levers"] = {}
+    for name in LEVERS:
+        line = bench_lines[f"bert_base bf16 {name}"]
+        want = {k: 12 * 13 for k in FLASH}
+        if line["flash_launches"] != want \
+                or line["flash_launches"] != base["flash_launches"]:
+            raise AssertionError(f"20c {name}: flash launches "
+                                 f"{line['flash_launches']} (want {want})")
+        out["levers"][name] = line
+        log(f"[lever {name}] config 5 (BERT_BASE bf16, S = 4096, batch 4): "
+            f"step {line['step_time_ms']:.3f} ms against "
+            f"{base['step_time_ms']:.3f} ms plain, peak "
+            f"{line['peak_memory_gib']:.3f} against "
+            f"{base['peak_memory_gib']:.3f} GiB, bytes at rest "
+            f"{json.dumps(line['bytes_at_rest'])}, flash launches "
+            f"{json.dumps(line['flash_launches'])}; {card}")
+    cross_check_train(dev, label="fused_qkv", arms={
+        "fused": ("flash", {"fused_qkv": True}), "unfused": ("flash", {})})
+    # params_bf16: the live parameters are the masters cast, every step
+    cfg = dataclasses.replace(bert.BERT_BASE, layers=2, dtype=torch.bfloat16)
+    batches = train_batches(dev, bert.BertMlm, cfg, n=PARAMS_BF16_STEPS)
+    model = bert.BertMlm.from_seed(cfg, 0).to(dev)
+    tx = optimizer.transformer_tx(1e-4, PARAMS_BF16_STEPS)
+    state = gspmd.init_state(model, tx, param_dtype=torch.bfloat16)
+    train = gspmd.make_train_step(tx)
+    leaves = tree_lib.leaves(model.param_tree())
+    losses = []
+    for i, batch in enumerate(batches):
+        gen = gspmd.step_generator(3, i, dev)
+        state, m = train(state, *batch, gen)
+        losses.append(float(m["loss"]))
+        if not all(p.dtype == torch.bfloat16 and mp.dtype == torch.float32
+                   and torch.equal(p, mp.to(torch.bfloat16))
+                   for p, mp in zip(leaves, state.opt.master)):
+            raise AssertionError(f"20c: after step {i} the live "
+                                 f"parameters are not the masters cast")
+    log(f"[lever params_bf16] 2 layers at full width, bf16, S=512, B=2, "
+        f"{PARAMS_BF16_STEPS} steps: live (bf16) == masters (float32) cast "
+        f"after each; losses {losses}; bytes at rest "
+        f"{json.dumps(gspmd.bytes_at_rest(state))}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"20c params_bf16 losses {losses}")
+    del model, state
+    phase("20d")
+    dense = bench_lines["bert_base bf16 S=1024"]
+    flash = bench_lines["bert_base bf16 S=1024 flash_min_seq 0"]
+    want = {k: 12 * 13 for k in FLASH}
+    if any(dense["flash_launches"].values()) \
+            or flash["flash_launches"] != want \
+            or flash["flash_min_seq"] != 0 \
+            or dense["flash_min_seq"] != bert.BERT_BASE.flash_min_seq:
+        raise AssertionError(f"20d: dense {dense['flash_launches']}, flash "
+                             f"{flash['flash_launches']} (want {want})")
+    out["crossover"] = {"dense": dense, "flash": flash,
+                        "flash_over_dense": flash["tokens_per_sec"]
+                        / dense["tokens_per_sec"]}
+    log(f"[crossover] BERT_BASE bf16, S = 1024, batch 16: dense "
+        f"{dense['tokens_per_sec']:.1f} tokens/s ({dense['step_time_ms']:.3f}"
+        f" ms, peak {dense['peak_memory_gib']:.3f} GiB), flash "
+        f"(--flash-min-seq 0) {flash['tokens_per_sec']:.1f} tokens/s "
+        f"({flash['step_time_ms']:.3f} ms, peak "
+        f"{flash['peak_memory_gib']:.3f} GiB): flash / dense "
+        f"{out['crossover']['flash_over_dense']:.4f}; flash launches "
+        f"{json.dumps(flash['flash_launches'])}; {card}")
+    phase("20b profile")
+    out["profile"] = vit_profile(dev, card)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda reports no card; nothing was run",
@@ -5003,6 +5528,8 @@ def main() -> int:
     features = feature_phase(dev, card, ref, engine, trace)
     phase("17 decoding and the serving bench's arms")
     arms = decode_arms_phase(dev, card, ref, engine, trace)
+    phase("20e the admission flags")
+    admission = admission_phase(dev, card, trace)
     del engine
     phase("2 paged kernel timing")
     timing = time_decode(dev)
@@ -5039,9 +5566,12 @@ def main() -> int:
     bert_phase = bert_dp_phase(card, phase7)
     bert_dp = bert_phase["bert_train"]["runs"]
     phase("13 ResNets")
-    resnet_launches = resnet_phase(dev, card,
-                                   dp["resnet_worlds"])["launches"]
-    long_run = ckpt_phase(dev, card, phase7, bert_phase["ckpt_save"])
+    resnet = resnet_phase(dev, card, dp["resnet_worlds"])
+    resnet_launches = resnet["launches"]
+    long_run = ckpt_phase(dev, card, phase7, bert_phase["ckpt_save"],
+                          resnet["nccl_trace"])
+    phase("20 ViT and the bench's levers")
+    vit_levers = vit_lever_phase(dev, card, resnet["bench"])
     phase("the kernels line")
     paged_src = "mpi_tensorflow_torch/ops/csrc/paged_attention.cu"
     paged_replaces = "mpi_tensorflow_tpu/ops/paged_attention_kernel.py:90"
@@ -5065,14 +5595,16 @@ def main() -> int:
         # layers), the paged engine beside generate, and rank 0 of the
         # tensor-parallel fleet
         "launches_arms": arms["launches_arms"],
-        # phases 3b and 17f: the A/B arms' timed runs at full width
-        # (BERT_BASE bf16, phase 3's trace), each arm counted from 0
+        # phase 3b: the A/B arms' timed runs at full width (BERT_BASE
+        # bf16, phase 3's trace), each arm counted from 0
         "launches_arms_full_width": {
             "kernel_ab": quant["kernel_ab"]["launches"],
-            "kv_ab": quant["kv_ab"]["launches"],
-            **{k: v["launches"] for k, v in arms["full_width_ab"].items()}},
+            "kv_ab": quant["kv_ab"]["launches"]},
         "launches_decode_check": arms["decode"]["launches"],
         "launches_tp_fleet": arms["launches_tp_fleet"],
+        # phase 20e: the admission and drain replays, each from 0
+        "launches_admission": {k: v["launches"]
+                               for k, v in admission.items()},
         **timing,
     }]
     for kv_dtype, modes, timed in (("int8", ("int8",), "int8"),
@@ -5115,6 +5647,15 @@ def main() -> int:
             "launches_remat": {p: rest[f"remat_{p}"][0][name]
                                for p in REMAT_POLICIES},
             "launches_lamb": rest["lamb"][0][name],
+            # phase 20c-d, the bench lines (13e's child), each from 0:
+            # config 5 with each lever, and BERT_BASE at S = 1024 with
+            # --flash-min-seq 0 (the default line takes dense: 0)
+            "launches_levers": {
+                k: v["flash_launches"][name]
+                for k, v in vit_levers["levers"].items()},
+            "launches_crossover": {
+                arm: vit_levers["crossover"][arm]["flash_launches"][name]
+                for arm in ("dense", "flash")},
             "max_abs_err": max(flash_worst[name, torch.float32],
                                flash_worst[name, torch.bfloat16]),
             "max_abs_err_fp32": flash_worst[name, torch.float32],
@@ -5135,8 +5676,11 @@ def main() -> int:
             "max_abs_err_bf16": fused_worst[name, torch.bfloat16],
             **fused_timing[name]})
     for k in kernels:           # phase 13c: the ResNet runs, counted from 0
-        k["launches_resnet"] = resnet_launches[
-            "paged_attention" if k["name"].startswith("paged") else k["name"]]
+        key = "paged_attention" if k["name"].startswith("paged") \
+            else k["name"]
+        k["launches_resnet"] = resnet_launches[key]
+        # phase 20a-b: the ViT's checks and trainer run, from 0
+        k["launches_vit"] = vit_levers["launches"][key]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

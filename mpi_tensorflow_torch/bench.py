@@ -7,7 +7,9 @@ labels in 4 rotating banks (so steps do not alias one input), the LR
 schedule's ``decay_steps`` at 50000, the CNN's dropout on.  The input
 geometry, classes and defaults are the JAX bench's ``MODEL_SPECS``
 (``IMAGE_SPECS``): ``mnist_cnn`` 64 x 28x28x1, 10 classes; ``resnet20``
-128 x 32x32x3, 10 classes; ``resnet50`` 32 x 224x224x3, 1000 classes.
+128 x 32x32x3, 10 classes; ``resnet50`` 32 x 224x224x3, 1000 classes;
+``vit`` (ViT-Tiny, 4 px patches, dropout on) 128 x 32x32x3, 10 classes,
+its flops ``utils/flops.image_train_flops`` of its configuration.
 ``--warmup`` steps run first and are not timed; the card is
 synchronised before and after the ``--steps`` timed steps.  Prints one
 JSON line: images/sec (and per card), step ms, model-FLOP utilisation
@@ -18,6 +20,8 @@ card's peak allocated GiB, and the card's name and power limit.
     python -m mpi_tensorflow_torch.bench --mode train --precision bf16
     python -m mpi_tensorflow_torch.bench --mode train --model resnet50 \\
         --precision bf16
+    python -m mpi_tensorflow_torch.bench --mode train --model vit \\
+        [--precision bf16]
     python -m mpi_tensorflow_torch.bench --mode train --device cpu \\
         --steps 20 --warmup 2
 
@@ -58,9 +62,18 @@ card; prints one JSON line from rank 0: tokens/sec per card, step ms,
 MFU (``utils/flops.py``, the per-card batch; ``mfu_bf16`` against the
 bf16 peak whatever the precision), the card's peak allocated GiB and
 this rank's bytes at rest, the remat policy, the world size, and the
-card's line.
+card's line.  The reference bench's levers, each with its checks:
+``--fused-qkv`` (q, k, v from one stacked product a layer),
+``--params-bf16`` (bfloat16 live parameters with float32 masters in the
+optimizer; needs ``--precision bf16``, and refused beside
+``--param-sharding zero1|fsdp``, which slice the masters' leaves),
+``--ce auto|dense|chunked`` with ``--ce-chunk`` (the loss's CE over the
+vocabulary) and ``--flash-min-seq`` (the length at which the card takes
+the flash kernels; 0: always); the line carries ``ce_impl``,
+``ce_chunk``, ``params_bf16``, ``fused_qkv`` and ``flash_min_seq``.
 The reference's bench runs ``optax.adamw(1e-4)`` without clipping; the
-port's runs the trainer's optimizer, one global norm more a step:
+port's runs the trainer's optimizer, one global norm more a step, in
+every arm (the masters of ``--params-bf16`` are clipped alike):
 
     python -m mpi_tensorflow_torch.bench --mode train --model bert_base \\
         --seq-len 4096 --batch-size 4 --precision bf16
@@ -69,6 +82,9 @@ port's runs the trainer's optimizer, one global norm more a step:
     python -m mpi_tensorflow_torch.bench --mode train --model encdec_t5 \\
         --seq-len 4096 --batch-size 4 --precision bf16 --remat \\
         [--remat-policy dots]
+    python -m mpi_tensorflow_torch.bench --mode train --model bert_base \\
+        --seq-len 4096 --batch-size 4 --precision bf16 [--fused-qkv] \\
+        [--params-bf16] [--ce chunked] [--flash-min-seq 0]
     torchrun --nproc_per_node 4 -m mpi_tensorflow_torch.bench --mode train \\
         --model bert_base --seq-len 4096 --batch-size 4 --precision bf16 \\
         [--grad-accum 2] [--param-sharding zero1|fsdp]
@@ -126,8 +142,9 @@ card), and a slope at or below it is flagged ``timing_degenerate``:
     python -m mpi_tensorflow_torch.bench --mode decode --device cpu \\
         --batch-size 2 --prompt-len 8 --new-tokens 8 --steps 1
 
-The reference's scanned arm (K train steps a dispatch) is not ported
-yet (ROADMAP Queue 1 item 16).
+The reference's scanned arm (K train steps a dispatch, its
+``--scan-steps``) is not ported yet (ROADMAP Queue 1 item 16): every
+arm here launches one step at a time.
 """
 
 from __future__ import annotations
@@ -161,6 +178,8 @@ IMAGE_SPECS = {
     "resnet20": dict(shape=(32, 32, 3), classes=10, defaults=(128, 500, 20)),
     "resnet50": dict(shape=(224, 224, 3), classes=1000,
                      defaults=(32, 48, 5)),
+    "vit": dict(shape=(32, 32, 3), classes=10, defaults=(128, 200, 20),
+                dataset="cifar10"),
 }
 
 
@@ -172,7 +191,8 @@ def measure_train(model_name: str = "mnist_cnn", batch_size: int = 64,
     spec = IMAGE_SPECS[model_name]
     cfg = Config(model=model_name, batch_size=batch_size,
                  precision=precision, num_classes=spec["classes"],
-                 remat=remat)
+                 image_size=spec["shape"][0],
+                 dataset=spec.get("dataset", "mnist"), remat=remat)
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.empty(0, device=dev)      # the allocator up, for its stats
@@ -207,7 +227,8 @@ def measure_train(model_name: str = "mnist_cnn", batch_size: int = 64,
         loss = run(i)
     sync()
     sec = (time.perf_counter() - t0) / steps
-    step_flops = flops.image_train_flops(model_name, batch_size)
+    step_flops = flops.image_train_flops(model_name, batch_size,
+                                         getattr(model, "cfg", None))
     mfu = (flops.mfu(step_flops, sec, precision)
            if step_flops and dev.type == "cuda" else None)
     return {
@@ -233,10 +254,14 @@ def measure_bert(batch_size: int = 4, seq_len: int = 128,
                  param_sharding: str = "replicated", steps: int = 20,
                  warmup: int = 3, device="cuda",
                  model_name: str = "bert_base", remat: bool = False,
-                 remat_policy: str = "full") -> dict:
+                 remat_policy: str = "full", ce_impl: str = "auto",
+                 ce_chunk: int = 2048, fused_qkv: bool = False,
+                 params_bf16: bool = False,
+                 flash_min_seq: Optional[int] = None) -> dict:
     """Mean time of one BERT-base MLM (``gpt_base``: causal LM;
     ``moe_bert``; ``encdec_t5``) train step over the process group that
-    is up (none: one card), after ``warmup`` untimed ones."""
+    is up (none: one card), after ``warmup`` untimed ones; the levers as
+    the module note says."""
     from mpi_tensorflow_torch.data import synthetic
     from mpi_tensorflow_torch.models import bert
 
@@ -249,8 +274,11 @@ def measure_bert(batch_size: int = 4, seq_len: int = 128,
                  param_sharding=param_sharding, remat=remat)
     bcfg = dataclasses.replace(
         bert.BERT_BASE, dtype=cfg.compute_dtype, remat=remat,
-        remat_policy=remat_policy,
-        max_positions=max(bert.BERT_BASE.max_positions, seq_len))
+        remat_policy=remat_policy, ce_impl=ce_impl, ce_chunk=ce_chunk,
+        fused_qkv=fused_qkv,
+        max_positions=max(bert.BERT_BASE.max_positions, seq_len),
+        **({} if flash_min_seq is None
+           else {"flash_min_seq": flash_min_seq}))
     b = batch_size * world
     if batch_size % grad_accum:
         raise ValueError(f"--batch-size {batch_size} is not divisible by "
@@ -260,7 +288,8 @@ def measure_bert(batch_size: int = 4, seq_len: int = 128,
         torch.cuda.reset_peak_memory_stats(dev)
     model = mlm_loop.FAMILIES[model_name].from_seed(bcfg, cfg.seed).to(dev)
     tx = opt_lib.transformer_tx(1e-4, warmup + steps, schedule="constant")
-    state = gspmd.init_for(param_sharding, model, tx)
+    state = gspmd.init_for(param_sharding, model, tx,
+                           torch.bfloat16 if params_bf16 else None)
     train_step = gspmd.make_train_step(tx, grad_accum=grad_accum)
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     banks = []
@@ -317,6 +346,9 @@ def measure_bert(batch_size: int = 4, seq_len: int = 128,
                             if on_card else None),
         "bytes_at_rest": gspmd.bytes_at_rest(state),
         "remat": remat, "remat_policy": remat_policy if remat else None,
+        "ce_impl": ce_impl, "ce_chunk": ce_chunk,
+        "params_bf16": params_bf16, "fused_qkv": fused_qkv,
+        "flash_min_seq": bcfg.flash_min_seq,
         "num_devices": world, "batch_size_per_chip": batch_size,
         "seq_len": seq_len, "grad_accum": grad_accum,
         "param_sharding": param_sharding, "precision": precision,
@@ -600,15 +632,16 @@ def main(argv=None) -> int:
                              *mlm_loop.FAMILIES])
     ap.add_argument("--batch-size", type=int, default=None,
                     help="per-card batch (default: mnist_cnn 64, resnet20 "
-                         "128, resnet50 32, the transformers 4)")
+                         "128, resnet50 32, vit 128, the transformers 4)")
     ap.add_argument("--precision", choices=["fp32", "bf16"], default="fp32")
     ap.add_argument("--steps", type=int, default=None,
                     help="timed train steps (default: mnist_cnn 1000, "
-                         "resnet20 500, resnet50 48, bert_base 20)")
+                         "resnet20 500, resnet50 48, vit 200, bert_base "
+                         "20)")
     ap.add_argument("--warmup", type=int, default=None,
                     help="untimed steps before the timed ones (default: "
-                         "mnist_cnn 50, resnet20 20, resnet50 5, bert_base"
-                         " 3)")
+                         "mnist_cnn 50, resnet20 20, resnet50 5, vit 20, "
+                         "bert_base 3)")
     ap.add_argument("--seq-len", type=int, default=128,
                     help="transformers: tokens per sequence")
     ap.add_argument("--grad-accum", type=int, default=1,
@@ -625,6 +658,24 @@ def main(argv=None) -> int:
                     help="what a rematted transformer layer saves: full "
                          "= nothing, dots = the products without batch "
                          "dimensions (the weight projections)")
+    ap.add_argument("--ce", choices=["auto", "dense", "chunked"],
+                    default="auto",
+                    help="transformers: the loss's CE (models/bert.py "
+                         "ce_impl): chunked = vocabulary tiles, never the "
+                         "(B, S, V) float32 logits")
+    ap.add_argument("--ce-chunk", type=int, default=2048,
+                    help="vocabulary tile width for --ce chunked")
+    ap.add_argument("--flash-min-seq", type=int, default=None,
+                    help="transformers: take the flash kernels at seq_len "
+                         ">= this (default: models/bert.py flash_min_seq, "
+                         "4096; 0 = always)")
+    ap.add_argument("--fused-qkv", action="store_true",
+                    help="transformers: q, k, v from one stacked (E, 3HD) "
+                         "product a layer instead of three")
+    ap.add_argument("--params-bf16", action="store_true",
+                    help="transformers: bfloat16 live parameters with "
+                         "float32 masters in the optimizer (needs "
+                         "--precision bf16)")
     ap.add_argument("--payload-mb", type=float, default=25.4,
                     help="allreduce: float32 MB on each rank")
     ap.add_argument("--device", default="cuda",
@@ -647,6 +698,26 @@ def main(argv=None) -> int:
             args.mode != "train" or args.model not in mlm_loop.FAMILIES):
         ap.error("--remat-policy applies to the transformer families in "
                  "train mode only: other paths would silently ignore it")
+    transformer_train = (args.mode == "train"
+                         and args.model in mlm_loop.FAMILIES)
+    if args.fused_qkv and not transformer_train:
+        ap.error("--fused-qkv applies to the transformer families in train "
+                 "mode only: other paths would silently ignore it")
+    if args.flash_min_seq is not None and not transformer_train:
+        ap.error("--flash-min-seq applies to the transformer families in "
+                 "train mode only: other paths would silently ignore it")
+    if args.params_bf16 and args.precision != "bf16":
+        ap.error("--params-bf16 requires --precision bf16 (fp32 compute "
+                 "with bf16-truncated weights is not the fp32 baseline)")
+    if args.params_bf16 and args.model not in mlm_loop.FAMILIES:
+        ap.error(f"--params-bf16 is implemented for the transformer "
+                 f"families ({', '.join(mlm_loop.FAMILIES)}) only: the "
+                 f"image paths would silently ignore it")
+    if args.params_bf16 and args.param_sharding != "replicated":
+        ap.error(f"--params-bf16 keeps float32 masters of whole leaves; "
+                 f"--param-sharding {args.param_sharding} slices the "
+                 f"leaves over the ranks, and the reference's bench, which "
+                 f"has no sharding axis, never pairs the two")
     if args.mode == "hostio":
         on_card = torch.device(args.device).type == "cuda"
         print(json.dumps(measure_hostio(
@@ -656,27 +727,25 @@ def main(argv=None) -> int:
             card=card_line(torch.device(args.device)) if on_card
             else None)), flush=True)
         return 0
-    bert_run = args.mode == "train" and args.model in mlm_loop.FAMILIES
-    if args.mode == "train" and args.model == "vit":
-        raise NotImplementedError("model 'vit' is not ported yet: ROADMAP "
-                                  "Queue 1 item 14")
-    defaults = (4, 20, 3) if bert_run else \
+    defaults = (4, 20, 3) if transformer_train else \
         IMAGE_SPECS.get(args.model, IMAGE_SPECS["mnist_cnn"])["defaults"]
     batch, steps, warmup = (d if v is None else v for v, d in zip(
         (args.batch_size, args.steps, args.warmup), defaults))
-    if args.mode == "train" and not bert_run:
+    if args.mode == "train" and not transformer_train:
         print(json.dumps(measure_train(args.model, batch, args.precision,
                                        steps, warmup, args.device,
                                        args.remat)), flush=True)
         return 0
     dev = meshlib.rank_device(args.device)
-    if bert_run:            # the launcher's world, else none
+    if transformer_train:   # the launcher's world, else none
         joined = meshlib.initialize_distributed(dev)
         try:
             res = measure_bert(batch, args.seq_len, args.precision,
                                args.grad_accum, args.param_sharding, steps,
                                warmup, dev, args.model, args.remat,
-                               args.remat_policy)
+                               args.remat_policy, args.ce, args.ce_chunk,
+                               args.fused_qkv, args.params_bf16,
+                               args.flash_min_seq)
             if meshlib.process_index() == 0:
                 print(json.dumps(res), flush=True)
         finally:

@@ -10,8 +10,10 @@ directory holds no MNIST files), sync ``psum``, on the card, through
 train the ResNets through the same loop (CIFAR-10's binary files when
 ``--data-dir`` holds ``cifar-10-batches-bin``, else the synthetic set of
 its shapes; ``imagenet_npy`` shards when present, else the synthetic
-224x224 set); the transformer path runs with ``--model bert_base
---dataset mlm_synthetic`` (or ``--model gpt_base``: the causal LM's
+224x224 set), and ``--model vit`` the ViT (on ``mnist``, ``cifar10`` or
+``imagenet_synthetic``: 7, 4 or 16 px patches); the transformer path
+runs with ``--model bert_base --dataset mlm_synthetic`` (or ``--model
+gpt_base``: the causal LM's
 next-token training on the same stream; ``--model moe_bert``: routed
 expert MLPs on every other layer; ``--model encdec_t5``: the
 encoder-decoder on the synthetic reversal task).  ``--remat``
@@ -27,6 +29,10 @@ vocabulary) trains bert_base, moe_bert or gpt_base on a local text:
     python -m mpi_tensorflow_torch --model resnet50 \\
         --dataset imagenet_synthetic --num-classes 1000 --precision bf16
     python -m mpi_tensorflow_torch --model resnet20 --dataset cifar10 \\
+        --device cpu --epochs 1 --data-dir /tmp/c10
+    python -m mpi_tensorflow_torch --model vit --dataset cifar10 \\
+        --batch-size 128 [--precision bf16] [--remat]  # on the card
+    python -m mpi_tensorflow_torch --model vit --dataset cifar10 \\
         --device cpu --epochs 1 --data-dir /tmp/c10
     python -m mpi_tensorflow_torch --model bert_base \\
         --dataset mlm_synthetic --precision bf16 --seq-len 4096 \\
@@ -82,6 +88,10 @@ transformer's state over the ranks (``train.gspmd``; a world of one
 rank raises, as the reference does without a data axis).
 
 ``--remat`` also recomputes each residual block of the ResNets.
+``--image-size`` defaults to the dataset's own (28 for MNIST, 32 for
+CIFAR-10, 224 for ``imagenet_synthetic``): the reference's default is 28
+whatever the dataset, so its ViT on CIFAR-10 fails at the patch reshape
+without ``--image-size 32``; the CNN and the ResNets do not read it.
 ``--fused-steps`` defaults to ``--log-every`` under psum and to 1 under
 avg50, as in the reference.  ``--tiny``, ``--seq-len``, ``--train-n``
 and ``--test-n`` have no counterpart in the reference's CLI: they size
@@ -113,7 +123,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the reference's `iteration` (mpipy.py:18)")
     p.add_argument("--batch-size", type=int, default=d.batch_size,
                    help="per-device batch size (mpipy.py:20)")
-    p.add_argument("--image-size", type=int, default=d.image_size)
+    p.add_argument("--image-size", type=int, default=None,
+                   help="input size (default: the dataset's, 28 for "
+                        "mnist, 32 for cifar10, 224 for "
+                        "imagenet_synthetic)")
     p.add_argument("--num-classes", type=int, default=d.num_classes,
                    help="the reference's `num_channel` (mpipy.py:21)")
     p.add_argument("--base-lr", type=float, default=d.base_lr)
@@ -211,9 +224,16 @@ def parse_mesh(spec: str | None):
     return out
 
 
+#: each image dataset's own input size, ``--image-size``'s default
+DATASET_IMAGE_SIZE = {"cifar10": 32, "imagenet_synthetic": 224}
+
+
 def config_from_args(args) -> Config:
+    image_size = (args.image_size if args.image_size is not None
+                  else DATASET_IMAGE_SIZE.get(args.dataset,
+                                              Config.image_size))
     return Config(
-        epochs=args.epochs, image_size=args.image_size,
+        epochs=args.epochs, image_size=image_size,
         batch_size=args.batch_size, num_classes=args.num_classes,
         base_lr=args.base_lr, lr_decay=args.lr_decay,
         momentum=args.momentum, weight_decay=args.weight_decay,

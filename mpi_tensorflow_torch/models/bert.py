@@ -94,6 +94,9 @@ class BertConfig:
     remat_policy: str = "full"           # what a rematted layer saves:
                                          # "full" nothing, "dots" the
                                          # products without batch dims
+    fused_qkv: bool = False              # q, k, v from ONE (E, 3HD)
+                                         # product on the stacked weights
+                                         # (the leaves stay separate)
 
     def __post_init__(self):
         if self.remat_policy not in ("full", "dots"):
@@ -281,18 +284,19 @@ class EncoderLayer(nn.Module):
         return t
 
     def forward(self, h: torch.Tensor, attention, dt: torch.dtype,
-                drop=None, reduce=None) -> torch.Tensor:
+                drop=None, reduce=None, fused: bool = False) -> torch.Tensor:
         """The post-LN block around ``attention(q, k, v) -> (B, H, S,
         D)``; ``drop`` (training) is applied to the attention output and
         to the MLP output before each residual add; ``reduce`` is the
         tensor-parallel sum of the two row-parallel products
-        (``serving/tp``)."""
-        return self.forward_aux(h, attention, dt, drop, reduce)[0]
+        (``serving/tp``); ``fused`` is ``qkv_proj``'s."""
+        return self.forward_aux(h, attention, dt, drop, reduce, fused)[0]
 
-    def forward_aux(self, h, attention, dt, drop=None, reduce=None):
+    def forward_aux(self, h, attention, dt, drop=None, reduce=None,
+                    fused: bool = False):
         """``forward`` and the MLP's auxiliary loss (None for a dense
         MLP): ``(h, aux)``."""
-        q, k, v = self.qkv_proj(h, dt)
+        q, k, v = self.qkv_proj(h, dt, fused)
         a = self.attn_out_proj(attention(q, k, v), dt, reduce)
         if drop is not None:
             a = drop(a)
@@ -308,8 +312,19 @@ class EncoderLayer(nn.Module):
         and returns the load-balance loss."""
         return self.gelu_mlp(h, dt, reduce), None
 
-    def qkv_proj(self, h: torch.Tensor, dt: torch.dtype):
-        """(B, S, E) -> per-head q, k, v, each (B, H, S, D)."""
+    def qkv_proj(self, h: torch.Tensor, dt: torch.dtype,
+                 fused: bool = False):
+        """(B, S, E) -> per-head q, k, v, each (B, H, S, D).  ``fused``
+        stacks the three weights (and biases) at each call and runs one
+        (E, 3HD) product, as the reference's ``qkv_proj(fused=True)``;
+        the parameters stay three leaves."""
+        if fused:
+            w = torch.stack([self.wq, self.wk, self.wv]).to(dt)
+            b = torch.stack([self.bq, self.bk, self.bv]).to(dt)
+            qkv = torch.einsum("bse,cehd->cbhsd", h, w) \
+                + b[:, None, :, None, :]
+            return qkv[0], qkv[1], qkv[2]
+
         def proj(w, b):
             return (torch.einsum("bse,ehd->bhsd", h, w.to(dt))
                     + b.to(dt)[None, :, None, :])
@@ -356,6 +371,19 @@ class LmHead(nn.Module):
     def head_hidden(self, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         t = F.gelu(h @ self.w.to(dt) + self.b.to(dt), approximate="tanh")
         return self.ln(t).to(dt)
+
+
+def attend(q, k, v, cfg: BertConfig, attention: str = "auto",
+           causal: bool = False):
+    """One layer's attention by ``attention`` (``BertMlm``'s note): the
+    flash kernels for ``"flash"``, or for ``"auto"`` on CUDA tensors at
+    ``S >= cfg.flash_min_seq``; ``dense_attention`` otherwise."""
+    flash = attention == "flash" or (
+        attention == "auto" and q.device.type == "cuda"
+        and q.shape[2] >= cfg.flash_min_seq)
+    if flash:
+        return flash_attention(q, k, v, causal)
+    return dense_attention(q, k, v, causal=causal)
 
 
 class BertMlm(nn.Module):
@@ -433,13 +461,7 @@ class BertMlm(nn.Module):
         """Self-attention of one layer, causal as the model (or as
         ``causal`` says: the enc-dec decoder's)."""
         causal = self.causal if causal is None else causal
-        S = q.shape[2]
-        flash = self.attention == "flash" or (
-            self.attention == "auto" and q.device.type == "cuda"
-            and S >= self.cfg.flash_min_seq)
-        if flash:
-            return flash_attention(q, k, v, causal)
-        return dense_attention(q, k, v, causal=causal)
+        return attend(q, k, v, self.cfg, self.attention, causal)
 
     def _dropout_generator(self, train: bool, generator):
         """The generator dropout draws from: ``generator`` in train mode
@@ -485,7 +507,8 @@ class BertMlm(nn.Module):
             def fn(h, g):
                 drop = None if g is None else functools.partial(
                     dropout_mask, rate=c.dropout, generator=g)
-                return layer.forward_aux(h, attention, c.dtype, drop)
+                return layer.forward_aux(h, attention, c.dtype, drop,
+                                         fused=c.fused_qkv)
             return fn
 
         aux = torch.zeros((), dtype=torch.float32, device=h.device)

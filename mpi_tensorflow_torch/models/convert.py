@@ -20,7 +20,11 @@ dicts, ``layers`` stays a list.
 - ``resnet_params_from_jax`` / ``resnet_params_to_numpy``: the
   ResNet's nested parameter tree, every 4-D leaf (a conv weight) HWIO
   <-> OIHW (its running statistics cross as they are, through
-  ``params_from_jax`` / ``params_to_numpy``).
+  ``params_from_jax`` / ``params_to_numpy``);
+- ``vit_params_from_jax`` / ``vit_params_to_numpy``: the ViT's tree
+  (``models.vit.VisionTransformer``), whose patch projection is a
+  matrix and whose ``layers`` are BERT's, so every leaf crosses as the
+  encoder's do.
 """
 
 from __future__ import annotations
@@ -98,3 +102,9 @@ def resnet_params_to_numpy(tree):
     device) -> the reference's float32 numpy layout."""
     return tree_lib.map_leaves(lambda _, v: _conv_layout(v, _OIHW_TO_HWIO),
                                params_to_numpy(tree))
+
+
+# the ViT has no conv weight: its patch projection is (P*P*C, E) and its
+# layers are BERT's, so its leaves cross as the encoder's do
+vit_params_from_jax = params_from_jax
+vit_params_to_numpy = params_to_numpy

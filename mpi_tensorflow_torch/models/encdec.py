@@ -68,12 +68,14 @@ class DecoderLayer(bert_lib.EncoderLayer):
                     + b.to(dt)[None, :, None, :])
         return proj(self.xk, self.xbk), proj(self.xv, self.xbv)
 
-    def decode(self, h, xk, xv, self_attention, dt, drop=None):
+    def decode(self, h, xk, xv, self_attention, dt, drop=None,
+               fused: bool = False):
         """Residual self-attention (``self_attention(q, k, v)``),
         residual cross-attention over ``xk``/``xv``, residual MLP, each
-        post-LN; ``drop`` applies dropout before each residual add."""
+        post-LN; ``drop`` applies dropout before each residual add;
+        ``fused`` is ``qkv_proj``'s."""
         d = drop if drop is not None else (lambda x: x)
-        q, k, v = self.qkv_proj(h, dt)
+        q, k, v = self.qkv_proj(h, dt, fused)
         a = d(self.attn_out_proj(self_attention(q, k, v), dt))
         h = self.ln1(h + a).to(dt)
         q = (torch.einsum("bse,ehd->bhsd", h, self.xq.to(dt))
@@ -186,7 +188,8 @@ class EncDecLm(bert_lib.BertMlm):
         def fn(layer, h, g, xk, xv):
             drop = None if g is None else functools.partial(
                 dropout_mask, rate=c.dropout, generator=g)
-            return layer.decode(h, xk, xv, self_attention, dt, drop)
+            return layer.decode(h, xk, xv, self_attention, dt, drop,
+                                c.fused_qkv)
 
         for layer in self.dec_layers:
             xk, xv = layer.cross_kv(enc_out, dt)
@@ -254,7 +257,8 @@ class EncDecLm(bert_lib.BertMlm):
                                     torch.finfo(torch.float32).min)
                     p = torch.softmax(s, -1).to(dt)
                     return torch.einsum("bhsl,bhld->bhsd", p, cv)
-                h = layer.decode(h, xk, xv, self_attention, dt)
+                h = layer.decode(h, xk, xv, self_attention, dt,
+                                 fused=c.fused_qkv)
             token = torch.argmax(self._logits(h)[:, 0], -1)
             out.append(token)
         return torch.stack(out, 1)

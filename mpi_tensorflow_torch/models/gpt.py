@@ -153,7 +153,8 @@ class CausalLm(nn.Module):
                     kernel=kernel, k_scale=pl["k_scale"],
                     v_scale=pl["v_scale"], k_new=k if int4 else None,
                     v_new=v if int4 else None)
-            h = layer(h, attention, dt, reduce=reduce)
+            h = layer(h, attention, dt, reduce=reduce,
+                      fused=c.fused_qkv)
         return self._logits(h)
 
     # ---------------- contiguous cache (parity anchor) ----------------
@@ -193,7 +194,8 @@ class CausalLm(nn.Module):
                 # the same fp32 masked softmax as the paged gather path
                 return paged_ops.masked_softmax_attention(
                     q, cc["k"], cc["v"], vis[None, None], dt)
-            h = layer(h, attention, dt, reduce=reduce)
+            h = layer(h, attention, dt, reduce=reduce,
+                      fused=c.fused_qkv)
         return self._logits(h)
 
     @torch.no_grad()

@@ -23,6 +23,15 @@ one seeded follow-up turn to the trace (``two_turn_requests``) and sizes
 untrained model with learned positions emits an aperiodic stream, the
 degenerate case for any drafter).
 
+The admission policy is the reference's ``--serve-*`` fault flags:
+``--serve-deadline-ms`` (a TTL stamped on each request at submit:
+``deadline_exceeded``), ``--serve-queue-depth`` (a full waiting queue
+sheds the newest submit: ``shed``), ``--serve-max-evictions``
+(``evicted_too_often``), ``--serve-drain-ms`` (after SIGTERM, in-flight
+work finishes within the budget, the rest ends ``drained``) and
+``--serve-failover-backoff-ms`` (the router's probe backoff); the
+detail's ``status_counts`` and ``drain`` say what each did.
+
 ``measure_serving``'s arms, as the reference bench runs them:
 
 - the engine arm: an untimed warmup replay, then the timed replay under
@@ -121,12 +130,27 @@ def build_serving(*, num_requests: int = 24, rate_rps: float = 4.0,
                   workload: Optional[str] = None,
                   slo_ms: Optional[float] = None, tp: Optional[int] = None,
                   trace_mode: Optional[str] = None,
-                  trace_out: Optional[str] = None, device="cuda"):
+                  trace_out: Optional[str] = None,
+                  deadline_ms: Optional[float] = None,
+                  queue_depth: Optional[int] = None,
+                  max_evictions: Optional[int] = None,
+                  drain_ms: Optional[float] = None,
+                  failover_backoff_ms: Optional[float] = None,
+                  device="cuda"):
     """-> ``(engine, trace)``.  Unset knobs resolve through ``Config``'s
     ``serve_*`` defaults; ``layers`` cuts the model's depth (widths stay
     the preset's).  Under ``tp > 1`` this process is one rank of the
-    world, and the engine keeps its shard of the model."""
-    cfg = Config(precision=precision)
+    world, and the engine keeps its shard of the model.  The admission
+    policy (``deadline_ms``, ``queue_depth``, ``max_evictions``,
+    ``drain_ms``, ``failover_backoff_ms``) goes through ``Config`` to the
+    engine's ``ServeConfig``."""
+    policy = {k: v for k, v in (
+        ("serve_deadline_ms", deadline_ms),
+        ("serve_queue_depth", queue_depth),
+        ("serve_max_evictions", max_evictions),
+        ("serve_drain_ms", drain_ms),
+        ("serve_failover_backoff_ms", failover_backoff_ms)) if v is not None}
+    cfg = Config(precision=precision, **policy)
     max_slots = max_slots if max_slots is not None else cfg.serve_max_slots
     block_size = (block_size if block_size is not None
                   else cfg.serve_block_size)
@@ -347,6 +371,32 @@ def add_serving_args(ap) -> None:
     ap.add_argument("--serve-mixed-ab", action="store_true",
                     help="add a timed mixed-batching-off arm: mixed_ab "
                          "with dispatches per token and TTFT per arm")
+    d = Config()
+    ap.add_argument("--serve-deadline-ms", type=float,
+                    default=d.serve_deadline_ms,
+                    help="default per-request TTL from arrival: work not "
+                         "complete by then fails with deadline_exceeded "
+                         "(default: no deadline)")
+    ap.add_argument("--serve-queue-depth", type=int,
+                    default=d.serve_queue_depth,
+                    help="bound on the waiting queue: a full queue sheds "
+                         "the newest submit (status shed; default: "
+                         "unbounded)")
+    ap.add_argument("--serve-max-evictions", type=int,
+                    default=d.serve_max_evictions,
+                    help="a request preempted more than this many times "
+                         "fails with evicted_too_often (default: "
+                         "unbounded)")
+    ap.add_argument("--serve-drain-ms", type=float,
+                    default=d.serve_drain_ms,
+                    help="graceful-drain budget after SIGTERM: in-flight "
+                         "sequences finish inside it, the rest end "
+                         "drained (default: finish all in-flight work)")
+    ap.add_argument("--serve-failover-backoff-ms", type=float,
+                    default=d.serve_failover_backoff_ms,
+                    help="replica circuit breaker: probe backoff after a "
+                         "transient replica fault, doubled a consecutive "
+                         "fault (default 50)")
     ap.add_argument("--seed", type=int, default=0, help="trace seed")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the rank's own card under "
@@ -430,6 +480,21 @@ def check_serving_args(ap, args) -> None:
                  "collects; it needs --serve-trace on")
     if args.serve_slo_ms is not None and not args.serve_slo_ms > 0:
         ap.error(f"--serve-slo-ms must be > 0, got {args.serve_slo_ms}")
+    if (args.serve_deadline_ms is not None
+            and args.serve_deadline_ms <= 0) \
+            or (args.serve_queue_depth is not None
+                and args.serve_queue_depth < 1) \
+            or (args.serve_max_evictions is not None
+                and args.serve_max_evictions < 1) \
+            or (args.serve_drain_ms is not None
+                and args.serve_drain_ms < 0) \
+            or args.serve_failover_backoff_ms <= 0:
+        ap.error(f"bad --serve-* fault policy: deadline-ms "
+                 f"{args.serve_deadline_ms} (> 0), queue-depth "
+                 f"{args.serve_queue_depth} (>= 1), max-evictions "
+                 f"{args.serve_max_evictions} (>= 1), drain-ms "
+                 f"{args.serve_drain_ms} (>= 0), failover-backoff-ms "
+                 f"{args.serve_failover_backoff_ms} (> 0)")
     if (args.serve_fault_replica is None) != (args.serve_fault_step
                                               is None):
         ap.error("--serve-fault-replica and --serve-fault-step name "
@@ -717,6 +782,15 @@ def mixed_ab_block(engine, trace, requests, res: dict,
     }
 
 
+def admission_policy(args) -> dict:
+    """``build_serving``'s admission arguments from the parsed flags."""
+    return {"deadline_ms": args.serve_deadline_ms,
+            "queue_depth": args.serve_queue_depth,
+            "max_evictions": args.serve_max_evictions,
+            "drain_ms": args.serve_drain_ms,
+            "failover_backoff_ms": args.serve_failover_backoff_ms}
+
+
 def measure_serving(args) -> dict:
     """Run the arms the flags ask for (module note) and return one dict:
     the timed (or journaled, or fleet) run's numbers and the reference
@@ -755,7 +829,7 @@ def _measure(args, dev, tp: int, replicas: int) -> dict:
         prefix_route=args.serve_prefix_route,
         workload=args.serve_workload, slo_ms=args.serve_slo_ms, tp=tp,
         trace_mode=args.serve_trace, trace_out=args.serve_trace_out,
-        device=dev)
+        **admission_policy(args), device=dev)
     serve = engine.serve
     cfg = engine.model.cfg
     fault = (None if args.serve_fault_replica is None else {
@@ -796,6 +870,7 @@ def _measure(args, dev, tp: int, replicas: int) -> dict:
         "output_max": args.new_tokens, "max_seq_len": serve.max_seq_len,
         "deadline_ms": serve.deadline_ms, "queue_depth": serve.queue_depth,
         "max_evictions": serve.max_evictions, "drain_ms": serve.drain_ms,
+        "failover_backoff_ms": serve.failover_backoff_ms,
         "tiny": args.serve_tiny, "precision": args.precision,
         "layers": cfg.layers, "hidden": cfg.hidden,
         "device": str(engine.device),

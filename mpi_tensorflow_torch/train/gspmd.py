@@ -38,6 +38,15 @@ by hand, and without a process group each one is the identity:
 - **the update**: ``TransformerTx.update`` on the whole leaves or on this
   rank's slices, the global norm summed over the slices and counting
   each replicated leaf once;
+- **bfloat16 parameters** (``init_state(param_dtype=torch.bfloat16)``,
+  the reference's ``init_gspmd_state(param_dtype=)``): every floating
+  leaf of the model is stored in that dtype, and the optimizer state is
+  a ``MasterOpt``: float32 masters, the moments on them.  The step
+  accumulates the microbatches' gradients in float32 (the reference's
+  ``grad_accum_dtype``), updates the masters, and copies them back into
+  the live parameters, cast: after every step the live parameters are
+  the masters rounded to the live dtype.  Replicated only (the
+  reference's bench, the one caller, has no sharding axis);
 - **zero1**: parameters whole on every rank, moments sliced; the updated
   slices are all-gathered back into the parameters.  **fsdp**:
   parameters and moments sliced between steps; the train and eval
@@ -69,7 +78,8 @@ import torch
 from mpi_tensorflow_torch.models.bert import BertMlm
 from mpi_tensorflow_torch.parallel import collectives, fsdp
 from mpi_tensorflow_torch.parallel import mesh as meshlib
-from mpi_tensorflow_torch.train.optimizer import AdamWState, TransformerTx
+from mpi_tensorflow_torch.train.optimizer import (AdamWState, MasterOpt,
+                                                  TransformerTx)
 from mpi_tensorflow_torch.train.step import flat_buffer
 from mpi_tensorflow_torch.utils import tree as tree_lib
 
@@ -94,7 +104,7 @@ class TrainState:
     slices, and under fsdp so are their parameters (``sharding.shards``)
     while the model holds none of them between steps."""
     model: BertMlm
-    opt: AdamWState
+    opt: AdamWState | MasterOpt
     step: int = 0
     sharding: Optional[Sharding] = None
 
@@ -124,9 +134,20 @@ def _opt_tree(state: TrainState):
         for i, d in enumerate(sh.dims) if d is not None})
 
 
-def init_state(model: BertMlm, tx: TransformerTx) -> TrainState:
-    """Every leaf whole on every rank (``init_gspmd_state``)."""
-    return TrainState(model, tx.init(model.param_tree()))
+def init_state(model: BertMlm, tx: TransformerTx,
+               param_dtype: Optional[torch.dtype] = None) -> TrainState:
+    """Every leaf whole on every rank (``init_gspmd_state``).  With
+    ``param_dtype`` the model's floating leaves are cast to it in place
+    and the optimizer keeps float32 masters (module note)."""
+    tree = model.param_tree()
+    if param_dtype is None:
+        return TrainState(model, tx.init(tree))
+    leaves = tree_lib.leaves(tree)
+    master = [p.detach().to(torch.float32).clone() for p in leaves]
+    for p in leaves:
+        if p.is_floating_point():
+            p.data = p.data.to(param_dtype)
+    return TrainState(model, MasterOpt(master, tx.init(master)))
 
 
 def _sharding(model: BertMlm, kind: str, min_size: int) -> Sharding:
@@ -169,14 +190,20 @@ def init_fsdp_state(model: BertMlm, tx: TransformerTx,
     return state
 
 
-def init_for(param_sharding: str, model: BertMlm,
-             tx: TransformerTx) -> TrainState:
+def init_for(param_sharding: str, model: BertMlm, tx: TransformerTx,
+             param_dtype: Optional[torch.dtype] = None) -> TrainState:
     """The state in ``param_sharding``'s layout: replicated, zero1 or
-    fsdp."""
+    fsdp; ``param_dtype`` (replicated only) as ``init_state``'s."""
     inits = {"replicated": init_state, "zero1": init_zero1_state,
              "fsdp": init_fsdp_state}
     if param_sharding not in inits:
         raise ValueError(f"unknown param_sharding {param_sharding!r}")
+    if param_dtype is not None:
+        if param_sharding != "replicated":
+            raise ValueError(
+                f"param_dtype keeps float32 masters of whole leaves; "
+                f"{param_sharding} slices them over the ranks")
+        return init_state(model, tx, param_dtype)
     return inits[param_sharding](model, tx)
 
 
@@ -216,8 +243,9 @@ def full_params(state: TrainState):
 
 def bytes_at_rest(state: TrainState) -> dict:
     """The bytes this rank holds between steps: ``params`` (the model's
-    parameters, and under fsdp this rank's chunk) and ``moments``
-    (adamw's two), with what a whole replica would hold beside them."""
+    parameters, and under fsdp this rank's chunk), ``masters`` (the
+    float32 copies of a ``MasterOpt``, else 0) and ``moments`` (adamw's
+    two), with what a whole float32 replica would hold beside them."""
     def size(ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
@@ -228,7 +256,11 @@ def bytes_at_rest(state: TrainState) -> dict:
         if state.sharding.shards is not None:
             params += size([state.sharding.shards])
     whole = sum(4 * math.prod(s) for s in shapes)
-    return {"params": params, "moments": size(state.opt.mu + state.opt.nu),
+    master = isinstance(state.opt, MasterOpt)
+    opt = state.opt.inner if master else state.opt
+    return {"params": params,
+            "masters": size(state.opt.master) if master else 0,
+            "moments": size(opt.mu + opt.nu),
             "replica_params": whole, "replica_moments": 2 * whole}
 
 
@@ -290,6 +322,16 @@ def _reduce(state: TrainState, grads: list, loss: torch.Tensor,
             [d is not None for d in sh.dims], buf[-1])
 
 
+def _float32_grads(params: list) -> list:
+    """Each parameter's gradient in float32 (zeros where it has none),
+    every ``.grad`` cleared."""
+    out = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           if p.grad is None else p.grad.to(torch.float32) for p in params]
+    for p in params:
+        p.grad = None
+    return out
+
+
 def make_train_step(tx: TransformerTx, grad_accum: int = 1,
                     across_ranks: Optional[bool] = None):
     """``train_step(state, batch, labels, generator) -> (state, {"loss":
@@ -329,9 +371,10 @@ def make_train_step(tx: TransformerTx, grad_accum: int = 1,
             collectives.allreduce_sum(counts)
         aux_w = model.aux_weight() / (meshlib.process_count() if across
                                       else 1)
+        master = state.opt if isinstance(state.opt, MasterOpt) else None
         for p in params:
             p.grad = None
-        loss = None
+        loss = acc = None
         for i in range(accum):
             rows = slice(i * m, (i + 1) * m)
             ce, aux = model.loss_terms(
@@ -340,14 +383,25 @@ def make_train_step(tx: TransformerTx, grad_accum: int = 1,
             part = ce / torch.clamp(counts[i], min=1.0) + aux_w * aux
             part.backward()
             loss = part.detach() if loss is None else loss + part.detach()
+            if master is not None:
+                # low-precision gradients add up in float32
+                with torch.no_grad():
+                    g = _float32_grads(params)
+                    acc = g if acc is None else torch._foreach_add(acc, g)
         with torch.no_grad():
             # a leaf the loss does not read (pos_emb under rope) has a
             # zero gradient, as jax.grad gives it
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                     for p in params]
+            grads = acc if master is not None else [
+                torch.zeros_like(p) if p.grad is None else p.grad
+                for p in params]
             tree, grads, sharded, loss = _reduce(state, grads, loss, accum,
                                                  across)
-            tx.update(tree, grads, state.opt, sharded=sharded)
+            if master is None:
+                tx.update(tree, grads, state.opt, sharded=sharded)
+            else:
+                tx.update(tree_lib.unflatten(tree, master.master), grads,
+                          master.inner, sharded=sharded)
+                torch._foreach_copy_(params, master.master)
             del tree, grads
             for p in params:
                 p.grad = None

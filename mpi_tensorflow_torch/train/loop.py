@@ -35,14 +35,16 @@ one process (``psum`` only):
   The reference's ``auto`` takes its C++ worker when that loads; the
   port's takes the thread (``native`` is ROADMAP Queue 1 item 15c).
   The reference runs each window as one scanned dispatch; a CUDA graph
-  per window would be the counterpart and is not built yet;
+  per window would be the counterpart and is not built yet (ROADMAP
+  Queue 1 item 16);
 - early stopping on the validation split when ``early_stop_patience >
   0`` (every rank reaches the same verdict from the gathered
   predictions).
 
-The model is the reference CNN (``mnist_cnn``) or a ResNet
-(``resnet20``, ``resnet50``; ``models/resnet.py``), whose BatchNorm
-statistics ride in the train state (``train/step.py``); the data is
+The model is the reference CNN (``mnist_cnn``), a ResNet (``resnet20``,
+``resnet50``; ``models/resnet.py``), whose BatchNorm statistics ride in
+the train state (``train/step.py``), or the ViT (``vit``;
+``models/vit.py``, BERT's encoder on image patches); the data is
 MNIST, CIFAR-10 or the ImageNet-shaped set (``load_dataset``).  A label
 the model cannot score (``>= num_classes``) raises before any step:
 the reference builds ResNet-50 with ``config.num_classes`` (10 unless
@@ -84,7 +86,7 @@ from mpi_tensorflow_torch.config import Config
 from mpi_tensorflow_torch.data import cifar, imagenet, mnist, prefetch
 from mpi_tensorflow_torch.data import sharding
 from mpi_tensorflow_torch.data.idx import error_rate
-from mpi_tensorflow_torch.models import cnn, resnet
+from mpi_tensorflow_torch.models import cnn, resnet, vit
 from mpi_tensorflow_torch.parallel import mesh as meshlib
 from mpi_tensorflow_torch.train import evaluation, step as step_lib
 from mpi_tensorflow_torch.train.ckpt_hooks import CheckpointHooks
@@ -124,9 +126,15 @@ def build_model(config: Config):
                             compute_dtype=config.compute_dtype,
                             remat=config.remat)
     if config.model == "vit":
-        raise NotImplementedError(
-            f"model {config.model!r} is not ported yet: ROADMAP Queue 1 "
-            "item 14")
+        # the reference's rule: channels follow the dataset (MNIST is
+        # single-channel), the patch the input size (28 -> 7 px patches,
+        # a 4x4 grid; 32 -> 4 px, 8x8; else 16 px, 224 -> 14x14)
+        patch = {28: 7, 32: 4}.get(config.image_size, 16)
+        return vit.VisionTransformer.from_seed(dataclasses.replace(
+            vit.VIT_TINY_CIFAR, image_size=config.image_size, patch=patch,
+            channels=1 if config.dataset == "mnist" else 3,
+            num_classes=config.num_classes, dtype=config.compute_dtype,
+            remat=config.remat), seed=config.seed)
     raise ValueError(f"unknown image model {config.model!r}")
 
 

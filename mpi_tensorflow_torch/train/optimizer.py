@@ -169,6 +169,16 @@ class AdamWState:
     nu: list                      # second moments, one per leaf
 
 
+@dataclasses.dataclass
+class MasterOpt:
+    """Mixed-precision optimizer state (the reference's ``MasterOpt``):
+    float32 master copies of the live parameters, one per leaf in the
+    parameter tree's order, and the inner optimizer's state, which
+    lives on the masters."""
+    master: list
+    inner: AdamWState
+
+
 @dataclasses.dataclass(frozen=True)
 class TransformerTx:
     """clip_by_global_norm then adamw or lamb, over a parameter tree's

@@ -1,7 +1,7 @@
 """Analytic model FLOPs of a train step, and the card's peak.
 
 The port's own copy of ``transformer_train_flops``,
-``encdec_train_flops`` and ``image_train_flops`` from
+``encdec_train_flops``, ``vit_train_flops`` and ``image_train_flops`` from
 ``mpi_tensorflow_tpu/utils/flops.py`` (transformers: PaLM-appendix
 accounting, 6 N flops per token for a matmul of N parameters with its
 backward, 12 B S^2 E per layer for attention scores and values, the tied
@@ -66,9 +66,31 @@ def encdec_train_flops(cfg, n_dec: int, batch: int, src_len: int,
     return float(enc + dec_mm + attn + head)
 
 
-def image_train_flops(model_name: str, batch: int) -> float | None:
+def vit_train_flops(vcfg, batch: int) -> float:
+    """One forward+backward step of the ViT family (``models/vit.py``):
+    the encoder's accounting (``transformer_train_flops`` with no head)
+    at N = patches + CLS tokens, plus the patch projection; the
+    classification head is left out, as the reference leaves it."""
+    from types import SimpleNamespace
+
+    N = vcfg.num_patches + 1
+    body = transformer_train_flops(
+        SimpleNamespace(hidden=vcfg.hidden, layers=vcfg.layers,
+                        mlp=vcfg.mlp, vocab_size=0),
+        batch, N, head_positions=0)
+    patch = 6 * batch * vcfg.num_patches \
+        * (vcfg.patch ** 2 * vcfg.channels) * vcfg.hidden
+    return float(body + patch)
+
+
+def image_train_flops(model_name: str, batch: int,
+                      cfg=None) -> float | None:
     """Model flops of one forward+backward step of an image family at
-    ``batch`` images, or None for a model with no number recorded."""
+    ``batch`` images, or None for a model with no number recorded.  The
+    ViT's count follows its configuration: ``vit_train_flops(cfg)``
+    when ``cfg`` (a ``VitConfig``) is given."""
+    if model_name == "vit" and cfg is not None:
+        return vit_train_flops(cfg, batch)
     g = _IMAGE_FWD_GFLOPS.get(model_name)
     if g is None:
         return None

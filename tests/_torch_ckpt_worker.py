@@ -7,14 +7,18 @@ world.
 Imports torch, numpy and ``mpi_tensorflow_torch`` only (no JAX, no
 conftest).  The rank joins the world through a file in ``WORKDIR`` (a
 rendezvous that needs no port, so no other test's world can take it)
-over gloo, on one thread, and runs each case of ``CASES`` three times, each
+over gloo, on one thread (the test starts it with one OpenMP and BLAS
+thread too), and runs each case of ``CASES`` three times, each
 run writing its checkpoints to a directory of its own under
 ``WORKDIR``: uninterrupted (``full``), stopped by ``request_stop`` on
 rank 0 after step ``STOP`` (``part``: the stop is agreed at the next
 trace point), and resumed from that checkpoint in a fresh run of the
 same world (``part`` again).  Rank 0 writes ``WORKDIR/result.json``:
 each run's printed lines, history, first step and what each rank's
-guard recorded.
+guard recorded.  Each rank logs a ``[stamp]`` line at its import, its
+rendezvous and the end of every run, with the seconds it took, so a
+world that overruns the test's wait shows where.  The world's runs keep
+no metrics sink (the one-process tests read theirs).
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ import json
 import os
 import signal
 import sys
+import time
+
+T0 = time.perf_counter()
 
 import numpy as np
 import torch
@@ -106,15 +113,17 @@ def stopping(step, on_rank=True, by_signal=False):
 
 
 def run_case(case, ckpt_dir, resume=False, stop=None, on_rank=True,
-             world_batch=None, by_signal=False):
-    """One run of ``case`` with checkpoints in ``ckpt_dir``: ``(result,
-    printed lines, guards)``."""
+             world_batch=None, by_signal=False, metrics=True):
+    """One run of ``case`` with checkpoints in ``ckpt_dir`` (and, with
+    ``metrics``, its metrics sink there too): ``(result, printed lines,
+    guards)``."""
+    metrics_dir = ckpt_dir if metrics else None
     with stopping(stop, on_rank, by_signal) as guards, \
             contextlib.redirect_stdout(io.StringIO()) as out:
         if case in ("psum", "avg50"):
             cfg = Config(**IMAGE, sync=case, fused_steps=1 if case == "avg50"
                          else 4, checkpoint_dir=ckpt_dir, resume=resume,
-                         metrics_dir=ckpt_dir)
+                         metrics_dir=metrics_dir)
             model = resnet.ResNet.from_seed(resnet.Geometry(**RESNET_GEO),
                                             seed=0)
             res = loop.train(cfg, model=model, splits=image_splits(),
@@ -123,7 +132,7 @@ def run_case(case, ckpt_dir, resume=False, stop=None, on_rank=True,
             cfg = Config(**{**MLM_CONFIG, "batch_size": world_batch
                             or MLM_CONFIG["batch_size"]},
                          param_sharding=case, checkpoint_dir=ckpt_dir,
-                         resume=resume, metrics_dir=ckpt_dir)
+                         resume=resume, metrics_dir=metrics_dir)
             res = mlm_loop.train_mlm(cfg, MLM_CFG, device="cpu", **MLM)
     lines = [ln for ln in out.getvalue().splitlines()
              if not ln.startswith("[timing]")]
@@ -135,22 +144,41 @@ def summary(res, lines, guards) -> dict:
             "reasons": [g.reason for g in guards]}
 
 
+def stamp(what: str, t0: float) -> None:
+    """One line of the rank's log: what ended, at how many seconds
+    since the rank started and how many it took."""
+    now = time.perf_counter()
+    print(f"[stamp] {what}: {now - T0:.3f} s since start, "
+          f"{now - t0:.3f} s", flush=True)
+
+
+
 def main(rank: int, world: int, workdir: str) -> None:
     torch.set_num_threads(1)
+    t = time.perf_counter()
+    stamp("imports", T0)
     mesh.initialize_distributed(
         "cpu", "gloo", init_method="file://" + os.path.join(
             os.path.abspath(workdir), "rendezvous"),
         rank=rank, world_size=world)
+    stamp("rendezvous", t)
     out = {}
     try:
         for case in CASES:
             full = os.path.join(workdir, case, "full")
             part = os.path.join(workdir, case, "part")
-            runs = {"full": run_case(case, full),
-                    "stopped": run_case(case, part, stop=STOP,
-                                        on_rank=rank == 0)}
-            stopped_at = checkpoint.latest_step(part)
-            runs["resumed"] = run_case(case, part, resume=True)
+            runs = {}
+            for run, path, kw in (
+                    ("full", full, {}),
+                    ("stopped", part, dict(stop=STOP, on_rank=rank == 0)),
+                    ("resumed", part, dict(resume=True))):
+                t = time.perf_counter()
+                # no metrics sink: no assertion of the world reads it,
+                # and its first writer imports tensorboardX (~3 s a rank)
+                runs[run] = run_case(case, path, metrics=False, **kw)
+                stamp(f"{case} {run}", t)
+                if run == "stopped":
+                    stopped_at = checkpoint.latest_step(part)
             out[case] = {k: summary(*v) for k, v in runs.items()}
             out[case].update(last_step=checkpoint.latest_step(full),
                              stopped_at=stopped_at)

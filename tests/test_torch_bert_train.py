@@ -220,7 +220,8 @@ def test_config_defaults_and_unported_values():
             Config(**kw)
     assert Config(grad_accum=2, param_sharding="fsdp").grad_accum == 2
     with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["--device", "cpu", "--model", "vit"])
+        cli.main(["--device", "cpu", "--model", "bert_base", "--mesh",
+                  "data=1,model=2"])
 
 
 # ------------------------------------------------------- float parity

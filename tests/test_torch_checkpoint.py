@@ -351,8 +351,11 @@ WORLD = 2
 def world(tmp_path_factory):
     """The worker's result and its directory (two ranks over gloo)."""
     workdir = tmp_path_factory.mktemp("ckpt_world")
+    # one OpenMP and BLAS thread a rank, as its torch runs one: idle
+    # pool threads spin for the CPU the six test workers share
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
     for k in mesh.LAUNCH_ENV:
         env.pop(k, None)
     logs = [open(workdir / f"rank{r}.log", "w+") for r in range(WORLD)]

@@ -409,8 +409,9 @@ def test_bench_serving_traced_and_journaled(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,error", [
-    # still not ported (ROADMAP item 14)
-    (["--mode", "train", "--model", "vit"], NotImplementedError),
+    # the ViT is ported (ROADMAP item 14, first part): what the bench
+    # refuses it now is what the reference's refuses
+    (["--mode", "train", "--model", "vit", "--fused-qkv"], SystemExit),
     # item 6b is ported: what these flags are refused now is what the
     # reference refuses (a negative beam count; an A/B arm beside a
     # journal; the mixed A/B without mixed batching; an A/B arm beside
