@@ -348,11 +348,13 @@ fails:
    the bench's ViT lines fp32 and bf16 (13e's child), and a profiled
    window of each precision (idle share); 20c: config 5's bench line
    with ``--fused-qkv``, ``--params-bf16`` and ``--ce chunked`` beside
-   the plain one (flash launches 12 x 13 each), phase 8's check of fused
+   the plain one (flash launches 12 x the steps each line launched,
+   ``bench_steps_launched``), phase 8's check of fused
    against three products, and ``--params-bf16``'s live parameters ==
    its masters cast after each of 3 steps; 20d: BERT_BASE bf16 at S =
    1024, batch 16, at the default ``flash_min_seq`` (dense, no flash
-   launch) and at 0 (flash launches 12 x 13): tokens/s of each; 20e:
+   launch) and at 0 (flash launches 12 x its steps): tokens/s of each;
+   20e:
    ``--serve-queue-depth 1 --serve-deadline-ms 3000
    --serve-max-evictions 3 --serve-failover-backoff-ms 75``, then
    ``--serve-drain-ms 300`` with a stop at 3 s, each through the
@@ -364,6 +366,33 @@ fails:
    epoch, 13d's torchrun ResNet-20 epoch (93 of its 358 steps run), 16a's
    threaded fleet at full width and 17f (the spec and mixed arms timed
    at full width), each noted where it ran.
+21. The scanned arm (right after 20e; every trainer, bench train line,
+   evaluation, all-reduce chain and decode call of the phases above
+   already runs as CUDA graph replays, the bench lines' flash launches
+   counted through them) — 21a: K graphed steps of
+   ``step.make_multi_train_step`` / ``gspmd.make_multi_step`` against K
+   eager steps of the same function from the same seeded state, bit for
+   bit (or within a second eager run's distance, where they differ;
+   cuDNN deterministic, TF32 off): the CNN with dropout, ResNet-20 with
+   its BatchNorm state, ViT fp32 and bf16, config 5 at S = 4096 with
+   remat ``full`` and dropout (the flash kernels in the graph), gpt_base
+   causal, the MoE and the enc-dec family (S = 1024, ``flash_min_seq``
+   0); the graphed runs' flash launches (``launches_graphed``); 21b
+   (right after 10b, whose run it reuses, under cuDNN's deterministic
+   algorithms): the zero-flag trainer, graphed windows against
+   ``--fused-steps 1``: 32 identical trace lines and an identical state;
+   21c: 14b's stop,
+   asked for inside a graphed window, checkpointed at the window's end
+   and resumed; 21d: ``generate`` greedy and sampled, ``beam_search`` of
+   4 and the enc-dec ``generate``, each a graph replay, against their
+   eager loops, tokens identical; 21e-f (run alone, not by ``main``:
+   ~120-160 s, past this script's time; ``python3 -c "import chip_smoke
+   as c; c.scan_timing_phase(c.card_line())"``, a child process of its
+   own): graphed against eager step times (CNN, ResNet-20, ResNet-50
+   bf16, ViT fp32 and bf16, config 5 and BASELINE's config 5 shape,
+   batch 64 at S = 128, K = 4), decode per-token ms by the bench's
+   slope, the all-reduce chain in a world of one over NCCL, each with
+   its idle share from a profiled window.
 
 Prints one ``kernels`` JSON line, then the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a card it
@@ -2338,7 +2367,19 @@ def cnn_zero_flag(dev, card: str, argv, want_steps: int,
         "final_loss": res.final_loss, "history": res.history,
         "wall_s": wall}
     log("[cnn] " + json.dumps(summary))
-    return summary
+    # 21b holds this run against --fused-steps 1
+    return {**summary, "result": res, "lines": lines}
+
+
+def bench_steps_launched(line: dict) -> int:
+    """The train steps a bench line launched: the one-step arm's warm-up
+    and timed steps; the scanned arm's (``scan_steps`` K) untimed and
+    timed dispatches of K steps and the capture's warm-up window (on the
+    card each dispatch is one graph replay of K steps)."""
+    K = line["scan_steps"]
+    if not K:
+        return line["warmup"] + line["steps"]
+    return (max(1, line["warmup"] // K) + 1 + line["steps"] // K + 1) * K
 
 
 def bench_main_line(argv) -> dict:
@@ -2453,8 +2494,16 @@ def cnn_phase(dev, card: str) -> dict:
     # the bf16 epoch is cut for the script's time: 10a holds bf16 steps
     # to the CPU's, 13e times its step, and 13b and 14a run the loop in
     # bf16
-    runs = {"fp32": cnn_zero_flag(dev, card, ["--data-dir", CNN_DATA_DIR],
-                                  1562, every50(1562))}
+    # cuDNN deterministic: 21b holds this graphed run against the eager
+    # one bit for bit
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {"fp32": cnn_zero_flag(dev, card, ["--data-dir",
+                                                  CNN_DATA_DIR],
+                                      1562, every50(1562))}
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
     torch.cuda.synchronize(dev)
     moved = {k: v for k, v in hand_kernel_counts().items() if v}
     set_hand_kernel_counts(saved)
@@ -3824,14 +3873,18 @@ PREFETCH_TRAINERS = (("resnet50_bf16", PREFETCH_ARGS, PREFETCH_PAIRS),
 # then the host feed alone: 64 rows a step, windows of 11 (the trainer's)
 HOSTIO_ARGS = ["--batch-size", "64", "--window-k", "11", "--windows", "6",
                "--hostio-dir", "build"]
-# 14b: ResNet-20 fp32 psum on the first 13 000 rows of the synthetic
-# CIFAR-10 (93 steps of 128, a trace every 10), stopped by request_stop
-# after step STOP_IMAGE (between the trace points 20 and 30), resumed;
+# 14b (and 21c): ResNet-20 fp32 psum on the first 13 000 rows of the
+# synthetic CIFAR-10 (93 steps of 128, a trace every 10: windows of 11
+# steps, then 10), stopped by request_stop during the window of steps
+# 21-30, which holds STOP_IMAGE: a replay runs its window to the end, so
+# the loop checkpoints step 30 (STOP_IMAGE_END) and stops before that
+# trace point's evaluation (the reference's scanned loop does the same);
+# resumed;
 # cuDNN's deterministic algorithms, so that two uninterrupted runs can be
 # bit-equal
 CKPT_DIR = "build/ckpt14"            # git-ignored; removed at the end
 CKPT_IMAGE_ARGS = RESNET_AVG50_ARGS + ["--precision", "fp32"]
-STOP_IMAGE = 25
+STOP_IMAGE, STOP_IMAGE_END = 25, 30
 # 14c: phase 7's BERT_BASE bf16 S = 4096 batch 4 run (8 steps, trace
 # points 4 and 7), stopped at the trace point 4 and resumed for 5-7
 STOP_MLM = 4
@@ -3843,8 +3896,11 @@ CKPT_DP_KINDS = ("zero1", "fsdp")
 @contextlib.contextmanager
 def stopping(step, at_trace: bool = False):
     """Runs in the block record their checkpoint hooks (the yielded
-    list); with ``step``, each asks its guard to stop once its state has
-    taken train step ``step`` (the loop stops after that step), or with
+    list); with ``step``, each asks its guard to stop as the image
+    loop's window holding train step ``step`` is launched (one graph
+    replay on the card: the loop stops at the window's end, step
+    ``window_end(step)``), a transformer run once its state has taken
+    train step ``step``, or with
     ``at_trace`` once it has queued the checkpoint of trace point
     ``step`` (the loop stops there, the stop agreed).  Each hook's
     ``preempt_save`` is timed into its ``flush_s``."""
@@ -3882,16 +3938,34 @@ def stopping(step, at_trace: bool = False):
             return train_step
         return made_step
 
+    def wrap_multi(make):
+        # the image loop's windows: a replay cannot stop inside its
+        # window, so the stop is asked for as the window holding step
+        # ``step`` is launched, and lands at its end
+        def made_multi(*a, **kw):
+            fn = make(*a, **kw)
+
+            def multi_step(state, batches, labels, n_valid=None, stop=None):
+                t0 = int(state.opt.step)
+                n = batches.shape[0] if n_valid is None else n_valid
+                if step is not None and not at_trace \
+                        and t0 <= step < t0 + n:
+                    made[-1].guard.request_stop()
+                return fn(state, batches, labels, n_valid, stop)
+            multi_step.prepare = fn.prepare
+            return multi_step
+        return made_multi
+
     real = (loop.CheckpointHooks, mlm_loop.CheckpointHooks,
-            step_lib.make_train_step, gspmd.make_train_step)
+            step_lib.make_multi_train_step, gspmd.make_train_step)
     loop.CheckpointHooks = mlm_loop.CheckpointHooks = Hooks
-    step_lib.make_train_step = wrap(real[2], lambda s: int(s.opt.step))
+    step_lib.make_multi_train_step = wrap_multi(real[2])
     gspmd.make_train_step = wrap(real[3], lambda s: int(s.step))
     try:
         yield made
     finally:
         (loop.CheckpointHooks, mlm_loop.CheckpointHooks,
-         step_lib.make_train_step, gspmd.make_train_step) = real
+         step_lib.make_multi_train_step, gspmd.make_train_step) = real
 
 
 def cli_run(argv, train_fn="loop"):
@@ -4038,7 +4112,9 @@ def prefetch_phase(card: str) -> dict:
 
 def ckpt_image_phase(dev, card: str, nccl_trace) -> dict:
     """14b: ResNet-20 fp32 psum through cli.main with --checkpoint-dir and
-    --metrics-dir, stopped by request_stop after STOP_IMAGE and resumed:
+    --metrics-dir, stopped by request_stop during the graphed window
+    holding STOP_IMAGE (checkpointed at its end, STOP_IMAGE_END: 21c)
+    and resumed:
     the trace, parameters, velocity and BatchNorm state of the
     uninterrupted run (bit-equal if two uninterrupted runs are, else
     within twice their distance), and the metrics' tags; the
@@ -4065,7 +4141,7 @@ def ckpt_image_phase(dev, card: str, nccl_trace) -> dict:
             _, stop_lines = cli_run(CKPT_IMAGE_ARGS + [
                 "--checkpoint-dir", d, "--metrics-dir", d])
         stop_hooks = hooks[0]
-        ckpt_bytes = _dir_bytes(checkpoint.step_path(d, STOP_IMAGE)
+        ckpt_bytes = _dir_bytes(checkpoint.step_path(d, STOP_IMAGE_END)
                                 + ".sharded")
         with stopping(None) as hooks:
             res, res_lines = cli_run(CKPT_IMAGE_ARGS + [
@@ -4087,16 +4163,24 @@ def ckpt_image_phase(dev, card: str, nccl_trace) -> dict:
     if check_trace(want[0], 1, want_steps, "14b") != nccl_trace:
         problems.append(f"13d's run at world 1 over NCCL traced "
                         f"{nccl_trace}, this run {want[0]}")
-    if _joined(stop_lines, res_lines) != want[0]:
+    # the stop lands on the trace step that ends its window: the loop
+    # checkpoints that step and stops before its evaluation, as the
+    # reference's scanned loop does, so that one trace line is missing
+    at_stop = f"0  process at  {STOP_IMAGE_END} with test error:"
+    want_joined = [ln for ln in want[0] if not ln.startswith(at_stop)]
+    if _joined(stop_lines, res_lines) != want_joined \
+            or len(want_joined) != len(want[0]) - 1:
         problems.append(f"stopped + resumed trace {stop_lines} + "
-                        f"{res_lines} != {want[0]}")
+                        f"{res_lines} != {want_joined}")
     if checkpoint.latest_step(d) != res.num_steps - 1 or not any(
-            f"checkpointed step {STOP_IMAGE}" in ln for ln in stop_lines):
+            f"checkpointed step {STOP_IMAGE_END}" in ln
+            for ln in stop_lines):
         problems.append(f"checkpoints {sorted(os.listdir(d))}")
     if got > 2 * own or (own == 0.0 and got != 0.0):
         problems.append(f"resumed state {got} from the uninterrupted "
                         f"run's, which differ by {own} among themselves")
-    if evals != want_steps or tags[-1]["tag"] != "perf/images_per_sec":
+    if evals != [t for t in want_steps if t != STOP_IMAGE_END] \
+            or tags[-1]["tag"] != "perf/images_per_sec":
         problems.append(f"metrics {tags}")
     if problems:
         raise AssertionError(f"14b: {problems}")
@@ -4111,8 +4195,10 @@ def ckpt_image_phase(dev, card: str, nccl_trace) -> dict:
     held = ("bit-equal (two uninterrupted runs are bit-equal)"
             if own == 0.0 else f"within {got:.3e}, the uninterrupted runs "
             f"{own:.3e} apart (bound: twice that)")
-    log(f"[checkpoint] 14b ResNet-20 fp32 psum, stopped after step "
-        f"{STOP_IMAGE} and resumed: trace identical (and the uninterrupted "
+    log(f"[checkpoint] 14b (21c) ResNet-20 fp32 psum, stopped during the "
+        f"graphed window holding step {STOP_IMAGE}, checkpointed at its end "
+        f"(step {STOP_IMAGE_END}) and resumed: trace identical (and the "
+        f"uninterrupted "
         f"run's identical to 13d's at world 1 over NCCL); state {held}; "
         f"{json.dumps(out)}")
     shutil.rmtree(d, ignore_errors=True)
@@ -5428,7 +5514,7 @@ def vit_lever_phase(dev, card: str, bench_lines: dict) -> dict:
     out["levers"] = {}
     for name in LEVERS:
         line = bench_lines[f"bert_base bf16 {name}"]
-        want = {k: 12 * 13 for k in FLASH}
+        want = {k: 12 * bench_steps_launched(line) for k in FLASH}
         if line["flash_launches"] != want \
                 or line["flash_launches"] != base["flash_launches"]:
             raise AssertionError(f"20c {name}: flash launches "
@@ -5471,7 +5557,7 @@ def vit_lever_phase(dev, card: str, bench_lines: dict) -> dict:
     phase("20d")
     dense = bench_lines["bert_base bf16 S=1024"]
     flash = bench_lines["bert_base bf16 S=1024 flash_min_seq 0"]
-    want = {k: 12 * 13 for k in FLASH}
+    want = {k: 12 * bench_steps_launched(flash) for k in FLASH}
     if any(dense["flash_launches"].values()) \
             or flash["flash_launches"] != want \
             or flash["flash_min_seq"] != 0 \
@@ -5492,6 +5578,476 @@ def vit_lever_phase(dev, card: str, bench_lines: dict) -> dict:
     phase("20b profile")
     out["profile"] = vit_profile(dev, card)
     return out
+
+
+# --------------------------------------------------------------- phase 21
+
+# 21a: K graphed steps (one replay of ``step.make_multi_train_step`` /
+# ``gspmd.make_multi_step``) against K eager steps of the same function
+# (``train.graphs.use_graphs`` answering False), each from the same
+# seeded state: bit for bit, or, where they differ, within the distance
+# of a second eager run from the first (cuDNN deterministic, TF32 off)
+SCAN_IMAGE_CASES = (("cnn fp32 dropout", "mnist_cnn", "fp32", 64, 5),
+                    ("resnet20 fp32", "resnet20", "fp32", 128, 3),
+                    ("vit fp32", "vit", "fp32", 128, 3),
+                    ("vit bf16", "vit", "bf16", 128, 3))
+# (label, family, S, batch, K, BertConfig changes): config 5 with remat
+# full and dropout at S = 4096 (the flash kernels in the graph), the
+# causal LM there too, the MoE and the enc-dec family at S = 1024 with
+# flash_min_seq 0 (the flash kernels at a quarter of the time)
+SCAN_LM_CASES = (("config 5 remat", "bert_base", 4096, 4, 2,
+                  dict(remat=True)),
+                 ("gpt_base", "gpt_base", 4096, 4, 2, {}),
+                 ("moe_bert", "moe_bert", 1024, 4, 2, dict(flash_min_seq=0)),
+                 ("encdec_t5", "encdec_t5", 1024, 4, 2,
+                  dict(flash_min_seq=0)))
+SCAN_SEED = 5
+# 21f, in a child process (no profiler session before its timing): the
+# graphed dispatch beside K eager steps of the same function on the same
+# state, each the median of SCAN_TIMED_CALLS calls after two, then each
+# profiled (a second pass, after every timing) for its idle share
+# (label, kind, arm arguments, the bench's K, the profiled window's
+# steps, short: the profiler handles every kernel event on the host); an
+# eager image call runs at most SCAN_EAGER_STEPS of its K steps
+SCAN_TIMED = (("cnn fp32", "image", ("mnist_cnn", "fp32", 64), 400, 20),
+              ("resnet20 fp32", "image", ("resnet20", "fp32", 128), 50, 4),
+              ("resnet50 bf16", "image", ("resnet50", "bf16", 32), 8, 2),
+              ("vit fp32", "image", ("vit", "fp32", 128), 20, 2),
+              ("vit bf16", "image", ("vit", "bf16", 128), 20, 2),
+              ("config 5", "lm", ("bert_base", 4096, 4, {}), 4, 1),
+              ("config 5 BASELINE shape", "lm", ("bert_base", 128, 64, {}),
+               4, 1))
+SCAN_TIMED_CALLS = 3
+SCAN_EAGER_STEPS = 10
+# decode: the bench's slope between 8 and 72 new tokens (its default
+# lengths are 16 and 144), a profile of 4 tokens
+SCAN_DECODE = dict(batch=8, prompt=32, new=64, profiled=4)
+
+
+@contextlib.contextmanager
+def eager_only():
+    """Every graphed path of the port runs its eager loop inside the
+    block (the control of phase 21)."""
+    from mpi_tensorflow_torch.train import graphs
+
+    real = graphs.use_graphs
+    graphs.use_graphs = lambda device: False
+    try:
+        yield
+    finally:
+        graphs.use_graphs = real
+
+
+def scan_image_arm(dev, name: str, prec: str, B: int, K: int,
+                   horizon: int):
+    """``(multi(n=K) -> losses (K,), tensors())``: the image multi-step
+    of ``name`` over the first n of one seeded window of K batches, and
+    the state's parameters, velocity and BatchNorm state."""
+    from mpi_tensorflow_torch import bench
+    from mpi_tensorflow_torch.config import Config
+    from mpi_tensorflow_torch.train import loop, step
+    from mpi_tensorflow_torch.utils import tree as tree_lib
+
+    spec = bench.IMAGE_SPECS[name]
+    cfg = Config(model=name, batch_size=B, precision=prec,
+                 num_classes=spec["classes"], image_size=spec["shape"][0],
+                 dataset=spec.get("dataset", "mnist"))
+    model = loop.build_model(cfg).to(dev)
+    state = step.init_state(model)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((K, B, *spec["shape"]), device=dev, generator=g) * 0.3
+    y = torch.randint(0, cfg.num_classes, (K, B), device=dev, generator=g)
+    multi = step.make_multi_train_step(model, cfg, 1, 50000,
+                                       horizon=horizon)
+
+    def tensors():
+        return [t.detach().clone() for t in list(model.parameters())
+                + state.opt.velocity + tree_lib.leaves(state.model_state)]
+    return (lambda n=None: multi(state, x, y, n)[1]["loss"]), tensors
+
+
+def scan_lm_arm(dev, family: str, S: int, B: int, K: int, extra: dict,
+                horizon: int, dropout: float = 0.1, model=None):
+    """``(multi(n=K) -> losses (n,), tensors())`` for a transformer
+    family at BERT_BASE widths in bf16 over the first n of one window of
+    K batches (``model``: one built for the same arguments, reused)."""
+    from mpi_tensorflow_torch.data import synthetic
+    from mpi_tensorflow_torch.models import bert
+    from mpi_tensorflow_torch.train import gspmd, mlm_loop, optimizer
+    from mpi_tensorflow_torch.utils import tree as tree_lib
+
+    cfg = dataclasses.replace(bert.BERT_BASE, dtype=torch.bfloat16,
+                              dropout=dropout,
+                              max_positions=max(512, S), **extra)
+    if model is None:
+        model = mlm_loop.FAMILIES[family].from_seed(cfg, 0).to(dev)
+    tx = optimizer.transformer_tx(1e-4, horizon)
+    state = gspmd.init_state(model, tx)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a).reshape(
+        K, B, S)).to(dev)
+    if family == "encdec_t5":
+        src, tgt = synthetic.seq2seq_batches(K * B, src_len=S, tgt_len=S,
+                                             vocab_size=cfg.vocab_size,
+                                             seed=0)
+        batch, labels = {"src": put(src), "tgt": put(tgt)}, put(tgt)
+    else:
+        tok, tgt, mask = synthetic.mlm_batches(K * B, seq_len=S,
+                                               vocab_size=cfg.vocab_size,
+                                               seed=0)
+        batch, labels = {"tokens": put(tok), "mask": put(mask)}, put(tgt)
+    multi = gspmd.make_multi_step(tx, seed=SCAN_SEED, horizon=horizon)
+
+    def tensors():
+        return [t.detach().clone() for t in
+                tree_lib.leaves(model.param_tree())]
+
+    def run(n=None):
+        return multi(state, {k: v[:n] for k, v in batch.items()},
+                     labels[:n])[1]["loss"]
+    run.model = model
+    return run, tensors
+
+
+def _scan_distance(a, b) -> float:
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def scan_bit_phase(dev, card: str) -> dict:
+    """21a: each case's graphed run against an eager run (module note);
+    the flash launches of the graphed transformer runs counted
+    from 0 (the capture's warm-up window and the replay)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out, launches = {}, {}
+    try:
+        cases = [(label, "image", args, args[-1]) for label, *args in
+                 SCAN_IMAGE_CASES] + [
+            (label, "lm", args, args[3]) for label, *args in SCAN_LM_CASES]
+        for label, kind, args, K in cases:
+            runs, built = {}, {}
+
+            def run(arm):
+                if kind == "image":
+                    multi, tensors = scan_image_arm(dev, *args[:3], K, K)
+                else:           # one build a case, its parameters put back
+                    model = built.get("model")
+                    if model is not None:
+                        with torch.no_grad():
+                            for p, p0 in zip(model.parameters(),
+                                             built["init"]):
+                                p.copy_(p0)
+                    multi, tensors = scan_lm_arm(dev, args[0], args[1],
+                                                 args[2], K, args[4], K,
+                                                 model=model)
+                    if model is None:
+                        built["model"] = multi.model
+                        built["init"] = [p.detach().clone() for p in
+                                         multi.model.parameters()]
+                set_flash_counts({k: 0 for k in FLASH})
+                with eager_only() if arm != "graphed" \
+                        else contextlib.nullcontext():
+                    losses = multi()
+                torch.cuda.synchronize(dev)
+                runs[arm] = [losses.detach().clone()] + tensors()
+                torch.cuda.empty_cache()
+                return flash_counts()
+
+            run("eager")
+            counts = run("graphed")
+            dist = _scan_distance(runs["graphed"], runs["eager"])
+            spread = 0.0
+            if dist:        # the bound: two eager runs' distance
+                run("eager again")
+                spread = _scan_distance(runs["eager again"], runs["eager"])
+            if not all(torch.isfinite(t.float()).all()
+                       for t in runs["graphed"]):
+                raise AssertionError(f"21a {label}: non-finite")
+            if dist > spread:
+                raise AssertionError(
+                    f"21a {label}: graphed against eager {dist}, two eager "
+                    f"runs {spread} apart")
+            if kind == "lm":
+                # the warm-up window's launches and the replay's, alike:
+                # the forward twice a layer under remat
+                launches[label] = counts
+                per = 2 if args[4].get("remat") else 1
+                dq = counts["flash_dq"]
+                if dq == 0 or dq % (2 * K) or counts["flash_fwd"] != per * dq \
+                        or counts["flash_dkdv"] != dq:
+                    raise AssertionError(f"21a {label}: flash launches "
+                                         f"{counts}")
+            out[label] = {"K": K, "graphed_vs_eager": dist,
+                          "eager_vs_eager": spread,
+                          "bit_equal": dist == 0.0,
+                          "losses": runs["graphed"][0].float().tolist()}
+            held = f" (two eager runs {spread} apart)" if dist \
+                else ": bit for bit"
+            log(f"[scan 21a] {label}: {K} graphed steps against {K} eager "
+                f"ones: max|diff| {dist}{held}; flash "
+                f"launches of the graphed run (warm-up window + replay) "
+                f"{json.dumps(counts)}; {card}")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return {"cases": out, "launches": launches}
+
+
+def scan_trainer_phase(dev, card: str, graphed: dict) -> dict:
+    """21b: the zero-flag CNN trainer (graphed windows of 51 steps, the
+    evaluation one replay; 10b's run, ``graphed``) against ``--fused-steps
+    1`` (one eager step at a time): the 32 trace lines and the
+    parameters and velocity identical (cuDNN deterministic in both)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        eager, e_lines = cli_run(["--data-dir", CNN_DATA_DIR,
+                                  "--fused-steps", "1"])
+        wall = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    res = graphed["result"]
+    dist = _apart(_image_state(res), _image_state(eager))
+    g_lines, e_lines = ([ln for ln in lines if TRACE_LINE.fullmatch(ln)]
+                        for lines in (graphed["lines"], e_lines))
+    if g_lines != e_lines or len(g_lines) != 32 or dist != 0.0:
+        raise AssertionError(f"21b: graphed trace {g_lines[-3:]} against "
+                             f"eager {e_lines[-3:]}, state {dist} apart")
+    out = {"steps": res.num_steps, "trace_lines": len(g_lines),
+           "graphed_wall_s": graphed["wall_s"], "eager_wall_s": wall,
+           "graphed_step_ms": res.step_time_seconds * 1e3,
+           "eager_step_ms": eager.step_time_seconds * 1e3}
+    log(f"[scan 21b] zero-flag CNN trainer, graphed windows (10b's run) "
+        f"against --fused-steps 1: trace lines and state identical; "
+        f"{json.dumps(out)}; {card}")
+    return out
+
+
+def scan_decode_phase(dev, card: str) -> dict:
+    """21d: ``generate`` (greedy; sampled at temperature 0.8, top-k 50,
+    one seed), ``beam_search`` (4 beams) and the enc-dec ``generate``,
+    each one graph replay, against their eager loops at BERT_BASE bf16:
+    tokens (and beam scores, and the sampling generator's state after
+    the call) identical, at the capture and at a second replay."""
+    from mpi_tensorflow_torch.models import bert, encdec
+    from mpi_tensorflow_torch.models.gpt import CausalLm
+
+    cfg = dataclasses.replace(bert.BERT_BASE, dtype=torch.bfloat16)
+    model = CausalLm.from_seed(cfg, 0).to(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 16), device=dev,
+                           generator=g)
+    n = 16
+    out = {}
+    for rep in range(2):
+        want = model.decode_loop(prompt, n)
+        if not torch.equal(model.generate(prompt, n), want):
+            raise AssertionError(f"21d greedy (call {rep})")
+        ga, gb = (torch.Generator(device=dev).manual_seed(7 + rep)
+                  for _ in range(2))
+        got = model.generate(prompt, n, temperature=0.8, top_k=50,
+                             generator=ga)
+        want = model.decode_loop(prompt, n, temperature=0.8, top_k=50,
+                                 generator=gb)
+        if not torch.equal(got, want) or not torch.equal(
+                ga.get_state(), gb.get_state()):
+            raise AssertionError(f"21d sampled (call {rep})")
+        seqs, scores = model.beam_search(prompt, n, num_beams=4)
+        wseqs, wscores = model.beam_loop(prompt, n, num_beams=4)
+        if not (torch.equal(seqs, wseqs) and torch.equal(scores, wscores)):
+            raise AssertionError(f"21d beams (call {rep})")
+    out["causal"] = {"graphs": len(model._call_graphs) - 1}
+    del model
+    ed = encdec.EncDecLm.from_seed(cfg, 0).to(dev)
+    src = torch.randint(0, cfg.vocab_size, (4, 32), device=dev, generator=g)
+    for rep in range(2):
+        if not torch.equal(ed.generate(src, n), ed.decode_loop(src, n)):
+            raise AssertionError(f"21d enc-dec (call {rep})")
+    log(f"[scan 21d] decode at BERT_BASE bf16, batch 4, prompt 16, {n} "
+        f"tokens: generate greedy and sampled (seed 7, 8; the generator's "
+        f"state after the call too), beam_search of 4 and the enc-dec "
+        f"generate, each one graph replay, identical to their eager loops "
+        f"at the capture's call and a replay; {card}")
+    return out
+
+
+def _scan_timed_arm(dev, kind, args, K, horizon):
+    """``multi(n=K)``: the image or transformer arm's first n steps of
+    its window of K, graphed (one graph a width) or under
+    ``eager_only`` eager."""
+    if kind == "image":
+        return scan_image_arm(dev, *args, K, horizon)[0]
+    family, S, B, extra = args
+    return scan_lm_arm(dev, family, S, B, K, extra, horizon)[0]
+
+
+def _median_ms(fn, calls: int, per: int, warm: int = 2) -> float:
+    """The median ms of ``calls`` calls of ``fn`` (each closed by a
+    synchronisation), after ``warm``, divided by ``per``."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2] * 1e3 / per
+
+
+def worker_scan_timing(_backend: str) -> None:
+    """21e-f in a process of its own (no profiler session before the
+    timing): each of ``SCAN_TIMED`` graphed (one replay of K steps)
+    beside eager (K steps of the same function), decode (the bench's
+    ``measure_decode``, graphed and eager) and the all-reduce chain (the
+    bench's, in a world of one over NCCL, graphed and eager); after every
+    timing, one call of each arm profiled on the same graphs for its
+    idle share, over ``K_p`` steps (decode: ``profiled`` tokens).
+    Progress lines
+    ``[scan-t]``."""
+    from mpi_tensorflow_torch import bench
+    from mpi_tensorflow_torch.models import bert
+    from mpi_tensorflow_torch.models.gpt import CausalLm
+    from mpi_tensorflow_torch.parallel import collectives
+    from mpi_tensorflow_torch.parallel import mesh as meshlib
+    from mpi_tensorflow_torch.train import graphs
+    from mpi_tensorflow_torch.utils import profiling
+    from mpi_tensorflow_torch.utils.device import resolve_device
+
+    dev = resolve_device(torch.device("cuda", 0))
+    t_start = time.perf_counter()
+
+    def say(what):
+        print(f"[scan-t] {what} at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
+    lines, arms = {}, {}
+    for label, kind, args, K, K_p in SCAN_TIMED:
+        multi = _scan_timed_arm(dev, kind, args, K, 64 * K)
+        n = min(K, SCAN_EAGER_STEPS) if kind == "image" else K
+        graphed_ms = _median_ms(multi, SCAN_TIMED_CALLS, K)
+        with eager_only():
+            eager_ms = _median_ms(lambda: multi(n), SCAN_TIMED_CALLS, n,
+                                  warm=1)
+        lines[label] = {"K": K, "graphed_step_ms": graphed_ms,
+                        "eager_step_ms": eager_ms, "eager_steps_a_call": n}
+        arms[label] = (multi, K_p)
+        say(label)
+    dec = SCAN_DECODE
+    lines["decode"] = {"graphed": bench.measure_decode(
+        dec["batch"], dec["prompt"], dec["new"], "bf16", 3, device=dev)}
+    with eager_only():          # two timed calls a length (~2 s each)
+        lines["decode"]["eager"] = bench.measure_decode(
+            dec["batch"], dec["prompt"], dec["new"], "bf16", 2, device=dev)
+    say("decode")
+    meshlib.initialize_distributed(
+        dev, init_method=f"tcp://127.0.0.1:{meshlib.free_port()}", rank=0,
+        world_size=1)
+    try:
+        lines["allreduce"] = {"graphed": bench.measure_allreduce(device=dev)}
+        with eager_only():
+            lines["allreduce"]["eager"] = bench.measure_allreduce(
+                device=dev)
+        say("allreduce")
+        # the profiles, after every timing: one call of each arm
+        x = torch.ones(int(25.4e6 / 4), device=dev)
+
+        def chain():
+            for _ in range(32):
+                collectives.allreduce_sum(x).mul_(1.0)
+        replay = graphs.Graphs(dev).capture(chain, [])
+        lines["allreduce"]["idle"] = {
+            "graphed": profiling.device_summary(profiling.profiled_kernels(
+                replay.replay, replay.replay))["device_idle_share"],
+            "eager": profiling.device_summary(profiling.profiled_kernels(
+                chain, chain))["device_idle_share"]}
+    finally:
+        meshlib.shutdown()
+    for label, (multi, K_p) in arms.items():
+        idle = {}
+        multi(K_p)                  # its graph of K_p steps captured
+        for arm in ("graphed", "eager"):
+            ctx = eager_only() if arm == "eager" else contextlib.nullcontext()
+            with ctx:
+                s = profiling.device_summary(profiling.profiled_kernels(
+                    lambda: multi(K_p), lambda: multi(K_p)))
+            idle[arm] = {"device_idle_share": s["device_idle_share"],
+                         "device_busy_ms_a_step": s["device_busy_ms"] / K_p,
+                         "kernels_a_step": s["kernel_events"] / K_p,
+                         "steps": K_p}
+        lines[label]["profile"] = idle
+        say(f"{label} profiled")
+    del arms
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(bert.BERT_BASE, dtype=torch.bfloat16)
+    model = CausalLm.from_seed(cfg, 0).to(dev)
+    prompt = torch.randint(0, cfg.vocab_size, (dec["batch"], dec["prompt"]),
+                           device=dev)
+    n = dec["profiled"]
+    model.generate(prompt, n)
+    idle = {}
+    for arm, fn in (("graphed", lambda: model.generate(prompt, n)),
+                    ("eager", lambda: model.decode_loop(prompt, n))):
+        s = profiling.device_summary(profiling.profiled_kernels(fn, fn))
+        idle[arm] = {"device_idle_share": s["device_idle_share"],
+                     "device_busy_ms_a_token": s["device_busy_ms"] / n,
+                     "kernels_a_token": s["kernel_events"] / n}
+    lines["decode"]["profile"] = idle
+    say("decode profiled")
+    print(DP_RESULT + json.dumps({"case": "scan_timing", "lines": lines}),
+          flush=True)
+
+
+WORKERS.update(scan_timing=worker_scan_timing)
+
+
+def scan_timing_phase(card: str) -> dict:
+    """21e-f: ``worker_scan_timing``'s lines, printed."""
+    out = run_sub([sys.executable, os.path.abspath(__file__), "--worker",
+                   "scan_timing", "none"], timeout=600)
+    for ln in out.splitlines():
+        if ln.startswith("[scan-t]"):
+            log(ln)
+    lines = dp_result(out)["lines"]
+    for label, line in lines.items():
+        if label in ("decode", "allreduce"):
+            continue
+        p = line["profile"]
+        log(f"[scan timing] {label}: graphed {line['graphed_step_ms']:.4f} "
+            f"ms a step (idle {p['graphed']['device_idle_share']}, busy "
+            f"{p['graphed']['device_busy_ms_a_step']:.4f} ms, "
+            f"{p['graphed']['kernels_a_step']:.1f} kernels a step), eager "
+            f"{line['eager_step_ms']:.4f} ms (idle "
+            f"{p['eager']['device_idle_share']}, busy "
+            f"{p['eager']['device_busy_ms_a_step']:.4f} ms); K "
+            f"{line['K']}; {card}")
+    d = lines["decode"]
+    log(f"[scan timing] decode (BERT_BASE bf16, batch "
+        f"{SCAN_DECODE['batch']}, the bench's slope): graphed "
+        f"{d['graphed']['per_token_ms']:.4f} ms a token, eager "
+        f"{d['eager']['per_token_ms']:.4f} ms; idle "
+        f"{json.dumps(d['profile'])}; roofline "
+        f"{d['graphed']['roofline_min_per_token_ms']:.4f} ms; {card}")
+    a = lines["allreduce"]
+    if not a["graphed"]["graph_replay"] or a["eager"]["graph_replay"]:
+        raise AssertionError(f"21e: allreduce arms {a}")
+    log(f"[scan timing] all-reduce chain of 32, 25.4 MB, world of one over "
+        f"NCCL: graphed {a['graphed']['allreduce_ms']:.4f} ms an "
+        f"all-reduce, eager {a['eager']['allreduce_ms']:.4f} ms; idle "
+        f"{json.dumps(a['idle'])}; {card}")
+    return lines
+
+
+def scan_phase(dev, card: str) -> dict:
+    """Phase 21a and 21d: the scanned arm's checks on the card (module
+    note; 21b runs after 10b, 21c is 14b's stop; 21e-f's timing is run
+    alone: ``scan_timing_phase``)."""
+    phase("21a")
+    bits = scan_bit_phase(dev, card)
+    phase("21d")
+    decode = scan_decode_phase(dev, card)
+    return {"bits": bits, "decode": decode, "launches": bits["launches"]}
 
 
 def main() -> int:
@@ -5531,6 +6087,8 @@ def main() -> int:
     phase("20e the admission flags")
     admission = admission_phase(dev, card, trace)
     del engine
+    phase("21 the scanned arm")
+    scan = scan_phase(dev, card)
     phase("2 paged kernel timing")
     timing = time_decode(dev)
     quant_timing = time_decode_quant(dev)
@@ -5560,6 +6118,8 @@ def main() -> int:
     fused.online_logsumexp.launches = fused_launches["logsumexp"]
     phase("10 CNN trainer")
     cnn = cnn_phase(dev, card)
+    phase("21b the zero-flag trainer graphed against eager")
+    scan_trainer_phase(dev, card, cnn["runs"]["fp32"])
     phase("11 data axis")
     dp = dp_phase(card, cnn)
     phase("12 data-parallel BERT")
@@ -5647,6 +6207,10 @@ def main() -> int:
             "launches_remat": {p: rest[f"remat_{p}"][0][name]
                                for p in REMAT_POLICIES},
             "launches_lamb": rest["lamb"][0][name],
+            # phase 21a: each graphed transformer run (the capture's
+            # warm-up window and one replay of K steps), from 0
+            "launches_graphed": {k: v[name]
+                                 for k, v in scan["launches"].items()},
             # phase 20c-d, the bench lines (13e's child), each from 0:
             # config 5 with each lever, and BERT_BASE at S = 1024 with
             # --flash-min-seq 0 (the default line takes dense: 0)

@@ -142,9 +142,22 @@ card), and a slope at or below it is flagged ``timing_degenerate``:
     python -m mpi_tensorflow_torch.bench --mode decode --device cpu \\
         --batch-size 2 --prompt-len 8 --new-tokens 8 --steps 1
 
-The reference's scanned arm (K train steps a dispatch, its
-``--scan-steps``) is not ported yet (ROADMAP Queue 1 item 16): every
-arm here launches one step at a time.
+``--scan-steps K`` (train mode): the reference's scanned arm, K train
+steps a dispatch, the default its ``MODEL_SPECS`` K per model
+(``mnist_cnn`` 400, ``resnet20`` 50, ``resnet50`` 8, ``vit`` 20, each
+transformer family 4), capped at ``min(K, steps)``: the K steps of
+``step.make_multi_train_step`` (``gspmd.make_multi_step``) over K
+batches staged on the device (the banks in turn), which on the card
+are one CUDA graph replay (``train.graphs``).  The time is the
+reference's: the median over ``max(1, steps // K)`` dispatches, each
+closed by a synchronisation and the last loss read, after ``max(1,
+warmup // K) + 1`` untimed ones (the first captures the graph), divided
+by K; the line's ``scan_steps`` is K, its ``steps`` the timed steps.
+``--scan-steps 0`` times the one-step arm above (``scan_steps`` 0).
+``--mode allreduce`` runs its chain of 32 as one graph replay on the
+card (``graph_replay``), as the reference runs it in one dispatch.
+``--mode decode`` times ``generate`` and ``beam_search``, one graph
+replay a call on the card (``models/gpt.py``).
 """
 
 from __future__ import annotations
@@ -162,6 +175,7 @@ import torch.distributed as dist
 
 from mpi_tensorflow_torch.config import Config
 from mpi_tensorflow_torch.parallel import collectives, mesh as meshlib
+from mpi_tensorflow_torch.train import graphs as graphs_lib
 from mpi_tensorflow_torch.train import gspmd, loop, mlm_loop
 from mpi_tensorflow_torch.train import optimizer as opt_lib
 from mpi_tensorflow_torch.train import step as step_lib
@@ -171,23 +185,55 @@ from mpi_tensorflow_torch.utils.device import (card_line, device_name,
                                                resolve_device)
 
 N_BANKS = 4
-# per image model: the input (H, W, C), the classes, and the defaults of
-# --batch-size, --steps and --warmup
+# per image model: the input (H, W, C), the classes, the defaults of
+# --batch-size, --steps and --warmup, and the reference's scan window
 IMAGE_SPECS = {
-    "mnist_cnn": dict(shape=(28, 28, 1), classes=10, defaults=(64, 1000, 50)),
-    "resnet20": dict(shape=(32, 32, 3), classes=10, defaults=(128, 500, 20)),
+    "mnist_cnn": dict(shape=(28, 28, 1), classes=10, defaults=(64, 1000, 50),
+                      scan=400),
+    "resnet20": dict(shape=(32, 32, 3), classes=10, defaults=(128, 500, 20),
+                     scan=50),
     "resnet50": dict(shape=(224, 224, 3), classes=1000,
-                     defaults=(32, 48, 5)),
+                     defaults=(32, 48, 5), scan=8),
     "vit": dict(shape=(32, 32, 3), classes=10, defaults=(128, 200, 20),
-                dataset="cifar10"),
+                dataset="cifar10", scan=20),
 }
+TRANSFORMER_SCAN = 4            # the reference's K for every family
+
+
+def scan_width(scan_steps: Optional[int], default: int, steps: int) -> int:
+    """K for ``--scan-steps`` (None: the model's default), capped at the
+    requested steps; 0 is the one-step arm."""
+    k = default if scan_steps is None else int(scan_steps)
+    if k < 0:
+        raise ValueError(f"--scan-steps must be >= 0, got {k}")
+    return min(k, steps)
+
+
+def time_scanned(multi, steps: int, warmup: int, K: int, sync) -> tuple:
+    """The reference's ``_measure_scanned``: ``(seconds a step, the last
+    loss)``, the median over ``max(1, steps // K)`` calls of ``multi() ->
+    losses (K,)``, each closed by ``sync`` and the last loss read, after
+    ``max(1, warmup // K) + 1`` untimed ones."""
+    for _ in range(max(1, warmup // K) + 1):
+        float(multi()[-1])
+    times = []
+    for _ in range(max(1, steps // K)):
+        t0 = time.perf_counter()
+        last = multi()[-1]
+        sync()
+        loss = float(last)
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2] / K, loss
 
 
 def measure_train(model_name: str = "mnist_cnn", batch_size: int = 64,
                   precision: str = "fp32", steps: int = 1000,
                   warmup: int = 50, device="cuda",
-                  remat: bool = False) -> dict:
-    """Mean time of one train step after ``warmup`` untimed ones."""
+                  remat: bool = False,
+                  scan_steps: Optional[int] = None) -> dict:
+    """Mean time of one train step after ``warmup`` untimed ones, or with
+    ``scan_steps`` K > 0 (default the model's K) the scanned arm's time
+    (module note)."""
     spec = IMAGE_SPECS[model_name]
     cfg = Config(model=model_name, batch_size=batch_size,
                  precision=precision, num_classes=spec["classes"],
@@ -209,6 +255,7 @@ def measure_train(model_name: str = "mnist_cnn", batch_size: int = 64,
         0, cfg.num_classes, size=batch_size).astype(np.int64)).to(dev)
         for _ in range(N_BANKS)]
     dropout = getattr(model, "dropout_rate", 0.0) > 0.0
+    K = scan_width(scan_steps, spec["scan"], steps)
 
     def run(i):
         gen = step_generator(cfg.seed + 1, i, dev) if dropout else None
@@ -219,14 +266,26 @@ def measure_train(model_name: str = "mnist_cnn", batch_size: int = 64,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    for i in range(warmup):
-        run(i)
-    sync()
-    t0 = time.perf_counter()
-    for i in range(warmup, warmup + steps):
-        loss = run(i)
-    sync()
-    sec = (time.perf_counter() - t0) / steps
+    if K > 0:
+        calls = max(1, warmup // K) + 1 + max(1, steps // K)
+        multi = step_lib.make_multi_train_step(model, cfg, 1, 50000,
+                                               horizon=calls * K)
+        xs = torch.stack([batches[i % N_BANKS] for i in range(K)])
+        ys = torch.stack([labels[i % N_BANKS] for i in range(K)])
+
+        def scanned():
+            return multi(state, xs, ys)[1]["loss"]
+        sec, loss = time_scanned(scanned, steps, warmup, K, sync)
+        steps = max(1, steps // K) * K
+    else:
+        for i in range(warmup):
+            run(i)
+        sync()
+        t0 = time.perf_counter()
+        for i in range(warmup, warmup + steps):
+            loss = run(i)
+        sync()
+        sec = (time.perf_counter() - t0) / steps
     step_flops = flops.image_train_flops(model_name, batch_size,
                                          getattr(model, "cfg", None))
     mfu = (flops.mfu(step_flops, sec, precision)
@@ -243,7 +302,7 @@ def measure_train(model_name: str = "mnist_cnn", batch_size: int = 64,
         "num_devices": 1, "batch_size_per_chip": batch_size,
         "image_shape": list(spec["shape"]), "num_classes": cfg.num_classes,
         "precision": precision, "remat": remat, "steps": steps,
-        "warmup": warmup,
+        "warmup": warmup, "scan_steps": K,
         "final_loss": float(loss), "device": device_name(dev),
         "card": card_line(dev),
     }
@@ -257,11 +316,13 @@ def measure_bert(batch_size: int = 4, seq_len: int = 128,
                  remat_policy: str = "full", ce_impl: str = "auto",
                  ce_chunk: int = 2048, fused_qkv: bool = False,
                  params_bf16: bool = False,
-                 flash_min_seq: Optional[int] = None) -> dict:
+                 flash_min_seq: Optional[int] = None,
+                 scan_steps: Optional[int] = None) -> dict:
     """Mean time of one BERT-base MLM (``gpt_base``: causal LM;
     ``moe_bert``; ``encdec_t5``) train step over the process group that
-    is up (none: one card), after ``warmup`` untimed ones; the levers as
-    the module note says."""
+    is up (none: one card), after ``warmup`` untimed ones, or with
+    ``scan_steps`` K > 0 (default 4) the scanned arm's; the levers as the
+    module note says."""
     from mpi_tensorflow_torch.data import synthetic
     from mpi_tensorflow_torch.models import bert
 
@@ -287,7 +348,10 @@ def measure_bert(batch_size: int = 4, seq_len: int = 128,
         torch.empty(0, device=dev)      # the allocator up, for its stats
         torch.cuda.reset_peak_memory_stats(dev)
     model = mlm_loop.FAMILIES[model_name].from_seed(bcfg, cfg.seed).to(dev)
-    tx = opt_lib.transformer_tx(1e-4, warmup + steps, schedule="constant")
+    K = scan_width(scan_steps, TRANSFORMER_SCAN, steps)
+    calls = max(1, warmup // K) + 1 + max(1, steps // K) if K else 0
+    tx = opt_lib.transformer_tx(1e-4, max(warmup + steps, calls * K),
+                                schedule="constant")
     state = gspmd.init_for(param_sharding, model, tx,
                            torch.bfloat16 if params_bf16 else None)
     train_step = gspmd.make_train_step(tx, grad_accum=grad_accum)
@@ -315,14 +379,27 @@ def measure_bert(batch_size: int = 4, seq_len: int = 128,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    for i in range(warmup):
-        run(i)
-    sync()
-    t0 = time.perf_counter()
-    for i in range(warmup, warmup + steps):
-        loss = run(i)
-    sync()
-    sec = (time.perf_counter() - t0) / steps
+    if K > 0:
+        multi = gspmd.make_multi_step(tx, grad_accum=grad_accum,
+                                      seed=cfg.seed + 2, rank=rank,
+                                      horizon=calls * K)
+        window = {k: torch.stack([banks[i % N_BANKS][0][k]
+                                  for i in range(K)]) for k in banks[0][0]}
+        targets = torch.stack([banks[i % N_BANKS][1] for i in range(K)])
+
+        def scanned():
+            return multi(state, window, targets)[1]["loss"]
+        sec, loss = time_scanned(scanned, steps, warmup, K, sync)
+        steps = max(1, steps // K) * K
+    else:
+        for i in range(warmup):
+            run(i)
+        sync()
+        t0 = time.perf_counter()
+        for i in range(warmup, warmup + steps):
+            loss = run(i)
+        sync()
+        sec = (time.perf_counter() - t0) / steps
     # the causal family puts every position through the head; the MoE
     # keeps the dense formula (one expert of the dense width a token)
     if enc_dec:
@@ -352,7 +429,8 @@ def measure_bert(batch_size: int = 4, seq_len: int = 128,
         "num_devices": world, "batch_size_per_chip": batch_size,
         "seq_len": seq_len, "grad_accum": grad_accum,
         "param_sharding": param_sharding, "precision": precision,
-        "steps": steps, "warmup": warmup, "final_loss": float(loss),
+        "steps": steps, "warmup": warmup, "scan_steps": K,
+        "final_loss": float(loss),
         "device": device_name(dev), "card": card_line(dev),
     }
 
@@ -381,6 +459,11 @@ def measure_allreduce(payload_mb: float = 25.4, chain: int = 32,
 
     run_chain()                     # warm-up: the communicator, buffers
     sync()
+    graphed = graphs_lib.use_graphs(dev) and meshlib.active()
+    if graphed:                     # the chain as one replay
+        replay = graphs_lib.Graphs(dev).capture(
+            run_chain, [], preserve=graphs_lib.snapshot([x]))
+        run_chain = replay.replay
     times = []
     for _ in range(dispatches):
         t0 = time.perf_counter()
@@ -394,6 +477,7 @@ def measure_allreduce(payload_mb: float = 25.4, chain: int = 32,
         "mode": "allreduce", "allreduce_ms": sec * 1e3,
         "payload_mb": payload_mb, "algbw_gbps": (payload_mb / 1e3) / sec,
         "chain": chain, "dispatches": dispatches, "num_devices": world,
+        "graph_replay": graphed,
         "backend": str(dist.get_backend()) if meshlib.active() else None,
         "device": device_name(dev), "card": card_line(dev),
     }
@@ -676,6 +760,11 @@ def main(argv=None) -> int:
                     help="transformers: bfloat16 live parameters with "
                          "float32 masters in the optimizer (needs "
                          "--precision bf16)")
+    ap.add_argument("--scan-steps", type=int, default=None,
+                    help="train: steps a dispatch (one CUDA graph replay "
+                         "on the card; default the model's K: mnist_cnn "
+                         "400, resnet20 50, resnet50 8, vit 20, the "
+                         "transformers 4); 0 = one step at a time")
     ap.add_argument("--payload-mb", type=float, default=25.4,
                     help="allreduce: float32 MB on each rank")
     ap.add_argument("--device", default="cuda",
@@ -718,6 +807,8 @@ def main(argv=None) -> int:
                  f"--param-sharding {args.param_sharding} slices the "
                  f"leaves over the ranks, and the reference's bench, which "
                  f"has no sharding axis, never pairs the two")
+    if args.scan_steps is not None and args.mode != "train":
+        ap.error("--scan-steps applies to train mode only")
     if args.mode == "hostio":
         on_card = torch.device(args.device).type == "cuda"
         print(json.dumps(measure_hostio(
@@ -734,7 +825,8 @@ def main(argv=None) -> int:
     if args.mode == "train" and not transformer_train:
         print(json.dumps(measure_train(args.model, batch, args.precision,
                                        steps, warmup, args.device,
-                                       args.remat)), flush=True)
+                                       args.remat, args.scan_steps)),
+              flush=True)
         return 0
     dev = meshlib.rank_device(args.device)
     if transformer_train:   # the launcher's world, else none
@@ -745,7 +837,7 @@ def main(argv=None) -> int:
                                warmup, dev, args.model, args.remat,
                                args.remat_policy, args.ce, args.ce_chunk,
                                args.fused_qkv, args.params_bf16,
-                               args.flash_min_seq)
+                               args.flash_min_seq, args.scan_steps)
             if meshlib.process_index() == 0:
                 print(json.dumps(res), flush=True)
         finally:

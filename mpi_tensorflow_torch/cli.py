@@ -93,7 +93,10 @@ CIFAR-10, 224 for ``imagenet_synthetic``): the reference's default is 28
 whatever the dataset, so its ViT on CIFAR-10 fails at the patch reshape
 without ``--image-size 32``; the CNN and the ResNets do not read it.
 ``--fused-steps`` defaults to ``--log-every`` under psum and to 1 under
-avg50, as in the reference.  ``--tiny``, ``--seq-len``, ``--train-n``
+avg50, as in the reference: a window of ``fused_steps + 1`` steps is one
+dispatch, on the card one CUDA graph replay (``train/graphs.py``), on
+the CPU its steps one after another; ``--fused-steps 1`` steps one step
+at a time everywhere.  ``--tiny``, ``--seq-len``, ``--train-n``
 and ``--test-n`` have no counterpart in the reference's CLI: they size
 a transformer run (BERT_TINY geometry, ``train_mlm``'s sequence length
 and split sizes).
@@ -150,8 +153,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mesh spec, e.g. 'data=4': the data axis must "
                         "equal the number of ranks")
     p.add_argument("--fused-steps", type=int, default=None,
-                   help="train steps per window (one upload each). "
-                        "Default: --log-every for psum, 1 for avg50")
+                   help="train steps per window (one upload each; one "
+                        "CUDA graph replay on the card). Default: "
+                        "--log-every for psum, 1 for avg50. Pass 1 for "
+                        "the one-dispatch-per-step shape")
     p.add_argument("--param-sharding",
                    choices=["replicated", "fsdp", "zero1"],
                    default=d.param_sharding,

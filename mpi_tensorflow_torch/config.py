@@ -50,8 +50,10 @@ class Config:
                                   # the shards; "avg50": per-rank SGD with
                                   # parameters averaged every log_every
     fused_steps: int = 1          # steps per window of the loop (batches
-                                  # uploaded once per window); the CLI
-                                  # defaults it to --log-every for psum
+                                  # uploaded once per window; > 1: one
+                                  # graph replay a window on the card);
+                                  # the CLI defaults it to --log-every
+                                  # for psum
     prefetch: str = "auto"        # window assembly: thread / auto on a
                                   # background thread, off inline
                                   # ("native", the C++ worker: item 15c)

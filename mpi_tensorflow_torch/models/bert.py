@@ -16,9 +16,10 @@ parallelism slices (ROADMAP Queue 1 item 14).
 (``torch.utils.checkpoint``, non-reentrant; ``remat_policy`` "full"
 saves nothing, "dots" saves the products without batch dimensions, the
 weight projections, as ``jax.checkpoint_policies.
-dots_with_no_batch_dims_saveable`` does).  A rematted layer draws its
-dropout masks again from the generator's state at the layer's start
-(``run_layer``), so remat on and off draw the same masks.
+dots_with_no_batch_dims_saveable`` does).  A rematted layer keeps the
+uniform draws of its dropout masks and recomputes the rest
+(``run_layer``), so remat on and off use the same masks, and a CUDA
+graph can capture it: no generator state is copied.
 
 Parameters keep the JAX layouts — ``wq/wk/wv`` (E, H, D), ``wo``
 (H, D, E), ``w1`` (E, F), ``w2`` (F, E), ``tok_emb`` (V, E) — so the
@@ -178,39 +179,45 @@ def _dots_policy(ctx, func, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _full_policy(ctx, func, *args, **kwargs):
+    """Recompute everything (``remat_policy`` "full")."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _keeping_draws(policy):
+    """``policy`` with every random draw saved: the recomputation reads
+    the forward's draws and leaves the generator where the forward left
+    it."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    def keep(ctx, func, *args, **kwargs):
+        if torch.Tag.nondeterministic_seeded in func.tags:
+            return CheckpointPolicy.MUST_SAVE
+        return policy(ctx, func, *args, **kwargs)
+    return keep
+
+
 def run_layer(cfg: BertConfig, fn, h, generator, *args):
     """``fn(h, generator, *args)``, under ``cfg.remat`` (with gradients
     on) through ``torch.utils.checkpoint``: the layer's activations are
-    recomputed in the backward, and the recomputation draws its dropout
-    masks from a copy of ``generator`` at the state it had when the layer
-    began, so they are the forward's masks.  ``generator`` ends where
-    the forward left it, as without remat."""
+    recomputed in the backward, save the uniform draws of its dropout
+    masks (and, under "dots", the weight products), which the
+    recomputation reads back.  The masks are the forward's, and
+    ``generator`` ends where the forward left it, as without remat.
+    The saved draws are float32 tensors of the masked activations'
+    shape, the memory remat keeps beside the layer's input."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn(h, generator, *args)
     from torch.utils import checkpoint as ckpt
 
-    start = None if generator is None else generator.get_state()
-    end = []
-
-    def body(h, *args):
-        gen = None
-        if start is not None:
-            gen = torch.Generator(device=generator.device)
-            gen.set_state(start)
-        out = fn(h, gen, *args)
-        if gen is not None and not end:
-            end.append(gen.get_state())
-        return out
-
-    kw = {}
-    if cfg.remat_policy == "dots":
-        kw["context_fn"] = functools.partial(
-            ckpt.create_selective_checkpoint_contexts, _dots_policy)
-    out = ckpt.checkpoint(body, h, *args, use_reentrant=False,
-                          preserve_rng_state=False, **kw)
-    if end:
-        generator.set_state(end[0])
-    return out
+    policy = _dots_policy if cfg.remat_policy == "dots" else _full_policy
+    return ckpt.checkpoint(
+        lambda h, *a: fn(h, generator, *a), h, *args, use_reentrant=False,
+        preserve_rng_state=False, context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts,
+            _keeping_draws(policy)))
 
 
 def _param(t, dtype: torch.dtype, trainable: bool = False) -> nn.Parameter:

@@ -44,6 +44,7 @@ from mpi_tensorflow_torch.models import bert as bert_lib
 from mpi_tensorflow_torch.models.base import dropout_mask
 from mpi_tensorflow_torch.models.gpt import shift_targets
 from mpi_tensorflow_torch.parallel.ring import dense_attention
+from mpi_tensorflow_torch.train import graphs as graphs_lib
 
 class DecoderLayer(bert_lib.EncoderLayer):
     """An encoder layer's leaves plus the cross-attention's."""
@@ -225,13 +226,27 @@ class EncDecLm(bert_lib.BertMlm):
         """Greedy decoding conditioned on ``src`` (B, S): (B,
         max_new_tokens) ids, the first AFTER the BOS seed.  The
         self-attention K/V go to a (B, H, L, D) cache per layer; the
-        cross-attention's are computed once."""
+        cross-attention's are computed once.  On the card the call is one
+        replay of a CUDA graph of ``decode_loop`` per call shape (the
+        reference's one ``lax.scan``); on the CPU the eager loop."""
         if max_new_tokens < 1:
             raise ValueError("generate needs max_new_tokens >= 1")
         c = self.cfg
         if max_new_tokens > c.max_positions:
             raise ValueError(f"max_new_tokens {max_new_tokens} exceeds "
                              f"max_positions {c.max_positions}")
+        if not graphs_lib.use_graphs(src.device):
+            return self.decode_loop(src, max_new_tokens, bos_id=bos_id)
+        return graphs_lib.graphed_call(
+            self, ("generate", tuple(src.shape), max_new_tokens, bos_id),
+            lambda s, _: self.decode_loop(s, max_new_tokens, bos_id=bos_id),
+            [src])
+
+    @torch.no_grad()
+    def decode_loop(self, src, max_new_tokens: int, *, bos_id: int = 0):
+        """``generate``'s eager loop (its arguments checked there), which
+        ``generate`` captures into a graph on the card."""
+        c = self.cfg
         dt = c.dtype
         B, L = src.shape[0], max_new_tokens
         enc_out = self.encode(src)

@@ -38,6 +38,7 @@ from torch import nn
 
 from mpi_tensorflow_torch.models import bert as bert_lib
 from mpi_tensorflow_torch.ops import paged_attention as paged_ops
+from mpi_tensorflow_torch.train import graphs as graphs_lib
 from mpi_tensorflow_torch.utils import tree as tree_lib
 
 
@@ -213,7 +214,16 @@ class CausalLm(nn.Module):
 
         Sampling draws step i's Gumbel noise (B, V) from ``generator``,
         or takes ``noise[i]`` (``noise``: (max_new_tokens, B, V) float32)
-        when given.  ``cache_len`` pins the cache's capacity (default
+        when given.
+
+        On the card (``train.graphs.use_graphs``) the whole call, prefill
+        and token loop, is one replay of a CUDA graph of ``decode_loop``
+        captured at the first call of its shape (batch, prompt length,
+        new tokens, cache capacity, sampling settings; the counterpart of
+        the reference's one ``lax.scan``), ``generator`` advanced as the
+        eager loop advances it; on the CPU, and with ``reduce`` (a
+        tensor-parallel shard: its collectives may run over gloo), the
+        eager ``decode_loop``.  ``cache_len`` pins the cache's capacity (default
         prompt + new tokens): a step attends over the whole (masked)
         cache, so timing arms of different lengths must share it.
         ``reduce``: a tensor-parallel shard's sum over the ranks."""
@@ -236,6 +246,38 @@ class CausalLm(nn.Module):
         if cache_len is not None and cache_len < total:
             raise ValueError(f"cache_len {cache_len} < prompt + "
                              f"max_new_tokens ({total})")
+        if reduce is not None or not graphs_lib.use_graphs(prompt.device):
+            return self.decode_loop(prompt, max_new_tokens,
+                                    temperature=temperature, top_k=top_k,
+                                    top_p=top_p, generator=generator,
+                                    noise=noise, cache_len=cache_len,
+                                    reduce=reduce)
+        key = ("generate", tuple(prompt.shape), max_new_tokens,
+               cache_len or total, temperature, top_k, top_p,
+               None if noise is None else tuple(noise.shape))
+        sampled = temperature > 0.0 and noise is None
+
+        def run(p, *rest):
+            return self.decode_loop(
+                p, max_new_tokens, temperature=temperature, top_k=top_k,
+                top_p=top_p, generator=rest[-1],
+                noise=rest[0] if noise is not None else None,
+                cache_len=cache_len)
+        inputs = [prompt] if noise is None else [prompt, noise]
+        return graphs_lib.graphed_call(self, key, run, inputs,
+                                       generator if sampled else None)
+
+    @torch.no_grad()
+    def decode_loop(self, prompt, max_new_tokens: int, *,
+                    temperature: float = 0.0, top_k: int = 0,
+                    top_p: float = 1.0, generator=None, noise=None,
+                    cache_len: int | None = None, reduce=None):
+        """``generate``'s eager loop (its arguments checked there): the
+        prefill, then one forward a token, each launched from the host.
+        ``generate`` captures it into a graph on the card; on the CPU,
+        and under ``reduce``, it is what ``generate`` runs."""
+        B, S0 = prompt.shape
+        total = S0 + max_new_tokens
 
         def pick(logits, i):
             return sample(logits, temperature, generator, top_k=top_k,
@@ -266,17 +308,39 @@ class CausalLm(nn.Module):
         Returns ``(sequences (B, K, S0 + T), scores (B, K))``, best
         first; a score is the sum of the chosen tokens' log-probabilities
         divided by ``T ** length_penalty``.  ``cache_len`` as in
-        ``generate``."""
+        ``generate``; on the card one graph replay of ``beam_loop`` a
+        call, as ``generate``."""
         if max_new_tokens < 1:
             raise ValueError("beam_search needs max_new_tokens >= 1")
         if num_beams < 1:
             raise ValueError(f"num_beams must be >= 1, got {num_beams}")
         B, S0 = prompt.shape
-        K, T = num_beams, max_new_tokens
-        total = S0 + T
+        total = S0 + max_new_tokens
         if cache_len is not None and cache_len < total:
             raise ValueError(f"cache_len {cache_len} < prompt + "
                              f"max_new_tokens ({total})")
+        if not graphs_lib.use_graphs(prompt.device):
+            return self.beam_loop(prompt, max_new_tokens,
+                                  num_beams=num_beams,
+                                  length_penalty=length_penalty,
+                                  cache_len=cache_len)
+        key = ("beam_search", tuple(prompt.shape), max_new_tokens,
+               num_beams, length_penalty, cache_len or total)
+        return graphs_lib.graphed_call(
+            self, key, lambda p, _: self.beam_loop(
+                p, max_new_tokens, num_beams=num_beams,
+                length_penalty=length_penalty, cache_len=cache_len),
+            [prompt])
+
+    @torch.no_grad()
+    def beam_loop(self, prompt, max_new_tokens: int, *, num_beams: int = 4,
+                  length_penalty: float = 0.0,
+                  cache_len: int | None = None):
+        """``beam_search``'s eager loop (its arguments checked there),
+        which ``beam_search`` captures into a graph on the card."""
+        B, S0 = prompt.shape
+        K, T = num_beams, max_new_tokens
+        total = S0 + T
         V = self.cfg.vocab_size
         cache = self.init_cache(B, cache_len or total)
         logits = self.forward_with_cache(prompt, cache, 0)

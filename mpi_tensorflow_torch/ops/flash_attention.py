@@ -14,7 +14,11 @@ behind the ``custom_vjp`` ``flash_attention``).  Here:
   ``csrc/flash_attention.cu`` (built by ``ops/_build.py`` at first use).
   On a CUDA tensor each launches its kernel on the current stream or
   raises; on a CPU tensor it runs the plain version.  Each has a
-  ``launches`` count, raised by one at a launch and nowhere else.
+  ``launches`` count, raised by one at a launch and nowhere else.  Under
+  a CUDA graph capture the launch is recorded on the capture stream
+  (``_launch`` takes the current stream): ``train/graphs.py`` puts the
+  count back after a capture, which launches nothing, and raises it by
+  the launches the graph holds at each replay.
 - ``flash_forward_reference``, ``flash_backward_reference`` — the plain
   versions, with the kernels' rounding points: scores, softmax
   statistics and ``ds`` in float32, ``p`` rounded to v's (dO's) dtype

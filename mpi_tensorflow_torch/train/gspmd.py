@@ -2,8 +2,10 @@
 ranks of the ``data`` axis.
 
 Counterpart of ``init_gspmd_state``, ``init_zero1_state``,
-``init_fsdp_state``, ``make_gspmd_train_step`` and
-``make_gspmd_eval_step`` in ``mpi_tensorflow_tpu/train/gspmd.py`` on a
+``init_fsdp_state``, ``make_gspmd_train_step``,
+``make_gspmd_multi_step`` (``make_multi_step``: K steps a call, one
+CUDA graph replay on the card) and ``make_gspmd_eval_step`` in
+``mpi_tensorflow_tpu/train/gspmd.py`` on a
 mesh with a ``data`` axis alone: one rank per card, the axis the
 ``torch.distributed`` world (``parallel.mesh``).  GSPMD inserts the
 reference's collectives from the placement; here the step places them
@@ -78,6 +80,8 @@ import torch
 from mpi_tensorflow_torch.models.bert import BertMlm
 from mpi_tensorflow_torch.parallel import collectives, fsdp
 from mpi_tensorflow_torch.parallel import mesh as meshlib
+from mpi_tensorflow_torch.train import graphs as graphs_lib
+from mpi_tensorflow_torch.train.graphs import step_generator, step_seed
 from mpi_tensorflow_torch.train.optimizer import (AdamWState, MasterOpt,
                                                   TransformerTx)
 from mpi_tensorflow_torch.train.step import flat_buffer
@@ -264,16 +268,6 @@ def bytes_at_rest(state: TrainState) -> dict:
             "replica_params": whole, "replica_moments": 2 * whole}
 
 
-def step_generator(seed: int, step: int, device, rank: int = 0,
-                   micro: int = 0) -> torch.Generator:
-    """The dropout generator of one microbatch of one train step of one
-    rank, on ``device``, seeded by ``(seed, step, rank, micro)``; rank
-    0's first microbatch is the one-process run's."""
-    return torch.Generator(device=device).manual_seed(
-        int(seed) * 1_000_003 + int(step) + (int(rank) << 40)
-        + (int(micro) << 52))
-
-
 def _generators(generator, accum: int) -> list:
     if generator is None:
         return [None] * accum
@@ -431,3 +425,112 @@ def make_eval_step():
             return state.model.apply(inputs, train=False)
 
     return eval_step
+
+
+def state_tensors(state: TrainState) -> list:
+    """Every device tensor a train step updates in place: the model's
+    parameters, the moments, the float32 masters, fsdp's own chunk."""
+    master = isinstance(state.opt, MasterOpt)
+    opt = state.opt.inner if master else state.opt
+    out = _params(state.model) + opt.mu + opt.nu
+    if master:
+        out += state.opt.master
+    if state.sharding is not None and state.sharding.shards is not None:
+        out.append(state.sharding.shards)
+    return out
+
+
+def make_multi_step(tx: TransformerTx, grad_accum: int = 1,
+                    across_ranks: Optional[bool] = None,
+                    seed: Optional[int] = None, rank: int = 0,
+                    horizon: int = 0):
+    """``multi_step(state, batches, labels) -> (state, {"loss": (K,)})``:
+    K train steps of ``make_train_step``'s function over ``batches`` (a
+    dict of (K, B, S) tensors) and ``labels`` (K, B, S), the
+    counterpart of ``make_gspmd_multi_step`` (``gspmd.py:253-279``), in
+    every layout and at any ``grad_accum``.  With ``seed`` (and a model
+    with dropout) step t's microbatch i draws from
+    ``step_generator(seed, t, device, rank, i)``, t read from
+    ``state.step``.
+
+    On the CPU the K steps run one after another, each through the
+    function ``make_train_step`` returns (the module attribute).  On a
+    CUDA device (``graphs.use_graphs``) the K steps are one replay of a
+    graph captured at the first call of that K: the window's generators
+    registered with it and reseeded before each replay, the LR and
+    bias corrections read from the optimizer's ``StepTable`` (rows up
+    to ``horizon`` steps), the host counters (``state.step``, the
+    optimizer's ``count``) advanced by K after it."""
+    one = make_train_step(tx, grad_accum, across_ranks)
+    accum = int(grad_accum)
+    graphs, replays = None, {}
+
+    def dropout(state) -> bool:
+        return seed is not None and getattr(state.model.cfg, "dropout",
+                                            0.0) > 0.0
+
+    def opt_of(state):
+        return state.opt.inner if isinstance(state.opt, MasterOpt) \
+            else state.opt
+
+    def capture(state, batches, labels, dev):
+        nonlocal graphs
+        n = labels.shape[0]
+        if graphs is None:
+            graphs = graphs_lib.Graphs(dev)
+        keys = sorted(batches)
+        static = [torch.zeros_like(batches[k]) for k in keys] \
+            + [torch.zeros_like(labels)]
+        gens = [torch.Generator(device=dev) for _ in range(n * accum)] \
+            if dropout(state) else []
+
+        def window(*xs):
+            losses = []
+            for j in range(n):
+                _, m = one(state, {k: x[j] for k, x in zip(keys, xs)},
+                           xs[-1][j], gens[j * accum:(j + 1) * accum] or None)
+                losses.append(m["loss"])
+            return torch.stack(losses).float()
+
+        def get_host():
+            return state.step, opt_of(state).count
+
+        def set_host(host):
+            state.step, opt_of(state).count = host
+
+        tx.table(dev).freeze(max(horizon, opt_of(state).count + n))
+        return graphs.capture(
+            window, static, generators=gens,
+            preserve=graphs_lib.snapshot(state_tensors(state), get_host,
+                                         set_host))
+
+    def multi_step(state: TrainState, batches: dict, labels):
+        K = labels.shape[0]
+        dev = labels.device
+        if not graphs_lib.use_graphs(dev):
+            losses = []
+            for j in range(K):
+                gens = None
+                if dropout(state):
+                    gens = [step_generator(seed, state.step, dev, rank, i)
+                            for i in range(accum)]
+                state, m = one(state, {k: v[j] for k, v in batches.items()},
+                               labels[j], gens)
+                losses.append(m["loss"])
+            return state, {"loss": torch.stack(losses).float()}
+        if K not in replays:
+            replays[K] = capture(state, batches, labels, dev)
+        r = replays[K]
+        opt = opt_of(state)
+        tx.table(dev).seek(opt.count)
+        seeds = [step_seed(seed, state.step + j, rank, i)
+                 for j in range(K) for i in range(accum)] \
+            if dropout(state) else []
+        loss = r.replay(*[batches[k] for k in sorted(batches)], labels,
+                        seeds=seeds).clone()
+        state.step += K
+        opt.count += K
+        return state, {"loss": loss}
+
+    multi_step.replays = replays
+    return multi_step

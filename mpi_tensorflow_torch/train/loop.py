@@ -28,15 +28,22 @@ one process (``psum`` only):
 - windows of K = ``fused_steps + 1`` steps (1 when ``fused_steps`` is
   1; always 1 under avg50, as in the reference) ending on the trace
   cadence (``window_schedule``, from the first step of the run or of a
-  resume), uploaded once and stepped through one step after another.
-  ``prefetch`` ``thread`` and ``auto`` assemble the windows ahead on a
-  background thread (``data.prefetch.ThreadPrefetcher``, closed in a
-  ``finally``); ``off`` assembles each inline, just before its upload.
-  The reference's ``auto`` takes its C++ worker when that loads; the
-  port's takes the thread (``native`` is ROADMAP Queue 1 item 15c).
-  The reference runs each window as one scanned dispatch; a CUDA graph
-  per window would be the counterpart and is not built yet (ROADMAP
-  Queue 1 item 16);
+  resume), each uploaded once.  ``prefetch`` ``thread`` and ``auto``
+  assemble the windows ahead on a background thread
+  (``data.prefetch.ThreadPrefetcher``, closed in a ``finally``); ``off``
+  assembles each inline, just before its upload.  The reference's
+  ``auto`` takes its C++ worker when that loads; the port's takes the
+  thread (``native`` is ROADMAP Queue 1 item 15c);
+- the scanned arm (K > 1): one ``step.make_multi_train_step`` call a
+  window, the reference's one scanned dispatch.  On the card it is one
+  CUDA graph replay (``train.graphs``): one graph per distinct width of
+  the schedule (the first window, the middle ones, the tail; a resume
+  adds at most one), all captured before the first timed span, and the
+  evaluation is one replay over every test window, uploaded once
+  (``step.make_multi_eval_step``).  Under gloo (two ranks on one card)
+  and on the CPU the steps run one after another.  K = 1 (``fused_steps
+  1``, avg50) steps one step at a time, as the reference's
+  one-dispatch-per-step shape;
 - early stopping on the validation split when ``early_stop_patience >
   0`` (every rank reaches the same verdict from the gathered
   predictions).
@@ -65,8 +72,11 @@ reference's call sites): with ``checkpoint_dir`` each trace point
 queues a sharded checkpoint of its step after the average and the
 early-stopping verdict, and ``resume`` restarts from the latest
 committed one (``window_schedule`` from its step + 1).  A SIGTERM (or
-``request_stop``) stops one rank after the step it lands in, checkpointed;
-across ranks the stop is agreed at the next trace point.  Under avg50 the
+``request_stop``) stops one rank after the step it lands in,
+checkpointed; a graph replay cannot stop inside its window, so on the
+card's scanned arm the stop lands at the window's end, as the
+reference's does (``loop.py:268-270``).  Across ranks the stop is
+agreed at the next trace point.  Under avg50 the
 state is saved as the reference's stacked one, each rank its replica.
 The step's dropout generator is seeded by the step, so a resumed run
 repeats the uninterrupted one.  With ``metrics_dir`` rank 0 writes
@@ -226,17 +236,23 @@ def train(config: Config, model=None, splits: Optional[mnist.Splits] = None,
 
     step_lib.broadcast_params(model)
     state = step_lib.init_state(model)
+    fused = 1 if avg50 else max(1, int(config.fused_steps or 1))
+    window_k = fused + 1 if fused > 1 else 1
+    multi_step = eval_multi = None
     if avg50:
         train_step = step_lib.make_local_train_step(model, config,
                                                     decay_steps=local_n)
         average = step_lib.make_average_step(state)
-    else:
+    elif window_k == 1:
         train_step = step_lib.make_train_step(
             model, config, local_shards, decay_steps=local_n,
             across_ranks=across_ranks)
+    else:
+        multi_step = step_lib.make_multi_train_step(
+            model, config, local_shards, decay_steps=local_n,
+            across_ranks=across_ranks, rank=rank, horizon=num_steps)
+        eval_multi = step_lib.make_multi_eval_step(model, config)
     eval_step = step_lib.make_eval_step(model, config)
-    fused = 1 if avg50 else max(1, int(config.fused_steps or 1))
-    window_k = fused + 1 if fused > 1 else 1
     dropout = getattr(model, "dropout_rate", 0.0) > 0.0
 
     def put(a):
@@ -250,10 +266,19 @@ def train(config: Config, model=None, splits: Optional[mnist.Splits] = None,
         return [step_generator(config.seed + 1, t, dev, rank, i)
                 for i in range(config.grad_accum)]
 
+    uploads = {}            # the eval sets' windows, on the device once
+
     def run_eval(data):
-        return evaluation.eval_sharded(
-            lambda x: eval_step(state, put(x)).cpu().numpy(), data,
-            global_b, rank, world)
+        if eval_multi is None:
+            return evaluation.eval_sharded(
+                lambda x: eval_step(state, put(x)).cpu().numpy(), data,
+                global_b, rank, world)
+        if id(data) not in uploads:
+            uploads[id(data)] = put(evaluation.rank_windows(
+                data, global_b, rank, world))
+        return evaluation.eval_sharded_fused(
+            lambda w: eval_multi(state, w).cpu().numpy(), uploads[id(data)],
+            data.shape[0], global_b, world)
 
     es_patience = int(config.early_stop_patience or 0)
     es_usable = es_patience > 0 and splits.val_labels.shape[0] >= global_b
@@ -298,6 +323,12 @@ def train(config: Config, model=None, splits: Optional[mnist.Splits] = None,
         if config.prefetch != "off":
             pf = prefetch.make_prefetcher(tr_d, tr_l, *schedule, window_k,
                                           b, force=config.prefetch)
+        if multi_step is not None:
+            # every width's graph before the first timed span
+            shape = (window_k, b * local_shards)
+            multi_step.prepare(
+                state, put(np.zeros(shape + tr_d.shape[2:], tr_d.dtype)),
+                put(np.zeros(shape, tr_l.dtype)), schedule[1])
         if say:
             logs.session_start(0)
         timer.start()
@@ -307,17 +338,22 @@ def train(config: Config, model=None, splits: Optional[mnist.Splits] = None,
             else:
                 bs, ls = prefetch.assemble_window(tr_d, tr_l, t0, w,
                                                   window_k, b)
-            bdev, ldev = put(bs[:w]), put(ls[:w])
-            stopped = False
-            for j in range(w):
-                state, metrics = train_step(state, bdev[j], ldev[j],
-                                            generator(t0 + j))
-                pending += 1
-                if hooks.stop_now(t0 + j):
-                    hooks.preempt_save(state, t0 + j)
-                    stopped = True
-                    break
-            if stopped:
+            if multi_step is not None:
+                state, m = multi_step(state, put(bs), put(ls), w,
+                                      stop=hooks.stop_now)
+                taken = int(state.opt.step) - t0
+                metrics = {"loss": m["loss"][taken - 1]}
+            else:
+                bdev, ldev = put(bs[:w]), put(ls[:w])
+                for taken in range(1, w + 1):
+                    state, metrics = train_step(
+                        state, bdev[taken - 1], ldev[taken - 1],
+                        generator(t0 + taken - 1))
+                    if hooks.stop_now(t0 + taken - 1):
+                        break
+            pending += taken
+            if hooks.stop_now(t0 + taken - 1):
+                hooks.preempt_save(state, t0 + taken - 1)
                 break
             t = t0 + w - 1
             if not is_trace_step(t, config.log_every, num_steps):

@@ -40,6 +40,15 @@ and in how clipping scales:
 Both update in place on the parameter tensors (optax returns new
 arrays; here the parameters live in an ``nn.Module``), with ``torch``'s
 multi-tensor ops, and read nothing back to the host.
+
+Every per-step scalar a step reads (the LR, adamw's bias corrections)
+comes from a ``StepTable``: the host schedule evaluated once per step by
+the functions above, uploaded, and read inside the step at a device step
+counter.  A captured CUDA graph (``train.graphs``) then reads each
+replay's own values, where a host float would be frozen at the capture's;
+the values are the host schedule's by construction.  The host counters
+(``MomentumState.step``, ``AdamWState.count``) stay the record a
+checkpoint saves.
 """
 
 from __future__ import annotations
@@ -58,6 +67,62 @@ _F32 = np.float32
 _BIAS_NAME = re.compile(r"^x?(b[a-z0-9]?|eb\d)$")
 B1, B2, EPS = 0.9, 0.999, 1e-8          # optax.adamw's defaults
 LAMB_EPS = 1e-6                         # optax.lamb's
+
+
+class StepTable:
+    """Per-step float32 values of host functions, on ``device``.
+
+    Row i holds ``[fn(i) for fn in fns]``, computed on the host by the
+    schedules themselves.  ``read(step)`` returns step ``step``'s row as
+    0-d tensors and advances the device counter ``index``: outside a
+    graph capture it first sets the counter to ``step``; inside one the
+    counter is what the replay's ``seek`` made it, advanced by the steps
+    before it in the graph.  The rows grow on the host as steps need
+    them, until a capture ``freeze``s the table: a graph reads the
+    storage it was captured on."""
+
+    def __init__(self, fns, device):
+        self.fns = tuple(fns)
+        self.device = torch.device(device)
+        self.values = torch.empty((0, len(self.fns)), dtype=torch.float32,
+                                  device=self.device)
+        self.index = torch.zeros((), dtype=torch.long, device=self.device)
+        self.frozen = False
+
+    def ensure(self, steps: int) -> None:
+        """Rows for steps ``[0, steps)``."""
+        have = self.values.shape[0]
+        if steps <= have:
+            return
+        if self.frozen:
+            raise RuntimeError(f"step {steps - 1} is past the {have} steps "
+                               f"of a table a captured graph reads")
+        n = max(steps, 2 * have, 64)
+        rows = np.array([[fn(i) for fn in self.fns] for i in range(n)],
+                        dtype=np.float32)
+        self.values = torch.from_numpy(rows).to(self.device)
+
+    def freeze(self, steps: int) -> None:
+        self.ensure(steps)
+        self.frozen = True
+
+    def seek(self, step: int) -> None:
+        self.ensure(int(step) + 1)
+        self.index.fill_(int(step))
+
+    def read(self, step: int) -> tuple:
+        if not capturing(self.device):
+            self.seek(step)
+        # index_select: indexing by a 0-d tensor would read it on the host
+        row = self.values.index_select(0, self.index.view(1))[0]
+        self.index.add_(1)
+        return row.unbind()
+
+
+def capturing(device) -> bool:
+    """Whether the current stream of ``device`` is capturing a graph."""
+    return torch.device(device).type == "cuda" and \
+        torch.cuda.is_current_stream_capturing()
 
 
 def constant(base_lr: float):
@@ -138,11 +203,12 @@ def momentum_apply(params: list, grads: list, state: MomentumState, lr,
                    momentum: float = 0.9) -> None:
     """One TF ``MomentumOptimizer`` update in place: ``v = m*v + g; p -=
     lr*v`` (each product rounded before its sum, as in the reference),
-    then ``state.step += 1``."""
+    then ``state.step += 1``.  ``lr``: a float32 number, or a 0-d tensor
+    on the parameters' device (a ``StepTable`` read)."""
     torch._foreach_mul_(state.velocity, momentum)
     torch._foreach_add_(state.velocity, grads)
-    torch._foreach_sub_(params, torch._foreach_mul(state.velocity,
-                                                   float(lr)))
+    torch._foreach_sub_(params, torch._foreach_mul(
+        state.velocity, lr if torch.is_tensor(lr) else float(lr)))
     state.step = _F32(state.step + _F32(1.0))
 
 
@@ -187,6 +253,18 @@ class TransformerTx:
     weight_decay: float = 0.01
     grad_clip_norm: float = 1.0   # 0 disables clipping
     optimizer: str = "adamw"      # "adamw" | "lamb"
+    # device -> StepTable of (lr, 1 - B1 ** c, 1 - B2 ** c) at count c - 1
+    tables: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
+
+    def table(self, device) -> StepTable:
+        """The per-step LR and bias corrections on ``device``."""
+        device = torch.device(device)
+        if device not in self.tables:
+            self.tables[device] = StepTable(
+                (lambda c: self.lr(c), lambda c: 1 - B1 ** (c + 1),
+                 lambda c: 1 - B2 ** (c + 1)), device)
+        return self.tables[device]
 
     def init(self, tree) -> AdamWState:
         leaves = tree_lib.leaves(tree)
@@ -216,15 +294,14 @@ class TransformerTx:
                                  torch.ones_like(norm),
                                  self.grad_clip_norm / norm)
             grads = torch._foreach_mul(grads, factor)
-        lr = float(self.lr(state.count))
+        lr, bc1, bc2 = self.table(params[0].device).read(state.count)
         state.count += 1
-        c = state.count
         torch._foreach_mul_(state.mu, B1)
         torch._foreach_add_(state.mu, grads, alpha=1 - B1)
         torch._foreach_mul_(state.nu, B2)
         torch._foreach_addcmul_(state.nu, grads, grads, value=1 - B2)
-        mu_hat = torch._foreach_div(state.mu, 1 - B1 ** c)
-        denom = torch._foreach_div(state.nu, 1 - B2 ** c)
+        mu_hat = torch._foreach_div(state.mu, bc1)
+        denom = torch._foreach_div(state.nu, bc2)
         torch._foreach_sqrt_(denom)
         lamb = self.optimizer == "lamb"
         torch._foreach_add_(denom, LAMB_EPS if lamb else EPS)
@@ -237,18 +314,24 @@ class TransformerTx:
                                 alpha=self.weight_decay)
         if lamb:
             torch._foreach_mul_(u, trust_ratios(params, u, sharded))
-        torch._foreach_add_(params, u, alpha=-lr)
+        torch._foreach_mul_(u, lr)                  # optax: -lr * u, added
+        torch._foreach_sub_(params, u)
 
 
 def _sum_sq(norms: list, sharded) -> torch.Tensor:
     """The squares of per-leaf ``norms``, each leaf ``sharded`` marks
-    summed over the ranks in one all-reduce of the whole vector (a
-    whole leaf keeps its own value)."""
+    summed over the ranks in one all-reduce of those leaves' squares (a
+    whole leaf keeps its own value).  Nothing is copied from the host,
+    so a graph can capture it."""
     sq = torch.stack(norms).square()
     if sharded is None or not any(sharded):
         return sq
-    mask = torch.tensor(list(sharded), device=sq.device)
-    return torch.where(mask, collectives.allreduce_sum(sq * mask), sq)
+    marked = [i for i, s in enumerate(sharded) if s]
+    summed = collectives.allreduce_sum(torch.stack([sq[i] for i in marked]))
+    out = list(sq.unbind())
+    for j, i in enumerate(marked):
+        out[i] = summed[j]
+    return torch.stack(out)
 
 
 def trust_ratios(params: list, updates: list, sharded=None) -> list:

@@ -43,8 +43,14 @@ the velocity, as the JAX package averages its whole ``TrainState``.
 
 The reference folds its dropout key with the shard index and the step;
 the port draws each rank's mask from a generator seeded by ``(seed + 1,
-rank, step)`` and the microbatch (``train.gspmd.step_generator``), equal
-in distribution.
+rank, step)`` and the microbatch (``train.graphs.step_generator``),
+equal in distribution.
+
+The scanned arm (``make_multi_train_step``, ``make_multi_eval_step``):
+K steps, or every eval window, in one call, on the card one CUDA graph
+replay (``train.graphs``), on the CPU the steps one after another.  The
+LR comes from a ``StepTable`` read at a device step counter, so a replay
+reads each step's own rate.
 """
 
 from __future__ import annotations
@@ -52,12 +58,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from mpi_tensorflow_torch.models import base
 from mpi_tensorflow_torch.parallel import collectives
-from mpi_tensorflow_torch.train.optimizer import (MomentumState,
+from mpi_tensorflow_torch.train import graphs as graphs_lib
+from mpi_tensorflow_torch.train.optimizer import (MomentumState, StepTable,
                                                   momentum_apply,
                                                   momentum_init,
                                                   reference_schedule)
@@ -133,7 +141,8 @@ def make_train_step(model, config, num_shards: int, decay_steps: int,
         raise ValueError(f"a rank holds one shard; num_shards={num_shards} "
                          f"is the in-process data axis")
     accum = int(config.grad_accum)
-    schedule = reference_schedule(config, decay_steps)
+    table = StepTable([reference_schedule(config, decay_steps)],
+                      next(model.parameters()).device)
     loss_fn = make_loss_fn(model, config, num_shards)
     params = _params(model)
     if across_ranks:
@@ -184,12 +193,137 @@ def make_train_step(model, config, num_shards: int, decay_steps: int,
             new_state = tree_lib.unflatten(new_state, [
                 v.view_as(t) for v, t in zip(
                     span.split([t.numel() for t in leaves]), leaves)])
-        lr = schedule(state.opt.step)
+        lr, = table.read(int(state.opt.step))
         momentum_apply(params, grads, state.opt, lr, config.momentum)
         state.model_state = new_state
         return state, {"loss": loss, "lr": lr}
 
+    train_step.table = table
     return train_step
+
+
+def make_multi_train_step(model, config, num_shards: int, decay_steps: int,
+                          across_ranks: bool = False, rank: int = 0,
+                          horizon: int = 0):
+    """``multi_step(state, batches, labels, n_valid=None, stop=None) ->
+    (state, {"loss": (K,), "lr": (K,)})``: the first ``n_valid`` (default
+    K) of the K windows of ``batches`` (K, num_shards x batch_size, H, W,
+    C) and ``labels`` (K, ...) as ``n_valid`` steps of
+    ``make_train_step``'s function, the counterpart of the reference's
+    masked ``make_multi_train_step`` (``step.py:171-221``): the padded
+    steps' metrics are 0.  Step t's dropout draws from
+    ``step_generator(config.seed + 1, t, rank, microbatch)``, t read
+    from ``state.opt.step``, as the image loop seeds its one-step path.
+
+    On the CPU the steps run one after another, each through the
+    function ``make_train_step`` returns (the module attribute, so a
+    wrapper installed there sees every step), and ``stop(t)``, called
+    after step t, ends the window early.  On a CUDA device
+    (``graphs.use_graphs``) the window is one replay of a graph of
+    ``n_valid`` steps, captured at the width's first call or by
+    ``prepare``; ``stop`` is not called, the window runs to its end.
+    ``horizon``: the steps of the run, the LR rows a graph reads."""
+    one = make_train_step(model, config, num_shards, decay_steps,
+                          across_ranks)
+    dev = next(model.parameters()).device
+    dropout = getattr(model, "dropout_rate", 0.0) > 0.0
+    accum = int(config.grad_accum)
+    seed = config.seed + 1
+
+    def padded(loss, lr, K):
+        z = torch.zeros(K - loss.shape[0], dtype=torch.float32, device=dev)
+        return {"loss": torch.cat([loss, z]), "lr": torch.cat([lr, z])}
+
+    def eager(state, batches, labels, n, stop):
+        losses, lrs = [], []
+        for j in range(n):
+            t = int(state.opt.step)
+            gen = None
+            if dropout:
+                gen = [graphs_lib.step_generator(seed, t, dev, rank, i)
+                       for i in range(accum)]
+                gen = gen[0] if accum == 1 else gen
+            state, m = one(state, batches[j], labels[j], gen)
+            losses.append(m["loss"])
+            lrs.append(m["lr"])
+            if stop is not None and stop(t):
+                break
+        return state, padded(torch.stack(losses).float(),
+                             torch.stack(lrs).float(), batches.shape[0])
+
+    graphs, replays, bufs = None, {}, []
+
+    def capture(state, batches, labels, n):
+        nonlocal graphs
+        if graphs is None:
+            graphs = graphs_lib.Graphs(dev)
+            bufs.extend([torch.zeros_like(batches), torch.zeros_like(labels)])
+        gens = [torch.Generator(device=dev) for _ in range(n * accum)] \
+            if dropout else []
+        own = tree_lib.leaves(state.model_state)
+
+        def window(xs, ys):
+            losses, lrs = [], []
+            for j in range(n):
+                g = gens[j * accum:(j + 1) * accum] or None
+                _, m = one(state, xs[j], ys[j],
+                           g[0] if g and accum == 1 else g)
+                losses.append(m["loss"])
+                lrs.append(m["lr"])
+                # the next step (and replay) reads the model state in
+                # the storage it was captured on
+                new = tree_lib.leaves(state.model_state)
+                if any(a is not b for a, b in zip(own, new)):
+                    with torch.no_grad():
+                        torch._foreach_copy_(own, new)
+                    state.model_state = tree_lib.unflatten(
+                        state.model_state, own)
+            return torch.stack(losses).float(), torch.stack(lrs).float()
+
+        def set_step(s):
+            state.opt.step = s
+
+        one.table.freeze(max(horizon, int(state.opt.step) + n))
+        return graphs.capture(
+            window, [bufs[0][:n], bufs[1][:n]], generators=gens,
+            preserve=graphs_lib.snapshot(
+                _params(model) + state.opt.velocity + own,
+                lambda: state.opt.step, set_step))
+
+    def graphed(state, batches, labels, n):
+        if n not in replays:
+            replays[n] = capture(state, batches, labels, n)
+        r = replays[n]
+        t0 = int(state.opt.step)
+        one.table.seek(t0)
+        seeds = [graphs_lib.step_seed(seed, t0 + j, rank, i)
+                 for j in range(n) for i in range(accum)] if dropout else []
+        loss, lr = r.replay(batches[:n], labels[:n], seeds=seeds)
+        for _ in range(n):
+            state.opt.step = np.float32(state.opt.step + np.float32(1.0))
+        return state, padded(loss, lr, batches.shape[0])
+
+    def multi_step(state, batches, labels, n_valid=None, stop=None):
+        n = batches.shape[0] if n_valid is None else int(n_valid)
+        if not 0 < n <= batches.shape[0]:
+            raise ValueError(f"n_valid {n} outside 1..{batches.shape[0]}")
+        if graphs_lib.use_graphs(dev):
+            return graphed(state, batches, labels, n)
+        return eager(state, batches, labels, n, stop)
+
+    def prepare(state, batches, labels, widths) -> list:
+        """Capture the graph of every width in ``widths`` now (on the
+        card; nothing on the CPU): the distinct widths, in order."""
+        done = sorted(set(int(w) for w in widths))
+        if graphs_lib.use_graphs(dev):
+            for w in done:
+                if w not in replays:
+                    replays[w] = capture(state, batches, labels, w)
+        return done
+
+    multi_step.prepare = prepare
+    multi_step.replays = replays
+    return multi_step
 
 
 def make_local_train_step(model, config, decay_steps: int):
@@ -249,4 +383,36 @@ def make_eval_step(model, config):
         return torch.softmax(logits, dim=-1)
 
     return eval_step
+
+
+def make_multi_eval_step(model, config):
+    """``multi_eval(state, windows (K, B, ...)) -> (K, B, classes)``
+    softmax probabilities: every eval window in one call, the
+    counterpart of the reference's ``make_multi_eval_step``
+    (``step.py:242-258``).  On the CPU the windows run one after
+    another; on a CUDA device (``graphs.use_graphs``) as one replay of a
+    graph captured at the first call, whose windows buffer is the first
+    call's ``windows`` tensor: pass the same tensor again (uploaded
+    once) or one of its shape, copied in.  The graph reads the
+    parameters and the model state in place, so the train step must
+    keep them in their storage (``make_multi_train_step``'s graphs
+    do)."""
+    one = make_eval_step(model, config)
+    replays = {}
+
+    @torch.no_grad()
+    def window(state, windows):
+        return torch.stack([one(state, windows[k])
+                            for k in range(windows.shape[0])])
+
+    def multi_eval(state, windows):
+        if not graphs_lib.use_graphs(windows.device):
+            return window(state, windows)
+        key = (windows.data_ptr(), tuple(windows.shape))
+        if key not in replays:
+            g = graphs_lib.Graphs(windows.device)
+            replays[key] = g.capture(lambda w: window(state, w), [windows])
+        return replays[key].replay(windows).clone()
+
+    return multi_eval
 
