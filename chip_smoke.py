@@ -393,6 +393,26 @@ fails:
    batch 64 at S = 128, K = 4), decode per-token ms by the bench's
    slope, the all-reduce chain in a world of one over NCCL, each with
    its idle share from a profiled window.
+22. Tensor and sequence parallelism (the ``model`` and ``seq`` mesh
+   axes), in check-only worlds of ranks on ``cuda:0`` over gloo (NCCL
+   refuses two ranks on one card) started beside 12b's — 22a: float32,
+   2 layers at full width (E 768, H 12), S = 512, global batch 2, 3
+   steps from the seed-0 state against the one-process step within
+   ``DP_TOL``: two ranks on ``{model: 2}``, ``{seq: 2}`` ring,
+   ``{seq: 2}`` Ulysses with ``attention="flash"`` (the kernels on 6
+   heads at the full S) and gpt_base on ``{seq: 2}`` ring; four ranks on
+   ``{model: 2, seq: 2}``, ring and Ulysses; each rank's flash launches
+   (2 layers x 3 steps on the Ulysses and model paths, 0 on a ring);
+   22b: config 5 (BERT_BASE bf16, S = 4096, batch 4, dropout 0.1)
+   through ``train_mlm`` on two ranks, ``{seq: 2}`` Ulysses, ``{seq: 2}``
+   ring and ``{model: 2}``: 3 steps and one eval, finite losses, each
+   rank's flash launches == 12 x (steps + evals) forwards and 12 x steps
+   backwards (0 on the ring), each rank's peak GiB beside phase 7's, the
+   leaves every rank holds whole identical over the ranks (dropout keyed
+   on the data x seq index), and a dropout-0 first step against the
+   one-process step (first moments within 5e-2 relative; the next
+   batch's one-process step, the control, outside it).  Step times there
+   are host-staged gloo transfers, not a link.
 
 Prints one ``kernels`` JSON line, then the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a card it
@@ -3164,11 +3184,13 @@ def worker_bert_steps(backend: str) -> None:
 WORKERS.update(bert_train=worker_bert_train, bert_steps=worker_bert_steps)
 
 
-def bert_dp_phase(card: str, phase7: dict) -> dict:
+def bert_dp_phase(card: str, phase7: dict, beside=()) -> dict:
     """Phase 12: data-parallel BERT-base training.  12a: NCCL at world
     size 1 through the CLI, the flash kernels counted, beside phase 7;
     12b: two ranks on ``cuda:0`` over gloo, every layout against the
-    one-process step (12c, the bench under torchrun: 13e's child)."""
+    one-process step (12c, the bench under torchrun: 13e's child).
+    ``beside``: more check-only worlds (``(nproc, args)``) run beside
+    12b's; their outputs are returned under ``"beside"``."""
     me = os.path.abspath(__file__)
     phase("12a")
     res = dp_result(torchrun(1, [me, "--worker", "bert_train", "nccl"], 600))
@@ -3218,9 +3240,10 @@ def bert_dp_phase(card: str, phase7: dict) -> dict:
     # 14d's two-rank save runs beside this check-only world (for the
     # script's time); 14d restores what it saved
     shutil.rmtree(os.path.join(CKPT_DIR, "dp"), ignore_errors=True)
-    steps, ckpt_save = map(dp_result, torchrun_all(
-        [(2, [me, "--worker", "bert_steps", "gloo"]),
-         (2, [me, "--worker", "ckpt_save", "gloo"])], 600))
+    outs = torchrun_all([(2, [me, "--worker", "bert_steps", "gloo"]),
+                         (2, [me, "--worker", "ckpt_save", "gloo"]),
+                         *beside], 900)
+    steps, ckpt_save = map(dp_result, outs[:2])
     bad = {n: d for n, d in {**steps["vs_plain"],
                              **{f"{n} vs replicated": d for n, d in
                                 steps["vs_replicated"].items()}}.items()
@@ -3259,7 +3282,346 @@ def bert_dp_phase(card: str, phase7: dict) -> dict:
         raise AssertionError(f"phase 12b: {bad}")
     # 12c, the bench's transformer lines under torchrun, runs in 13e's
     # child (one launch for all of the bench's lines)
-    return {"bert_train": res, "bert_steps": steps, "ckpt_save": ckpt_save}
+    return {"bert_train": res, "bert_steps": steps, "ckpt_save": ckpt_save,
+            "beside": outs[2:]}
+
+
+# --------------------------------------------------------------- phase 22
+
+# 22a: the model and seq axes against the one-process step, at 12b's
+# recipe (float32, 2 layers at full width, S = 512 with the flash
+# kernels from there, dropout 0, 3 steps of transformer_tx(1e-4) from the
+# seed-0 state, DP_TOL) on a global batch of 2; ranks on cuda:0 over
+# gloo.  (name, mesh, family, sp_impl, attention): the Ulysses cases
+# take "flash", whose kernels run on the H / N heads a rank holds after
+# its all-to-all; the model axis takes them on its H / M heads ("auto"
+# at S = flash_min_seq); the ring runs no hand kernel.
+TPSP_B = 2
+TPSP_TWO = (("model", {"model": 2}, "bert_base", "ring", "auto"),
+            ("seq_ring", {"seq": 2}, "bert_base", "ring", "auto"),
+            ("seq_ulysses", {"seq": 2}, "bert_base", "ulysses", "flash"),
+            ("gpt_seq_ring", {"seq": 2}, "gpt_base", "ring", "auto"))
+TPSP_FOUR = (("model_seq_ring", {"model": 2, "seq": 2}, "bert_base", "ring",
+              "auto"),
+             ("model_seq_ulysses", {"model": 2, "seq": 2}, "bert_base",
+              "ulysses", "flash"))
+# 22b: config 5 (BERT_BASE bf16, S = 4096, batch 4, dropout 0.1) through
+# train_mlm on two gloo ranks: 3 steps and one eval forward
+TPSP5 = (("seq_ulysses", {"seq": 2}, "ulysses"),
+         ("seq_ring", {"seq": 2}, "ring"),
+         ("model", {"model": 2}, "ring"))
+TPSP5_STEPS, TPSP5_EVALS = 3, 1
+# the dropout-0 first step against the one-process step, both bf16: the
+# relative distance of the first moments (the clipped gradient x 0.1)
+# and of the losses; the control (the one-process step on the next
+# batch) must land outside both bounds.  The sharded runs read <= 8.1e-5
+# in the loss and the control 1.96e-2 (H100 80GB HBM3, 700 W)
+TPSP5_TOL = {"moments": 5e-2, "loss": 2e-3}
+
+
+def _named(tree) -> dict:
+    """``{"layers.0.wq": leaf, ...}`` of a parameter tree."""
+    from mpi_tensorflow_torch.utils import tree as tree_lib
+
+    return {".".join(map(str, p)): v
+            for p, v in tree_lib.leaves_with_path(tree)}
+
+
+def tpsp_run(dev, case, rows, steps: int = DP_STEPS) -> dict:
+    """22a: ``steps`` steps of ``case`` (a ``TPSP_TWO`` / ``TPSP_FOUR``
+    entry; its mesh None: the one-process step) on ``rows`` of each
+    global batch: the losses, the parameters gathered whole, each flash
+    kernel's launches on this rank."""
+    from mpi_tensorflow_torch.parallel import mesh as meshlib
+    from mpi_tensorflow_torch.train import gspmd, mlm_loop, optimizer
+
+    _, shape, family, sp_impl, attention = case
+    mesh = meshlib.make_mesh(shape) if shape else None
+    tokens, targets, mask = dp_bert_batches()
+    cfg = dataclasses.replace(dp_bert_cfg(), sp_impl=sp_impl)
+    model = mlm_loop.FAMILIES[family].from_seed(cfg, 0, attention,
+                                                mesh=mesh).to(dev)
+    tx = optimizer.transformer_tx(DP_LR, DP_STEPS)
+    state = gspmd.init_for("replicated", model, tx)
+    step = gspmd.make_train_step(tx, across_ranks=mesh is not None)
+    n = DP_SEQ // (mesh.axis_size("seq") if mesh else 1)
+    q = mesh.axis_index("seq") if mesh else 0
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a[rows][:, q * n:(q + 1) * n])).to(dev)
+    set_flash_counts({k: 0 for k in FLASH})
+    losses = []
+    for t in range(steps):
+        state, m = step(state, {"tokens": put(tokens[t]),
+                                "mask": put(mask[t])}, put(targets[t]))
+        losses.append(m["loss"])
+    torch.cuda.synchronize(dev)
+    launches = flash_counts()
+    return {"losses": torch.stack(losses),
+            "params": _named(gspmd.gathered_params(state)),
+            "launches": launches}
+
+
+def worker_tpsp_steps(backend: str) -> None:
+    """22a: each case of ``TPSP_TWO`` (two ranks) or ``TPSP_FOUR`` (four)
+    across the world, then on rank 0 alone the one-process step of each
+    family against them."""
+    from mpi_tensorflow_torch.parallel import mesh
+
+    dev, rank, world = join_world(backend)
+    cases = TPSP_TWO if world == 2 else TPSP_FOUR
+    rows = np.arange(TPSP_B)
+    t0 = time.perf_counter()
+    runs = {c[0]: tpsp_run(dev, c, rows) for c in cases}
+    sec = time.perf_counter() - t0
+    launches = {c[0]: runs[c[0]]["launches"] for c in cases}
+    if rank != 0:
+        mesh.shutdown()
+        return
+    plain = {}
+    for _, _, family, _, _ in cases:
+        if family not in plain:
+            plain[family] = tpsp_run(dev, ("plain", None, family, "ring",
+                                           "auto"), rows)
+    print(DP_RESULT + json.dumps({
+        "case": "tpsp_steps", "world": world, "seconds": sec,
+        "vs_plain": {c[0]: dp_bert_diff(runs[c[0]], plain[c[2]])
+                     for c in cases},
+        "launches": launches,
+        "plain_launches": {f: p["launches"] for f, p in plain.items()},
+        "losses": {c[0]: runs[c[0]]["losses"].tolist() for c in cases}}),
+        flush=True)
+    mesh.shutdown()
+
+
+def _leaf_hash(x) -> int:
+    """An exact fingerprint of a float32 tensor's bytes."""
+    return int(x.detach().contiguous().view(torch.int32).to(
+        torch.int64).sum())
+
+
+def tpsp5_first_step(dev, shape, sp_impl, batch: int) -> dict:
+    """22b: one dropout-0 step of config 5 on the global batch ``batch``
+    (mesh ``shape``; None: one process): the loss and the first moments
+    gathered whole and flattened (float32, on the card)."""
+    from mpi_tensorflow_torch.data import synthetic
+    from mpi_tensorflow_torch.models import bert
+    from mpi_tensorflow_torch.parallel import mesh as meshlib
+    from mpi_tensorflow_torch.parallel import sharding_rules
+    from mpi_tensorflow_torch.train import gspmd, optimizer
+    from mpi_tensorflow_torch.utils import tree as tree_lib
+
+    mesh = meshlib.make_mesh(shape) if shape else None
+    cfg = dataclasses.replace(bert.BERT_BASE, dtype=torch.bfloat16,
+                              max_positions=TRAIN_SEQ, dropout=0.0,
+                              sp_impl=sp_impl)
+    model = bert.BertMlm.from_seed(cfg, 0, mesh=mesh).to(dev)
+    tx = optimizer.transformer_tx(1e-4, TPSP5_STEPS)
+    state = gspmd.init_for("replicated", model, tx)
+    step = gspmd.make_train_step(tx, across_ranks=mesh is not None)
+    tokens, targets, mask = synthetic.mlm_batches(
+        2 * TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab_size=cfg.vocab_size,
+        seed=9)
+    rows = slice(batch * TRAIN_BATCH, (batch + 1) * TRAIN_BATCH)
+    n = TRAIN_SEQ // (mesh.axis_size("seq") if mesh else 1)
+    q = mesh.axis_index("seq") if mesh else 0
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a[rows, q * n:(q + 1) * n])).to(dev)
+    _, m = step(state, {"tokens": put(tokens), "mask": put(mask)},
+                put(targets))
+    mu = tree_lib.unflatten(model.param_tree(), state.opt.mu)
+    if model.tp is not None:
+        mu = sharding_rules.gather_tree(mu, model.logical_axes(), mesh)
+    flat = torch.cat([x.reshape(-1) for x in tree_lib.leaves(mu)])
+    loss = float(m["loss"])
+    del model, state, mu
+    return {"loss": loss, "moments": flat}
+
+
+def worker_tpsp_config5(backend: str) -> None:
+    """22b: each case of ``TPSP5`` through ``train_mlm`` on this world
+    (each rank's flash launches, peak GiB, step ms of the host-staged
+    transfers, the losses; the leaves whole on every rank fingerprinted
+    and compared over the ranks), then its dropout-0 first step; on
+    rank 0 alone after the world, the one-process first steps (the
+    batch and the control's next batch) against them."""
+    from mpi_tensorflow_torch.config import Config
+    from mpi_tensorflow_torch.models import bert
+    from mpi_tensorflow_torch.parallel import collectives, mesh
+    from mpi_tensorflow_torch.train import gspmd, mlm_loop
+    from mpi_tensorflow_torch.utils import tree as tree_lib
+
+    dev, rank, world = join_world(backend)
+    torch.empty(0, device=dev)
+    runs, firsts = {}, {}
+    times, make = [], gspmd.make_train_step
+
+    def timed(*a, **kw):
+        # each train step's wall time, the card synchronised around it
+        # (train_mlm's own timer skips its first window, here the only one)
+        step = make(*a, **kw)
+
+        def call(*args):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t)
+            return out
+        return call
+    for name, shape, sp_impl in TPSP5:
+        cfg = dataclasses.replace(bert.BERT_BASE, dtype=torch.bfloat16,
+                                  max_positions=TRAIN_SEQ, sp_impl=sp_impl)
+        config = Config(model="bert_base", dataset="mlm_synthetic",
+                        epochs=1, batch_size=TRAIN_BATCH, log_every=100,
+                        precision="bf16", mesh_shape=shape)
+        torch.cuda.reset_peak_memory_stats(dev)
+        set_flash_counts({k: 0 for k in FLASH})
+        t0 = time.perf_counter()
+        times.clear()
+        gspmd.make_train_step = timed
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = mlm_loop.train_mlm(
+                    config, cfg, seq_len=TRAIN_SEQ,
+                    train_n=TPSP5_STEPS * TRAIN_BATCH, test_n=TRAIN_BATCH,
+                    device=dev)
+        finally:
+            gspmd.make_train_step = make
+        torch.cuda.synchronize(dev)
+        sec = time.perf_counter() - t0
+        model = res.state.model
+        whole = [sp == () for sp in model.leaf_specs()]
+        hashes = np.array([_leaf_hash(p) if w else 0 for p, w in zip(
+            tree_lib.leaves(model.param_tree()), whole)], np.int64)
+        every = collectives.host_allgather(hashes)
+        runs[name] = {
+            "launches": flash_counts(), "steps": res.num_steps,
+            "evals": len(res.history), "final_loss": res.final_loss,
+            "step_ms": [t * 1e3 for t in times],
+            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "whole_leaves": int(sum(whole)),
+            "whole_leaves_identical": bool((every == every[0]).all()),
+            "seconds": sec}
+        del res, model
+        firsts[name] = tpsp5_first_step(dev, shape, sp_impl, 0)
+        torch.cuda.empty_cache()
+    per_rank = collectives.host_allgather(np.array(
+        [[runs[n]["peak_memory_gib"], runs[n]["launches"]["flash_fwd"],
+          runs[n]["launches"]["flash_dq"], runs[n]["launches"]["flash_dkdv"]]
+         for n, _, _ in TPSP5], np.float64)).tolist()
+    if rank != 0:
+        mesh.shutdown()
+        return
+    mesh.shutdown()
+    torch.cuda.reset_peak_memory_stats(dev)
+    plain = tpsp5_first_step(dev, None, "ring", 0)
+    plain_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    control = tpsp5_first_step(dev, None, "ring", 1)
+
+    def apart(got):
+        ref = plain["moments"]
+        return {"moments": float((got["moments"] - ref).norm() / ref.norm()),
+                "loss": abs(got["loss"] - plain["loss"])}
+
+    print(DP_RESULT + json.dumps({
+        "case": "tpsp_config5", "world": world, "runs": runs,
+        "per_rank": per_rank, "first_step": {
+            n: apart(f) for n, f in firsts.items()},
+        "control": apart(control), "plain_loss": plain["loss"],
+        "plain_first_step_peak_gib": plain_peak}), flush=True)
+
+
+WORKERS.update(tpsp_steps=worker_tpsp_steps,
+               tpsp_config5=worker_tpsp_config5)
+
+
+def tpsp_jobs() -> list:
+    """Phase 22's worlds: 22a's two and four ranks, 22b's two."""
+    me = os.path.abspath(__file__)
+    return [(2, [me, "--worker", "tpsp_steps", "gloo"]),
+            (4, [me, "--worker", "tpsp_steps", "gloo"]),
+            (2, [me, "--worker", "tpsp_config5", "gloo"])]
+
+
+def tpsp_phase(card: str, phase7: dict, outs) -> dict:
+    """Phase 22: the model and seq mesh axes (tensor and sequence
+    parallelism) on ranks of ``cuda:0`` over gloo (check-only worlds:
+    NCCL refuses two ranks on one card).  ``outs``: the standard outputs
+    of ``tpsp_jobs``' worlds.  22a: each sharded step against the
+    one-process step within ``DP_TOL``; 22b: config 5 through
+    ``train_mlm``, flash launches per rank, peak GiB per rank beside
+    phase 7's, the whole leaves identical over the ranks, the dropout-0
+    first step against the one-process one."""
+    two, four, c5 = map(dp_result, outs)
+    bad = {}
+    for res, cases in ((two, TPSP_TWO), (four, TPSP_FOUR)):
+        for name, shape, family, sp_impl, attention in cases:
+            diff = res["vs_plain"][name]
+            # the ring runs no hand kernel; without a seq axis the model
+            # axis takes them ("auto" at S = flash_min_seq)
+            flash = attention == "flash" or "seq" not in shape
+            want = {k: 2 * DP_STEPS if flash else 0 for k in FLASH}
+            if not dp_bert_within(diff) or res["launches"][name] != want:
+                bad[name] = {"diff": diff, "launches": res["launches"][name],
+                             "want": want}
+            log(f"[tp/sp] {family} on {shape} ({sp_impl}, attention "
+                f"{attention}), {len(res['losses'][name])} steps on "
+                f"cuda:0 over gloo, float32, 2 layers at full width, "
+                f"S={DP_SEQ}, global batch {TPSP_B}: against the "
+                f"one-process step {json.dumps(diff)} (tolerance "
+                f"{DP_TOL}); flash launches per rank {res['launches'][name]}"
+                f"; losses {res['losses'][name]}")
+        log(f"[tp/sp] the {res['world']}-rank world took "
+            f"{res['seconds']:.1f} s (ranks share the card; host-staged "
+            f"transfers)")
+    for name, shape, sp_impl in TPSP5:
+        run = c5["runs"][name]
+        flash = sp_impl == "ulysses" or "model" in shape
+        want = {"flash_fwd": 12 * (TPSP5_STEPS + TPSP5_EVALS),
+                "flash_dq": 12 * TPSP5_STEPS,
+                "flash_dkdv": 12 * TPSP5_STEPS} if flash \
+            else {k: 0 for k in FLASH}
+        ranks = [{"peak_gib": p[0], "launches": dict(zip(FLASH, map(
+            int, p[1:4])))} for p in (
+            row[TPSP5.index((name, shape, sp_impl))]
+            for row in c5["per_rank"])]
+        first = c5["first_step"][name]
+        problems = []
+        if any(r["launches"] != want for r in ranks):
+            problems.append(f"launches {ranks} != {want}")
+        if not np.isfinite(run["final_loss"]) or run["steps"] != TPSP5_STEPS \
+                or run["evals"] != TPSP5_EVALS:
+            problems.append(f"run {run}")
+        if not run["whole_leaves_identical"]:
+            problems.append("whole leaves differ over the ranks")
+        if not all(first[k] <= TPSP5_TOL[k] for k in TPSP5_TOL):
+            problems.append(f"first step {first}")
+        if problems:
+            bad[f"22b {name}"] = problems
+        log(f"[tp/sp] config 5 (BERT_BASE bf16, S={TRAIN_SEQ}, batch "
+            f"{TRAIN_BATCH}, dropout 0.1) on {shape} ({sp_impl}) through "
+            f"train_mlm, 2 ranks on cuda:0 over gloo: {run['steps']} steps "
+            f"+ {run['evals']} eval, final loss {run['final_loss']:.4f}; "
+            f"per rank peak GiB "
+            f"{[round(r['peak_gib'], 3) for r in ranks]} (phase 7, one "
+            f"process: {phase7['peak_memory_gib']:.3f}), flash launches "
+            f"{[r['launches'] for r in ranks]} (want {want}); "
+            f"{run['whole_leaves']} leaves whole on every rank, identical "
+            f"over the ranks: {run['whole_leaves_identical']}; steps "
+            f"{[round(t, 1) for t in run['step_ms']]} ms on rank 0 "
+            f"(host-staged gloo transfers, not a link), {run['seconds']:.1f}"
+            f" s in all; dropout-0 first step against "
+            f"one process: {json.dumps(first)} (bound {TPSP5_TOL}); {card}")
+    control = c5["control"]
+    log(f"[tp/sp] control: the one-process first step on the next batch "
+        f"{json.dumps(control)} (must miss both bounds {TPSP5_TOL}); "
+        f"one-process loss {c5['plain_loss']:.5f}, its first step's peak "
+        f"{c5['plain_first_step_peak_gib']:.3f} GiB")
+    if any(control[k] <= TPSP5_TOL[k] for k in TPSP5_TOL):
+        bad["22b control"] = control
+    if bad:
+        raise AssertionError(f"phase 22: {bad}")
+    return {"two": two, "four": four, "config5": c5}
 
 
 # --------------------------------------------------------------- phase 13
@@ -6123,8 +6485,11 @@ def main() -> int:
     phase("11 data axis")
     dp = dp_phase(card, cnn)
     phase("12 data-parallel BERT")
-    bert_phase = bert_dp_phase(card, phase7)
+    # phase 22's check-only worlds run beside 12b's (for the script's time)
+    bert_phase = bert_dp_phase(card, phase7, beside=tpsp_jobs())
     bert_dp = bert_phase["bert_train"]["runs"]
+    phase("22 tensor and sequence parallelism")
+    tpsp = tpsp_phase(card, phase7, bert_phase["beside"])
     phase("13 ResNets")
     resnet = resnet_phase(dev, card, dp["resnet_worlds"])
     resnet_launches = resnet["launches"]
@@ -6220,6 +6585,16 @@ def main() -> int:
             "launches_crossover": {
                 arm: vit_levers["crossover"][arm]["flash_launches"][name]
                 for arm in ("dense", "flash")},
+            # phase 22, rank 0 of each world, each case from 0: 22a (2
+            # fp32 layers, 3 steps) and 22b (config 5, 3 steps + 1
+            # eval); the ring cases launch none (no hand kernel lies on
+            # the ring)
+            "launches_tp_sp": {
+                **{f"22a {c}": n[name] for w in ("two", "four")
+                   for c, n in tpsp[w]["launches"].items()},
+                **{f"22b {c}": int(tpsp["config5"]["per_rank"][0][i][
+                    1 + FLASH.index(name)])
+                   for i, (c, _, _) in enumerate(TPSP5)}},
             "max_abs_err": max(flash_worst[name, torch.float32],
                                flash_worst[name, torch.bfloat16]),
             "max_abs_err_fp32": flash_worst[name, torch.float32],

@@ -99,7 +99,10 @@ the CPU its steps one after another; ``--fused-steps 1`` steps one step
 at a time everywhere.  ``--tiny``, ``--seq-len``, ``--train-n``
 and ``--test-n`` have no counterpart in the reference's CLI: they size
 a transformer run (BERT_TINY geometry, ``train_mlm``'s sequence length
-and split sizes).
+and split sizes).  ``--mesh data=D,model=M,seq=N`` under
+``torchrun --nproc_per_node D*M*N`` trains bert_base or gpt_base with
+tensor and sequence parallelism (``models/bert.py``; ring attention over
+``seq``, as ``BertConfig.sp_impl`` defaults).
 A ``--seq-len`` past the geometry's 512 positions raises
 ``max_positions`` to it; at ``flash_min_seq`` (4096) and above, the card
 runs the flash kernels.  Values whose path is not ported yet raise
@@ -150,8 +153,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "absent), cifar-10-batches-bin or imagenet_npy "
                         "(synthetic when absent)")
     p.add_argument("--mesh", default=None,
-                   help="mesh spec, e.g. 'data=4': the data axis must "
-                        "equal the number of ranks")
+                   help="mesh spec, e.g. 'data=4' or 'data=2,model=2,"
+                        "seq=2': the product must equal the number of "
+                        "ranks; model (tensor parallel) and seq (sequence "
+                        "parallel) for bert_base and gpt_base")
     p.add_argument("--fused-steps", type=int, default=None,
                    help="train steps per window (one upload each; one "
                         "CUDA graph replay on the card). Default: "

@@ -57,9 +57,12 @@ class Config:
     prefetch: str = "auto"        # window assembly: thread / auto on a
                                   # background thread, off inline
                                   # ("native", the C++ worker: item 15c)
-    mesh_shape: Optional[dict] = None  # {"data": n}: n must be the
+    mesh_shape: Optional[dict] = None  # {"data": D, "model": M, "seq":
+                                       # N}: the product must be the
                                        # torch.distributed world size
-                                       # (checked when training starts)
+                                       # (checked when training starts);
+                                       # model / seq for bert_base and
+                                       # gpt_base
     checkpoint_dir: Optional[str] = None  # sharded checkpoints at each
                                           # trace point; SIGTERM saves
                                           # and stops
@@ -148,10 +151,20 @@ class Config:
                                   # matmuls; parameters stay float32
 
     def __post_init__(self):
+        mesh = self.mesh_shape or {}
+        big = {k for k, v in mesh.items() if v != 1}
+        tp_sp = big & {"model", "seq"}
         not_ported = (
-            (any(v > 1 for k, v in (self.mesh_shape or {}).items()
-                 if k != "data"),
-             f"mesh_shape={self.mesh_shape}", "14 (model parallelism)"),
+            ("expert" in big, f"mesh_shape={mesh} (the expert axis)",
+             "14c (the expert axis and tensor-parallel experts)"),
+            ("pipe" in big, f"mesh_shape={mesh} (the pipe axis)",
+             "14d (the pipe axis and its schedules)"),
+            (self.model == "moe_bert" and bool(tp_sp),
+             f"moe_bert under mesh_shape={mesh}",
+             "14c (the expert axis and tensor-parallel experts)"),
+            (self.model == "encdec_t5" and "model" in big,
+             f"encdec_t5 under mesh_shape={mesh}",
+             "14e (encdec_t5 under the model axis)"),
             (self.prefetch == "native", "prefetch='native'",
              "15c (the C++ window worker)"),
         )
@@ -159,6 +172,18 @@ class Config:
             if bad:
                 raise NotImplementedError(
                     f"{what} is not ported yet: ROADMAP Queue 1 item {item}")
+        if self.model == "encdec_t5" and "seq" in big:
+            # the reference's refusal (mlm_loop.py:82-88)
+            raise ValueError(
+                f"the encoder-decoder family supports data x model "
+                f"(Megatron TP) meshes only (mesh {mesh}); drop the other "
+                f"axes rather than silently ignoring them")
+        if tp_sp and self.model not in ("bert_base", "gpt_base",
+                                        "moe_bert", "encdec_t5"):
+            raise ValueError(
+                f"the model and seq mesh axes apply to the transformer "
+                f"families; --model {self.model} trains over the data axis "
+                f"(mesh {mesh})")
         if self.optimizer not in ("adamw", "lamb"):
             raise ValueError(f"unknown optimizer {self.optimizer!r}")
         if self.sync not in ("psum", "avg50"):

@@ -9,8 +9,9 @@ with ``encode``, ``head_hidden``, ``apply`` and ``loss`` for training
 (``models/gpt.TrainableCausalLm`` adds the causal mask and the
 next-token loss on top, ``models/moe`` routed expert MLPs through the
 layer's ``mlp_block`` hook, ``models/encdec`` a decoder after the same
-encoder).  The sequence-parallel attention branches wait for the
-parallelism slices (ROADMAP Queue 1 item 14).
+encoder).  ``BertMlm`` and the causal family run under the ``model``
+and ``seq`` mesh axes (tensor and sequence parallelism: the class
+note).
 
 ``cfg.remat`` recomputes each layer's activations in the backward
 (``torch.utils.checkpoint``, non-reentrant; ``remat_policy`` "full"
@@ -59,7 +60,10 @@ from torch import nn
 from mpi_tensorflow_torch.models.base import dropout_mask
 from mpi_tensorflow_torch.ops import mlm_head
 from mpi_tensorflow_torch.ops.flash_attention import flash_attention
-from mpi_tensorflow_torch.parallel.ring import dense_attention
+from mpi_tensorflow_torch.parallel import collectives, sharding_rules
+from mpi_tensorflow_torch.parallel.ring import dense_attention, ring_attention
+from mpi_tensorflow_torch.parallel.ulysses import ulysses_attention
+from mpi_tensorflow_torch.utils import tree as tree_lib
 
 ATTENTION = ("auto", "flash", "dense")
 
@@ -98,8 +102,15 @@ class BertConfig:
     fused_qkv: bool = False              # q, k, v from ONE (E, 3HD)
                                          # product on the stacked weights
                                          # (the leaves stay separate)
+    sp_impl: str = "ring"                # attention over a seq axis:
+                                         # "ring" (K/V hops, any head
+                                         # count) or "ulysses" (two
+                                         # all-to-alls, heads % seq == 0)
 
     def __post_init__(self):
+        if self.sp_impl not in ("ring", "ulysses"):
+            raise ValueError(f"sp_impl must be 'ring' or 'ulysses', got "
+                             f"{self.sp_impl!r}")
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
         if self.pos_kind not in ("learned", "rope"):
@@ -300,15 +311,19 @@ class EncoderLayer(nn.Module):
         return self.forward_aux(h, attention, dt, drop, reduce, fused)[0]
 
     def forward_aux(self, h, attention, dt, drop=None, reduce=None,
-                    fused: bool = False):
+                    fused: bool = False, enter=None):
         """``forward`` and the MLP's auxiliary loss (None for a dense
-        MLP): ``(h, aux)``."""
-        q, k, v = self.qkv_proj(h, dt, fused)
+        MLP): ``(h, aux)``.  ``enter`` is applied to the input of each
+        column-parallel product (training's tensor parallelism:
+        ``collectives.copy_to``, whose backward sums the ranks' parts of
+        the residual stream's gradient)."""
+        x = h if enter is None else enter(h)
+        q, k, v = self.qkv_proj(x, dt, fused)
         a = self.attn_out_proj(attention(q, k, v), dt, reduce)
         if drop is not None:
             a = drop(a)
         h = self.ln1(h + a).to(dt)
-        m, aux = self.mlp_block(h, dt, reduce)
+        m, aux = self.mlp_block(h if enter is None else enter(h), dt, reduce)
         if drop is not None:
             m = drop(m)
         return self.ln2(h + m).to(dt), aux
@@ -380,15 +395,22 @@ class LmHead(nn.Module):
         return self.ln(t).to(dt)
 
 
+def takes_flash(q, cfg: BertConfig, attention: str = "auto",
+                seq_len=None) -> bool:
+    """Whether ``attention`` takes the flash kernels: always for
+    ``"flash"``; for ``"auto"`` on CUDA tensors at ``seq_len`` (default:
+    q's) ``>= cfg.flash_min_seq``; never for ``"dense"``."""
+    S = q.shape[2] if seq_len is None else seq_len
+    return attention == "flash" or (
+        attention == "auto" and q.device.type == "cuda"
+        and S >= cfg.flash_min_seq)
+
+
 def attend(q, k, v, cfg: BertConfig, attention: str = "auto",
            causal: bool = False):
     """One layer's attention by ``attention`` (``BertMlm``'s note): the
-    flash kernels for ``"flash"``, or for ``"auto"`` on CUDA tensors at
-    ``S >= cfg.flash_min_seq``; ``dense_attention`` otherwise."""
-    flash = attention == "flash" or (
-        attention == "auto" and q.device.type == "cuda"
-        and q.shape[2] >= cfg.flash_min_seq)
-    if flash:
+    flash kernels where ``takes_flash``, ``dense_attention`` otherwise."""
+    if takes_flash(q, cfg, attention):
         return flash_attention(q, k, v, causal)
     return dense_attention(q, k, v, causal=causal)
 
@@ -398,7 +420,7 @@ class BertMlm(nn.Module):
     reference's tree, computed in ``cfg.dtype``.
 
     ``attention`` picks the attention of every layer (the reference's
-    ``_attention``, without its sequence-parallel branches):
+    ``_attention``):
 
     - ``"auto"`` — the flash kernels for CUDA tensors at ``S >=
       cfg.flash_min_seq``, ``dense_attention`` otherwise (always on the
@@ -407,9 +429,34 @@ class BertMlm(nn.Module):
       CPU tensors);
     - ``"dense"`` — ``dense_attention`` at any S.
 
+    ``mesh`` (``parallel.mesh.Mesh``) lays the model out as the
+    reference's rules do (``logical_axes``, ``sharding_rules``): the
+    constructor takes the WHOLE parameters and keeps this rank's block.
+
+    - ``model`` axis (Megatron): ``wq/wk/wv/bq/bk/bv`` and ``w1/b1``
+      column-parallel over the local heads and MLP width, ``wo``/``w2``
+      row-parallel (``collectives.reduce_from`` before the bias, the
+      input through ``copy_to``); the embedding vocabulary-parallel (a
+      masked lookup and a sum); the tied decoder's logits sharded over
+      the vocabulary, the CE's max, sum and gold logit taken over the
+      axis (``_ce``), the argmax too (``vocab_argmax``: the lowest global
+      index among ties, as ``argmax``).  ``ce_impl="auto"`` takes the
+      dense CE when the vocabulary is sharded (the reference's rule);
+    - ``seq`` axis: ``tokens`` are this rank's contiguous block of each
+      row; positions are global (``pos_emb`` and ``rope`` at ``seq_index
+      * S_local``); each layer's attention is ``ring_attention`` or, by
+      ``cfg.sp_impl``, ``ulysses_attention``, whose inner attention is
+      the flash kernels where ``takes_flash`` holds at the FULL length
+      (the reference captures it before the split).  The MLM loss packs
+      the masked positions of whole rows: ``h`` is gathered over the
+      axis (``gather_from``), packed at ``ce_capacity`` of the full
+      length as the reference packs, and each rank takes an equal part
+      of the packed rows to the head;
+    - ``data``: nothing here (``train.gspmd`` reduces over it).
+
     ``causal`` (a subclass's, ``models/gpt.TrainableCausalLm``) masks
     every layer's attention to the keys at or before each query, on
-    either route.  The loss's CE over the vocabulary (``_ce``) is the
+    every route.  The loss's CE over the vocabulary (``_ce``) is the
     dense (B, P, V) logits or the chunked ``mlm_head.tied_softmax_ce``
     by ``cfg.ce_impl`` (``_use_chunked_ce``).  ``loss_terms`` gives the
     loss's numerator and the layers' summed auxiliary loss, which
@@ -417,14 +464,31 @@ class BertMlm(nn.Module):
     """
 
     causal = False
+    # the ROADMAP item a family waits for under the model or seq axis
+    # (None: it runs there)
+    mesh_item = None
 
-    def __init__(self, cfg: BertConfig, params: dict, attention: str = "auto"):
+    def __init__(self, cfg: BertConfig, params: dict, attention: str = "auto",
+                 mesh=None):
         super().__init__()
         if attention not in ATTENTION:
             raise ValueError(f"attention must be one of {ATTENTION}, got "
                              f"{attention!r}")
         self.cfg = cfg
         self.attention = attention
+        self.mesh = mesh
+        size = (lambda a: mesh.axis_size(a)) if mesh is not None \
+            else (lambda a: 1)
+        self.tp = mesh.group("model") if size("model") > 1 else None
+        self.sp = mesh.group("seq") if size("seq") > 1 else None
+        if (self.tp or self.sp) and self.mesh_item:
+            raise NotImplementedError(
+                f"{type(self).__name__} under the model or seq mesh axis "
+                f"(mesh {dict(mesh)}) is not ported yet: ROADMAP Queue 1 "
+                f"item {self.mesh_item}")
+        if self.tp is not None:
+            params = sharding_rules.shard_tree(params, self.logical_axes(),
+                                               mesh)
         f32 = torch.float32
         self.tok_emb = _param(params["tok_emb"], f32, trainable=True)
         self.pos_emb = _param(params["pos_emb"], f32, trainable=True)
@@ -449,26 +513,70 @@ class BertMlm(nn.Module):
 
     @classmethod
     def from_seed(cls, cfg: BertConfig, seed: int = 0,
-                  attention: str = "auto") -> "BertMlm":
+                  attention: str = "auto", mesh=None) -> "BertMlm":
         """Random weights from ``seed`` (``init_params`` on a CPU
-        ``torch.Generator``)."""
+        ``torch.Generator``); under ``mesh`` this rank's block of
+        them."""
         gen = torch.Generator().manual_seed(seed)
-        return cls(cfg, cls.init_params(cfg, gen), attention)
+        return cls(cfg, cls.init_params(cfg, gen), attention, mesh=mesh)
+
+    def logical_axes(self) -> dict:
+        """The tree (``param_tree``'s nesting) of each leaf's logical
+        axes, the reference's ``BertMlm.logical_axes``."""
+        ln = {"scale": ("embed",), "bias": ("embed",)}
+        layer = {"wq": ("embed", "heads", "head_dim"),
+                 "wk": ("embed", "heads", "head_dim"),
+                 "wv": ("embed", "heads", "head_dim"),
+                 "bq": ("heads", "head_dim"), "bk": ("heads", "head_dim"),
+                 "bv": ("heads", "head_dim"),
+                 "wo": ("heads", "head_dim", "embed"), "bo": ("embed",),
+                 "w1": ("embed", "mlp"), "b1": ("mlp",),
+                 "w2": ("mlp", "embed"), "b2": ("embed",)}
+        return {"tok_emb": ("vocab", "embed"), "pos_emb": ("pos", "embed"),
+                "emb_ln": ln,
+                "layers": [dict(layer, ln1=ln, ln2=ln)
+                           for _ in range(self.cfg.layers)],
+                "mlm": {"w": ("embed", "embed"), "b": ("embed",), "ln": ln,
+                        "out_b": ("vocab",)}}
+
+    def leaf_specs(self) -> list:
+        """Each parameter leaf's spec (``sharding_rules.spec_for``), in
+        ``param_tree``'s leaf order; every spec empty without a model
+        axis."""
+        n = len(tree_lib.leaves(self.param_tree()))
+        if self.tp is None:
+            return [()] * n
+        return tree_lib.leaves(sharding_rules.tree_specs(
+            self.logical_axes(), self.mesh))
 
     def param_tree(self) -> dict:
         """The parameters in the reference's pytree layout (nested dicts,
         ``layers`` a list) — what the optimizer's decay mask and
-        ``convert.params_to_numpy`` walk."""
+        ``convert.params_to_numpy`` walk.  Under a model axis, this
+        rank's blocks."""
         return {"tok_emb": self.tok_emb, "pos_emb": self.pos_emb,
                 "emb_ln": self.emb_ln.tree(),
                 "layers": [layer.tree() for layer in self.layers],
                 "mlm": self.mlm.tree()}
 
+    def _seq_offset(self, S_local: int) -> int:
+        """The global position of this rank's first token."""
+        return 0 if self.sp is None else self.sp.index * S_local
+
     def _attention(self, q, k, v, causal=None):
         """Self-attention of one layer, causal as the model (or as
-        ``causal`` says: the enc-dec decoder's)."""
+        ``causal`` says: the enc-dec decoder's); over the seq axis by
+        ``cfg.sp_impl``."""
         causal = self.causal if causal is None else causal
-        return attend(q, k, v, self.cfg, self.attention, causal)
+        if self.sp is None:
+            return attend(q, k, v, self.cfg, self.attention, causal)
+        if self.cfg.sp_impl == "ulysses":
+            full = q.shape[2] * self.sp.size
+            flash = takes_flash(q, self.cfg, self.attention, full)
+            inner = flash_attention if flash else None
+            return ulysses_attention(q, k, v, self.sp, causal=causal,
+                                     inner=inner)
+        return ring_attention(q, k, v, self.sp, causal=causal)
 
     def _dropout_generator(self, train: bool, generator):
         """The generator dropout draws from: ``generator`` in train mode
@@ -478,6 +586,27 @@ class BertMlm(nn.Module):
         if generator is None:
             raise ValueError("dropout needs a generator in train mode")
         return generator
+
+    def _embed(self, tokens):
+        """The token embedding of ``tokens``; under a model axis each
+        rank looks up its vocabulary rows (zero elsewhere) and the
+        ranks' rows are summed."""
+        if self.tp is None:
+            return F.embedding(tokens.long(), self.tok_emb)
+        rows = self.tok_emb.shape[0]
+        local = tokens.long() - self.tp.index * rows
+        mine = (local >= 0) & (local < rows)
+        h = F.embedding(local.clamp(0, rows - 1), self.tok_emb) \
+            * mine[..., None]
+        return collectives.reduce_from(h, self.tp)
+
+    def _tp_hooks(self):
+        """``(enter, reduce)`` of the layers' products under a model
+        axis, else ``(None, None)``."""
+        if self.tp is None:
+            return None, None
+        return (functools.partial(collectives.copy_to, axis=self.tp),
+                functools.partial(collectives.reduce_from, axis=self.tp))
 
     def encode(self, tokens, *, train: bool = False, generator=None):
         """Embeddings + encoder stack: ``tokens`` (B, S) int ids ->
@@ -492,21 +621,24 @@ class BertMlm(nn.Module):
         scalar): ``(h, aux)``."""
         c = self.cfg
         S = tokens.shape[1]
-        if c.pos_kind != "rope" and S > c.max_positions:
-            raise ValueError(f"sequence length {S} exceeds max_positions "
-                             f"{c.max_positions}")
+        s0 = self._seq_offset(S)
+        S_full = S if self.sp is None else S * self.sp.size
+        if c.pos_kind != "rope" and S_full > c.max_positions:
+            raise ValueError(f"sequence length {S_full} exceeds "
+                             f"max_positions {c.max_positions}")
         gen = self._dropout_generator(train, generator)
-        h = F.embedding(tokens.long(), self.tok_emb)
+        h = self._embed(tokens)
         if c.pos_kind != "rope":
-            h = h + self.pos_emb[None, :S]
+            h = h + self.pos_emb[None, s0:s0 + S]
         h = self.emb_ln(h)
         if gen is not None:
             h = dropout_mask(h, c.dropout, gen)
         h = h.to(c.dtype)
+        enter, reduce = self._tp_hooks()
 
         def attention(q, k, v):
             if c.pos_kind == "rope":
-                pos = torch.arange(S, device=q.device)
+                pos = s0 + torch.arange(S, device=q.device)
                 q, k = rope(q, pos), rope(k, pos)
             return self._attention(q, k, v)
 
@@ -514,8 +646,8 @@ class BertMlm(nn.Module):
             def fn(h, g):
                 drop = None if g is None else functools.partial(
                     dropout_mask, rate=c.dropout, generator=g)
-                return layer.forward_aux(h, attention, c.dtype, drop,
-                                         fused=c.fused_qkv)
+                return layer.forward_aux(h, attention, c.dtype, drop, reduce,
+                                         fused=c.fused_qkv, enter=enter)
             return fn
 
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -539,16 +671,27 @@ class BertMlm(nn.Module):
         return self.mlm.out_b
 
     def _logits(self, t):
-        """Tied vocab decoder: float32 logits of head hidden ``t``."""
+        """Tied vocab decoder: float32 logits of head hidden ``t`` (under
+        a model axis this rank's vocabulary rows)."""
         dt = self.cfg.dtype
+        if self.tp is not None:
+            t = collectives.copy_to(t, self.tp)
         return (t @ self.tok_emb.to(dt).t() + self._out_b()).to(
             torch.float32)
 
     def apply(self, tokens, *, train: bool = False, generator=None):
         """``tokens`` (B, S) (already masked) -> float32 logits (B, S,
-        V)."""
+        V); under a model axis this rank's vocabulary slice of them."""
         h = self.encode(tokens, train=train, generator=generator)
         return self._logits(self.head_hidden(h))
+
+    def vocab_argmax(self, logits):
+        """The argmax over the vocabulary of ``apply``'s logits (int64;
+        under a model axis over every rank's slice, the lowest global
+        index among ties, as ``argmax`` takes them: a collective)."""
+        if self.tp is None:
+            return logits.argmax(-1)
+        return mlm_head.vocab_parallel_argmax(logits, self.tp)
 
     def _packs_positions(self) -> bool:
         """Whether the loss packs masked positions before the head (the
@@ -558,16 +701,22 @@ class BertMlm(nn.Module):
     def _use_chunked_ce(self) -> bool:
         """``ce_impl``: ``dense`` or ``chunked`` as named; ``auto`` is
         chunked when every position reaches the head (the packed buffer's
-        (B, S/4, V) logits are small enough for the dense path)."""
+        (B, S/4, V) logits are small enough for the dense path) and the
+        vocabulary is whole (sharded, the logits are already 1/M)."""
         if self.cfg.ce_impl == "dense":
             return False
         if self.cfg.ce_impl == "chunked":
             return True
-        return not self._packs_positions()
+        return not self._packs_positions() and self.tp is None
 
     def _ce(self, t, labels):
         """Per-position float32 CE (B, P) of head hidden ``t`` against
         ``labels`` (B, P)."""
+        if self.tp is not None:
+            return mlm_head.vocab_parallel_ce(
+                t, self.tok_emb, self._out_b(), labels, self.tp,
+                chunk=self.cfg.ce_chunk if self._use_chunked_ce() else None,
+                dtype=self.cfg.dtype)
         if self._use_chunked_ce():
             return mlm_head.tied_softmax_ce(
                 t, self.tok_emb, self._out_b(), labels,
@@ -578,8 +727,8 @@ class BertMlm(nn.Module):
 
     def loss_weights(self, batch: dict):
         """(B, S) float32: the positions the loss averages over (the
-        masked ones); a data-parallel step divides by their count over
-        the global batch (``train.gspmd``)."""
+        masked ones, this rank's block under a seq axis); a step divides
+        by their count over the global batch (``train.gspmd``)."""
         return batch["mask"].to(torch.float32)
 
     def loss(self, batch: dict, labels, *, train: bool = False,
@@ -594,20 +743,35 @@ class BertMlm(nn.Module):
         return ce / torch.clamp(self.loss_weights(batch).sum(), min=1.0) \
             + self.aux_weight() * aux
 
+    def _seq_gather(self, x):
+        """The whole rows of this rank's block ``x`` (B, S_local, ...)
+        under a seq axis (not differentiable), else ``x``."""
+        if self.sp is None:
+            return x
+        return collectives.allgather_dim(x, 1, self.sp)
+
     def loss_terms(self, batch: dict, labels, *, train: bool = False,
                    generator=None):
         """``(ce_sum, aux)``: the loss's numerator, the CE summed over
         the masked positions that reach the head, and the layers'
-        auxiliary loss.  A data-parallel step divides the sum by the
-        masked count of the GLOBAL batch, as the reference's GSPMD loss
-        does (``train.gspmd``)."""
+        auxiliary loss.  A step divides the sum by the masked count of
+        the GLOBAL batch, as the reference's GSPMD loss does
+        (``train.gspmd``).  Under a seq axis each rank's sum is its part
+        of the packed rows of the whole sequences."""
         h, aux = self.encode_aux(batch["tokens"], train=train,
                                  generator=generator)
         mask = batch["mask"].to(torch.bool)
         labels = labels.long()
-        if self.cfg.ce_positions == "masked":
-            h, labels, weights = mlm_head.gather_masked_rows(
-                h, labels, mask, ce_capacity(self.cfg, h.shape[1]))
-        else:
+        if self.cfg.ce_positions != "masked":
             weights = mask.to(torch.float32)
+            return (self._ce(self.head_hidden(h), labels) * weights).sum(), aux
+        if self.sp is not None:
+            h = collectives.gather_from(h, self.sp, 1)
+            labels, mask = self._seq_gather(labels), self._seq_gather(mask)
+        h, labels, weights = mlm_head.gather_masked_rows(
+            h, labels, mask, ce_capacity(self.cfg, h.shape[1]))
+        if self.sp is not None:
+            h, labels, weights = (
+                mlm_head.rows_part(x, self.sp.index, self.sp.size)
+                for x in (h, labels, weights))
         return (self._ce(self.head_hidden(h), labels) * weights).sum(), aux

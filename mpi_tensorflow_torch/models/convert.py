@@ -13,7 +13,12 @@ dicts, ``layers`` stays a list.
   and ``models.encdec.EncDecLm`` (``dec_*`` and the cross-attention's
   ``x*`` leaves) consume;
 - ``params_to_numpy``: a port tree (``BertMlm.param_tree()``) -> float32
-  numpy leaves, to compare with a JAX model's parameters;
+  numpy leaves, to compare with a JAX model's parameters.  Under a mesh
+  (``parallel.mesh``) ``BertMlm(cfg, params_from_jax(tree), mesh=mesh)``
+  keeps this rank's block of each whole leaf (``sharding_rules.
+  shard_tree`` by the model's ``logical_axes``, the reference's
+  placement), and ``train.gspmd.gathered_params`` gathers the blocks
+  back into whole leaves for ``params_to_numpy``;
 - ``cnn_params_from_jax`` / ``cnn_params_to_numpy``: the same for the
   MNIST CNN, whose conv weights are the one layout that changes (the
   reference's HWIO is the port's OIHW);

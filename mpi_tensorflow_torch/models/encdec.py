@@ -122,13 +122,15 @@ class EncDecLm(bert_lib.BertMlm):
     ``batch`` is ``{"src": (B, S), "tgt": (B, T)}`` int ids; ``tgt[:, 0]``
     is BOS and positions 1.. are supervised."""
 
+    mesh_item = "14e (encdec_t5 under the model axis)"
+
     def __init__(self, cfg: bert_lib.BertConfig, params: dict,
-                 attention: str = "auto"):
+                 attention: str = "auto", mesh=None):
         if cfg.pos_kind != "learned":
             raise ValueError(
                 f"the encoder-decoder family supports pos_kind='learned' "
                 f"only (got {cfg.pos_kind!r})")
-        super().__init__(cfg, params, attention)
+        super().__init__(cfg, params, attention, mesh=mesh)
 
     def _init_head(self, params: dict) -> None:
         f32 = torch.float32

@@ -16,7 +16,8 @@ is one class there.  Here it is two, on one parameter tree:
   ``serving()`` hands its parameters to a ``CausalLm``.
 
 The pipelined ``PipelinedCausalLm`` waits for the pipeline (ROADMAP
-Queue 1 item 14).
+Queue 1 item 14d), and ``forward_with_cache`` / ``generate`` under a
+mesh for item 14e: ``CausalLm`` is one rank's whole model.
 
 A model is built from a parameter tree in the reference's layout:
 ``bert.init_params`` (seeded on the CPU) or ``convert.params_from_jax``
@@ -441,10 +442,14 @@ def shift_targets(tokens):
 class TrainableCausalLm(bert_lib.BertMlm):
     """The reference's ``CausalLm`` for training: ``BertMlm`` with the
     causal mask in every layer and the next-token loss at every position
-    (no masked packing: ``ce_impl="auto"`` takes the chunked CE).
+    (no masked packing: ``ce_impl="auto"`` takes the chunked CE, or the
+    dense one when a model axis shards the vocabulary).
 
     ``batch`` holds ``tokens`` (B, S); labels and the MLM mask are not
     read: the targets are the tokens shifted left (``shift_targets``).
+    Under a seq axis the shift runs on the whole rows (a block's last
+    position is supervised by the next block's first token), and each
+    rank keeps its block of the targets and weights.
     """
 
     causal = True
@@ -452,8 +457,15 @@ class TrainableCausalLm(bert_lib.BertMlm):
     def _packs_positions(self) -> bool:
         return False
 
+    def _targets(self, tokens):
+        """``shift_targets`` of the whole rows, this rank's block."""
+        targets, w = shift_targets(self._seq_gather(tokens.long()))
+        S = tokens.shape[1]
+        s0 = self._seq_offset(S)
+        return targets[:, s0:s0 + S], w[:, s0:s0 + S]
+
     def loss_weights(self, batch: dict):
-        return shift_targets(batch["tokens"])[1]
+        return self._targets(batch["tokens"])[1]
 
     def loss_terms(self, batch: dict, labels=None, *,
                    train: bool = False, generator=None):
@@ -463,14 +475,20 @@ class TrainableCausalLm(bert_lib.BertMlm):
         the reference's loss."""
         tokens = batch["tokens"]
         h, aux = self.encode_aux(tokens, train=train, generator=generator)
-        targets, w = shift_targets(tokens.long())
+        targets, w = self._targets(tokens)
         ce = self._ce(self.head_hidden(h), targets)
         return (ce * w).sum(), aux
 
     def serving(self) -> CausalLm:
         """A ``CausalLm`` on copies of these parameters (frozen, in the
         compute dtype), on the same device: ``generate``,
-        ``beam_search`` and the paged engine take it."""
+        ``beam_search`` and the paged engine take it.  Not under the
+        model or seq axis: the sharded ``forward_with_cache`` and
+        ``generate`` are ROADMAP Queue 1 item 14e."""
+        if self.tp is not None or self.sp is not None:
+            raise NotImplementedError(
+                "a sharded model's serving() (the sharded forward_with_cache "
+                "and generate) is not ported yet: ROADMAP Queue 1 item 14e")
         tree = tree_lib.map_leaves(lambda _, v: v.detach().clone(),
                                    self.param_tree())
         return CausalLm(self.cfg, tree).to(self.tok_emb.device)

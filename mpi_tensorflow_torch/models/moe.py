@@ -2,7 +2,7 @@
 
 Counterpart of ``MoeConfig`` and ``MoeBertMlm`` in
 ``mpi_tensorflow_tpu/models/moe.py`` (its ``PipelinedMoeBertMlm`` waits
-for the pipeline, ROADMAP Queue 1 item 14).  The encoder, dropout,
+for the pipeline, ROADMAP Queue 1 item 14d).  The encoder, dropout,
 remat, MLM head and loss are ``models/bert.BertMlm``'s; only the MLP of
 every other layer (odd layers under ``every_other``) is routed:
 
@@ -115,7 +115,7 @@ class MoeLayer(bert_lib.EncoderLayer):
         """(B, S, E) -> ``(out, aux)``: the capacity-routed expert MLP
         and the load-balance loss (float32).  No caller passes
         ``reduce``: the experts are not tensor-parallel (ROADMAP Queue 1
-        item 14)."""
+        item 14c)."""
         X = self.moe.num_experts
         B, S, E = h.shape
         N = B * S
@@ -150,10 +150,13 @@ class MoeBertMlm(bert_lib.BertMlm):
     """BERT-MLM with routed expert MLPs on the MoE layers; the
     load-balance loss joins the MLM loss at ``moe.aux_loss_weight``."""
 
+    mesh_item = "14c (the expert axis and tensor-parallel experts)"
+
     def __init__(self, cfg: bert_lib.BertConfig, params: dict,
-                 attention: str = "auto", moe: MoeConfig = MoeConfig()):
+                 attention: str = "auto", moe: MoeConfig = MoeConfig(),
+                 mesh=None):
         self.moe = moe
-        super().__init__(cfg, params, attention)
+        super().__init__(cfg, params, attention, mesh=mesh)
 
     def _make_layer(self, idx: int, lp: dict):
         if is_moe_layer(self.moe, idx):
@@ -189,9 +192,10 @@ class MoeBertMlm(bert_lib.BertMlm):
     @classmethod
     def from_seed(cls, cfg: bert_lib.BertConfig, seed: int = 0,
                   attention: str = "auto",
-                  moe: MoeConfig = MoeConfig()) -> "MoeBertMlm":
+                  moe: MoeConfig = MoeConfig(), mesh=None) -> "MoeBertMlm":
         gen = torch.Generator().manual_seed(seed)
-        return cls(cfg, cls.init_params(cfg, gen, moe), attention, moe)
+        return cls(cfg, cls.init_params(cfg, gen, moe), attention, moe,
+                   mesh=mesh)
 
     def dropped_share(self) -> float:
         """The share of routings (tokens x choices) over capacity in the

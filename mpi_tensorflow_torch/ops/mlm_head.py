@@ -4,7 +4,8 @@ cross-entropy.
 Counterpart of ``mpi_tensorflow_tpu/ops/mlm_head.py``:
 
 - ``gather_masked_rows`` packs each row's masked positions before the
-  head (the MLM family's default);
+  head (the MLM family's default); ``rows_part`` gives one rank of a
+  ``seq`` axis its equal part of the packed rows;
 - ``tied_softmax_ce`` is the cross-entropy of ``t @ emb.T + out_b``
   without a (B, S, V) logits tensor, in the forward or the backward: the
   reference's ``lax.scan`` over vocabulary tiles with an online (max,
@@ -12,13 +13,21 @@ Counterpart of ``mpi_tensorflow_tpu/ops/mlm_head.py``:
   log-partition is a ``torch.autograd.Function`` whose backward
   recomputes each tile's logits, so at most one (B, S, chunk) float32
   tile is live.  The reference scans in XLA, not in a Pallas kernel, so
-  the tile products stay ``torch.matmul`` (cuBLAS on the card).
+  the tile products stay ``torch.matmul`` (cuBLAS on the card);
+- ``vocab_parallel_ce`` is the same cross-entropy over a vocabulary
+  sharded on a ``model`` axis (the reference's GSPMD places these
+  collectives from the sharding): each rank's logits (dense, or its
+  log-partition by tiles) over its rows, the max and the sum of
+  exponentials taken over the axis, the gold logit from the rank that
+  owns it; ``vocab_parallel_argmax`` is the argmax over such logits.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from mpi_tensorflow_torch.parallel import collectives
 
 _NEG_BIG = -1e30   # bias of the padded vocabulary rows: exp() gives 0
 
@@ -130,3 +139,65 @@ def gather_masked_rows(h, labels, mask, capacity: int):
     packed = torch.gather(h, 1, idx64[..., None].expand(B, capacity, E))
     plabels = torch.gather(labels, 1, idx64)
     return packed, plabels, w.to(torch.float32)
+
+
+def vocab_parallel_ce(t, emb, out_b, labels, axis, *, chunk=None,
+                      dtype=None):
+    """``tied_softmax_ce`` with ``emb`` (V/M, E) and ``out_b`` (V/M,) this
+    rank's rows of a vocabulary sharded over ``axis`` (rank i holds rows
+    ``[i V/M, (i+1) V/M)``); every rank returns the whole (B, S) CE.
+    ``chunk``: this rank's log-partition by tiles (``_LogZ``), else from
+    its dense (B, S, V/M) logits.  ``t`` is held whole by every rank:
+    its gradient is summed over the axis (``copy_to``)."""
+    dtype = dtype or t.dtype
+    f32 = torch.float32
+    t = collectives.copy_to(t, axis)
+    rows = emb.shape[0]
+    local = labels.long() - axis.index * rows
+    mine = (local >= 0) & (local < rows)
+    idx = local.clamp(0, rows - 1)
+    if chunk is None:
+        logits = (t.to(dtype) @ emb.to(dtype).t()).to(f32) + out_b
+        part = logits.detach().amax(-1)
+        gold = torch.gather(logits, -1, idx[..., None])[..., 0]
+    else:
+        part = _LogZ.apply(t, emb, out_b, int(chunk), dtype)
+        logits = part[..., None]
+        gold = (t.to(dtype) * emb[idx].to(dtype)).sum(-1).to(f32) \
+            + out_b[idx].to(f32)
+        part = part.detach()
+    m = collectives.allreduce_max(part.clone(), axis)
+    # all-reduce forward, identity backward: each rank's share of the
+    # softmax's and the gold logit's gradient stays its own
+    sumexp = collectives.reduce_from(
+        torch.exp(logits - m[..., None]).sum(-1), axis)
+    gold = collectives.reduce_from(gold * mine, axis)
+    return m + torch.log(sumexp) - gold
+
+
+def vocab_parallel_argmax(logits, axis):
+    """The argmax (int64) over a vocabulary sharded over ``axis``:
+    ``logits`` (..., V/M) are this rank's slice, rank i's columns ``[i
+    V/M, (i+1) V/M)``.  Among ties, within a rank or across ranks, the
+    lowest global index, as ``argmax`` takes them.  A collective: every
+    rank of the axis calls it and gets the same ids."""
+    ids = logits.argmax(-1)
+    best = torch.gather(logits, -1, ids[..., None])[..., 0]
+    ids = ids + axis.index * logits.shape[-1]
+    vals = collectives.allgather(best.contiguous(), axis=axis)
+    idxs = collectives.allgather(ids.contiguous(), axis=axis)
+    top = vals.amax(0)
+    return torch.where(vals == top, idxs,
+                       torch.full_like(idxs, 2 ** 62)).amin(0)
+
+
+def rows_part(x, index: int, n: int):
+    """Part ``index`` of ``n`` of the rows of packed ``x`` (B, P, ...):
+    the B x P rows flattened, zero-padded to a multiple of n, split
+    evenly; returned as (1, ceil(B P / n), ...)."""
+    flat = x.reshape(-1, *x.shape[2:])
+    per = -(-flat.shape[0] // n)
+    pad = per * n - flat.shape[0]
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((pad, *flat.shape[1:]))])
+    return flat[index * per:(index + 1) * per][None]

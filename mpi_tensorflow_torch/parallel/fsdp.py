@@ -1,15 +1,14 @@
 """ZeRO/FSDP placement over the ``data`` axis: which dimension of each
 parameter a rank holds a slice of.
 
-Counterpart of ``mpi_tensorflow_tpu/parallel/fsdp.py`` on a mesh with a
-``data`` axis alone, where no logical rule shards a parameter (the
-transformer's rules map ``heads``, ``mlp`` and ``vocab`` to a ``model``
-axis, which such a mesh lacks), so every spec starts replicated:
+Counterpart of ``mpi_tensorflow_tpu/parallel/fsdp.py``:
 
 - ``shard_dim`` is ``augment_spec``: the largest dimension divisible by
-  the world size (and at least as long), the first of equals winning,
-  as the reference's strict ``>`` picks; ``None`` (replicated) for a
-  leaf under ``min_size`` elements or with no such dimension;
+  the data axis' size (and at least as long) among those no other axis
+  shards (``taken``: the ``model`` axis' dimensions of the rules), the
+  first of equals winning, as the reference's strict ``>`` picks;
+  ``None`` (replicated) for a leaf under ``min_size`` elements or with
+  no such dimension.  The shape is the whole leaf's;
 - ``tree_shard_dims`` is ``fsdp_tree_specs``: that choice at every leaf
   of a parameter tree;
 - ``shard`` takes rank r's slice of a leaf along its dimension;
@@ -39,14 +38,17 @@ DEFAULT_MIN_SIZE = 1024
 
 
 def shard_dim(shape: Sequence[int], world: int,
-              min_size: int = DEFAULT_MIN_SIZE) -> Optional[int]:
+              min_size: int = DEFAULT_MIN_SIZE,
+              taken=()) -> Optional[int]:
     """The dimension of a leaf of ``shape`` that ``world`` ranks each
-    hold a slice of, or None when the leaf stays replicated."""
+    hold a slice of, or None when the leaf stays replicated.  ``taken``:
+    dimensions another mesh axis shards already (the rules' ``model``
+    axis), which the data axis leaves alone."""
     if world <= 1 or math.prod(shape) < min_size:
         return None
     best = None
     for d, n in enumerate(shape):
-        if n % world == 0 and n >= world:
+        if d not in taken and n % world == 0 and n >= world:
             if best is None or n > shape[best]:
                 best = d
     return best

@@ -1,10 +1,10 @@
-"""Process bootstrap and the ``data`` axis over ``torch.distributed``.
+"""Process bootstrap and the mesh of named axes over ``torch.distributed``.
 
 Counterpart of ``mpi_tensorflow_tpu/parallel/mesh.py``.  Where the JAX
 package joins hosts with ``jax.distributed.initialize`` and lays the
-devices of one process out on a ``data`` mesh axis, the port runs one
-process per card (``torchrun --nproc_per_node N``) and the ``data`` axis
-is the ``torch.distributed`` world: rank ``r`` is shard ``r``.
+devices out on a mesh of named axes, the port runs one process per card
+(``torchrun --nproc_per_node N``) and lays the ``torch.distributed``
+world out on the mesh: rank ``r`` is device ``r``.
 
 - ``initialize_distributed`` joins the world that torchrun's environment
   (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
@@ -21,18 +21,29 @@ is the ``torch.distributed`` world: rank ``r`` is shard ``r``.
   made the current device.  A local rank with no card of its own
   raises: NCCL refuses two ranks on one card, and wrapping would hide a
   launch with more ranks than cards;
-- ``make_mesh`` checks a ``{"data": n}`` shape against the world size
-  (the JAX package's "mesh ... needs N devices"); a ``model``, ``seq`` or
-  ``pipe`` axis is ROADMAP Queue 1 item 14.
+- ``make_mesh`` lays named axes (``data``, ``model``, ``seq``) over the
+  world, as the JAX package's does over its devices: the product must
+  be the world size (its "mesh ... needs N devices"), rank ``r`` sits at
+  ``np.unravel_index(r, sizes)``, and ``Mesh.group(*axes)`` is the line
+  of ranks through this one along those axes, with its own process
+  group (created on every rank, in one order, once a world: a later
+  mesh over the same ranks reuses it, ``shutdown`` drops them with the
+  world).  The collectives
+  (``parallel.collectives``) take such an ``Axis``.  An ``expert`` or
+  ``pipe`` axis is ROADMAP Queue 1 item 14c or 14d.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import itertools
+import math
 import os
 import socket
 from typing import Mapping, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -113,6 +124,7 @@ def initialize_distributed(device="cuda", backend: Optional[str] = None, *,
     elif rank is None or world_size is None:
         raise ValueError("an explicit init_method needs rank and world_size")
     backend = backend or backend_for(device)
+    _SUBGROUPS.clear()
     try:
         dist.init_process_group(backend, init_method=init_method, rank=rank,
                                 world_size=world_size, timeout=timeout)
@@ -127,7 +139,9 @@ def initialize_distributed(device="cuda", backend: Optional[str] = None, *,
 
 
 def shutdown() -> None:
-    """Tear the process group down, if one is up."""
+    """Tear the process group down, if one is up, and every subgroup
+    ``make_mesh`` made in it."""
+    _SUBGROUPS.clear()
     if active():
         dist.destroy_process_group()
 
@@ -144,22 +158,130 @@ def process_count() -> int:
     return dist.get_world_size() if active() else 1
 
 
-def make_mesh(shape: Optional[Mapping[str, int]] = None) -> dict:
-    """The mesh ``{"data": world size}``.  ``shape`` (axis -> size; -1
-    absorbs the world) must give the ``data`` axis the world size."""
+#: the mesh axes the port honours; ``expert`` and ``pipe`` are still to
+#: port (ROADMAP Queue 1 items 14c and 14d)
+AXES = ("data", "model", "seq")
+NOT_PORTED = {"expert": "14c (the expert axis and tensor-parallel "
+                        "experts)",
+              "pipe": "14d (the pipe axis and its schedules)"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One line of the mesh along ``names``: the ranks whose coordinates
+    differ only on those axes.  ``index`` is this rank's place among
+    ``ranks`` (row-major over ``names``, as the mesh orders them);
+    ``group`` is their process group, ``None`` for the default group
+    (the whole world) and for a line of one rank, where no collective
+    runs."""
+    names: tuple
+    size: int
+    index: int
+    ranks: tuple
+    group: object = None
+
+
+class Mesh(dict):
+    """Axis name -> size, in the order the spec names them (the JAX
+    package's ``Mesh.shape``), with this rank's coordinates and one
+    process group per line along each axis and each set of axes.
+
+    Rank ``r``'s coordinates are ``np.unravel_index(r, sizes)``, so port
+    rank ``r`` holds the shard JAX device ``r`` holds on the same mesh.
+    """
+
+    def __init__(self, sizes: Mapping[str, int], rank: int, lines: dict):
+        super().__init__(sizes)
+        self.rank = rank
+        self.coords = dict(zip(sizes, (int(c) for c in np.unravel_index(
+            rank, tuple(sizes.values()))))) if sizes else {}
+        self._lines = lines
+
+    def axis_size(self, axis: str) -> int:
+        return int(self.get(axis, 1))
+
+    def axis_index(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def group(self, *axes: str) -> Axis:
+        """The line through this rank along ``axes`` (axes the mesh lacks,
+        or has at size 1, count for nothing)."""
+        return self._lines[tuple(a for a in self if a in axes
+                                 and self[a] > 1)]
+
+
+#: the subgroups made in this world, by their ranks: every rank makes the
+#: same meshes in one order, so every rank skips the same ``new_group``
+_SUBGROUPS: dict = {}
+
+
+def _subgroup(ranks: list):
+    key = tuple(ranks)
+    if key not in _SUBGROUPS:
+        _SUBGROUPS[key] = dist.new_group(ranks)
+    return _SUBGROUPS[key]
+
+
+def _line_ranks(sizes: dict, coords: dict, names: tuple) -> list:
+    """The global ranks of the line through ``coords`` along ``names``,
+    row-major over ``names``."""
+    axes = list(sizes)
+    out = []
+    for sub in itertools.product(*(range(sizes[a]) for a in names)):
+        c = dict(coords, **dict(zip(names, sub)))
+        out.append(int(np.ravel_multi_index([c[a] for a in axes],
+                                            [sizes[a] for a in axes])))
+    return out
+
+
+def make_mesh(shape: Optional[Mapping[str, int]] = None) -> Mesh:
+    """The mesh of named axes over the world (the JAX package's
+    ``make_mesh``): ``shape`` maps axis -> size in the order it names
+    them; one size of -1 absorbs the rest of the world; the product must
+    equal the world size (default ``{"data": world}``).  The subgroups of
+    every line along each set of axes larger than 1 are created here, on
+    every rank in the same order, or taken from an earlier mesh of the
+    same world; a world of one process needs none."""
     world = process_count()
     shape = dict(shape or {"data": world})
-    others = {k: v for k, v in shape.items() if k != "data" and v != 1}
-    if others:
-        raise NotImplementedError(
-            f"mesh axes {others} are not ported yet: ROADMAP Queue 1 item "
-            f"14 (model parallelism)")
-    data = shape.get("data", 1)
-    data = world if data == -1 else int(data)
-    if data != world:
-        raise ValueError(f"mesh {shape} needs {data} processes (one rank "
+    for k, v in shape.items():
+        if k in NOT_PORTED and v != 1:
+            raise NotImplementedError(
+                f"mesh axis {k!r} (mesh {shape}) is not ported yet: ROADMAP "
+                f"Queue 1 item {NOT_PORTED[k]}")
+        if k not in AXES and k not in NOT_PORTED:
+            raise ValueError(f"unknown mesh axis {k!r}; the port's axes "
+                             f"are {AXES}")
+    sizes = {k: int(v) for k, v in shape.items() if k in AXES}
+    if list(sizes.values()).count(-1) > 1:
+        raise ValueError(f"mesh {shape}: at most one axis of size -1")
+    if -1 in sizes.values():
+        known = math.prod(v for v in sizes.values() if v != -1)
+        sizes[next(k for k, v in sizes.items() if v == -1)] = world // known
+    total = math.prod(sizes.values())
+    if total != world:
+        raise ValueError(f"mesh {shape} needs {total} processes (one rank "
                          f"per card), have {world}")
-    return {"data": world}
+    rank = process_index()
+    mesh = Mesh(sizes, rank, {(): Axis((), 1, 0, (rank,))})
+    big = tuple(a for a in sizes if sizes[a] > 1)
+    for n in range(1, len(big) + 1):
+        for names in itertools.combinations(big, n):
+            size = math.prod(sizes[a] for a in names)
+            if size == world:          # the whole world: the default group
+                mine = _line_ranks(sizes, mesh.coords, names)
+                mesh._lines[names] = Axis(names, size, mine.index(rank),
+                                          tuple(mine))
+                continue
+            # every rank creates every line's group, in one order
+            others = [a for a in sizes if a not in names]
+            for sub in itertools.product(*(range(sizes[a]) for a in others)):
+                ranks = _line_ranks(sizes, dict(zip(others, sub)), names)
+                group = _subgroup(ranks)
+                if rank in ranks:
+                    mesh._lines[names] = Axis(names, size, ranks.index(rank),
+                                              tuple(ranks), group)
+    return mesh
 
 
 def data_axis_size(mesh: Mapping[str, int]) -> int:

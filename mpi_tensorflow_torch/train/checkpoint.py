@@ -47,6 +47,7 @@ instead of being reinterpreted.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import queue
@@ -93,6 +94,28 @@ def split(x, shape, dim: int, rank: int, world: int) -> Part:
         start[dim], stop[dim] = j * n, (j + 1) * n
         regions.append((tuple(start), tuple(stop)))
     return Part(shape, _np_dtype(x), regions, rank, x, True)
+
+
+def tiled(x, shape, splits, writes: bool) -> Part:
+    """A leaf of ``shape`` cut into a grid: ``splits`` lists ``(dim,
+    count, index)``, dimension ``dim`` cut into ``count`` equal slices
+    of which this rank holds slice ``index`` (``x``); the regions run
+    over the grid row-major in dimension order (in order of their
+    start).  ``writes``: whether this rank writes its region (one rank
+    of those holding it)."""
+    shape = tuple(shape)
+    splits = sorted(splits)
+    regions = []
+    for combo in itertools.product(*(range(c) for _, c, _ in splits)):
+        start, stop = [0] * len(shape), list(shape)
+        for (d, c, _), j in zip(splits, combo):
+            n = shape[d] // c
+            start[d], stop[d] = j * n, (j + 1) * n
+        regions.append((tuple(start), tuple(stop)))
+    held = int(np.ravel_multi_index([i for _, _, i in splits],
+                                    [c for _, c, _ in splits])) \
+        if splits else 0
+    return Part(shape, _np_dtype(x), regions, held, x, writes)
 
 
 def _np_dtype(x) -> np.dtype:

@@ -1,15 +1,19 @@
 """The transformer train and eval steps, on one device or across the
-ranks of the ``data`` axis.
+ranks of a mesh.
 
 Counterpart of ``init_gspmd_state``, ``init_zero1_state``,
 ``init_fsdp_state``, ``make_gspmd_train_step``,
 ``make_gspmd_multi_step`` (``make_multi_step``: K steps a call, one
 CUDA graph replay on the card) and ``make_gspmd_eval_step`` in
-``mpi_tensorflow_tpu/train/gspmd.py`` on a
-mesh with a ``data`` axis alone: one rank per card, the axis the
-``torch.distributed`` world (``parallel.mesh``).  GSPMD inserts the
-reference's collectives from the placement; here the step places them
-by hand, and without a process group each one is the identity:
+``mpi_tensorflow_tpu/train/gspmd.py``: one rank per card, the mesh the
+model carries (``parallel.mesh``; without one, a ``data`` axis over the
+whole ``torch.distributed`` world).  The model places its own
+``model`` and ``seq`` collectives (``models/bert.py``); GSPMD inserts
+the rest of the reference's from the placement, and here the step
+places them by hand over the ``data`` x ``seq`` axes, never over
+``model`` (its ranks hold the same replicated leaves, with the same
+gradients, and each its own block of the sharded ones).  Without a
+process group each collective is the identity:
 
 - **the loss** of a microbatch is its CE summed over this rank's rows'
   supervised positions (``model.loss_weights``: the masked positions of
@@ -33,13 +37,18 @@ by hand, and without a process group each one is the identity:
   (``gspmd.py:223-226``);
 - **the reduction**: ``replicated``: one all-reduce of every gradient and
   the loss, packed in one flat buffer; ``zero1`` and ``fsdp``: one
-  reduce-scatter of the sharded leaves' gradients, packed by
-  ``parallel.fsdp.FlatLayout``, which leaves each rank the sum of its
-  slices, and one all-reduce of the replicated leaves' gradients (the
-  leaves under ``fsdp.DEFAULT_MIN_SIZE`` elements) and the loss;
+  reduce-scatter over the data axis of the sharded leaves' gradients,
+  packed by ``parallel.fsdp.FlatLayout``, which leaves each rank the
+  sum of its slices (then summed over the seq axis), and one all-reduce
+  of the replicated leaves' gradients (the leaves under
+  ``fsdp.DEFAULT_MIN_SIZE`` elements) and the loss;
 - **the update**: ``TransformerTx.update`` on the whole leaves or on this
-  rank's slices, the global norm summed over the slices and counting
-  each replicated leaf once;
+  rank's slices, the global norm summing each sliced or model-sharded
+  leaf's squares over its axes and counting each replicated leaf once;
+- **zero1 / fsdp under a model axis** slice each leaf of this rank's
+  block over the data axis along the dimension the reference's
+  ``augment_spec`` picks on the whole shape, one the rules left to no
+  axis;
 - **bfloat16 parameters** (``init_state(param_dtype=torch.bfloat16)``,
   the reference's ``init_gspmd_state(param_dtype=)``): every floating
   leaf of the model is stored in that dtype, and the optimizer state is
@@ -65,7 +74,10 @@ the same.
 Where the reference folds its rng with the step and the microbatch
 (``fold_in(fold_in(rng, step), i)``), the port draws each microbatch's
 dropout masks from a ``torch.Generator`` seeded by ``(seed, step, rank,
-microbatch)`` (``step_generator``).
+microbatch)`` (``step_generator``), the rank being the index on the
+``data`` x ``seq`` axes (``mesh.group("data", "seq").index``): the
+ranks of a model axis draw the same masks for the replicated residual
+stream they all hold, and each seq rank its own block's.
 """
 
 from __future__ import annotations
@@ -80,6 +92,7 @@ import torch
 from mpi_tensorflow_torch.models.bert import BertMlm
 from mpi_tensorflow_torch.parallel import collectives, fsdp
 from mpi_tensorflow_torch.parallel import mesh as meshlib
+from mpi_tensorflow_torch.parallel import sharding_rules
 from mpi_tensorflow_torch.train import graphs as graphs_lib
 from mpi_tensorflow_torch.train.graphs import step_generator, step_seed
 from mpi_tensorflow_torch.train.optimizer import (AdamWState, MasterOpt,
@@ -89,15 +102,61 @@ from mpi_tensorflow_torch.utils import tree as tree_lib
 
 @dataclasses.dataclass
 class Sharding:
-    """How a zero1 or fsdp state splits its leaves over the ranks."""
+    """How a zero1 or fsdp state splits its leaves over the data axis."""
     kind: str                     # "zero1" | "fsdp"
-    shapes: list                  # every leaf's whole shape, leaf order
+    shapes: list                  # every leaf's shape whole over the data
+                                  # axis (this rank's block of a model-
+                                  # sharded one), leaf order
     dims: list                    # fsdp.shard_dim of each leaf
     layout: fsdp.FlatLayout
-    rank: int
-    world: int
+    rank: int                     # this rank's index on the data axis
+    world: int                    # the data axis' size
+    axis: Optional[meshlib.Axis] = None     # the data axis (None: the
+                                            # world)
     shards: Optional[torch.Tensor] = None   # fsdp: this rank's chunk of
                                             # the sharded parameters
+
+
+def _axes(model):
+    """``(reduce, data)``: the axis a step's gradients, loss and counts
+    reduce over (``data`` x ``seq``: never ``model``, whose ranks hold
+    the same replicated leaves and each its own block of the sharded
+    ones) and the axis zero1 and fsdp slice over; both None (the world)
+    for a model without a mesh."""
+    mesh = model.mesh
+    if mesh is None:
+        return None, None
+    return mesh.group("data", "seq"), mesh.group("data")
+
+
+def _size(axis) -> int:
+    return meshlib.process_count() if axis is None else axis.size
+
+
+def _norm_axes(model, sharding: Optional[Sharding]):
+    """Per leaf, the axis its squares are summed over for the global norm
+    (and LAMB's leaf norms): None for a leaf whole on every rank, the
+    ``model`` axis for a model-sharded one, the data axis for a zero1 /
+    fsdp slice (True: the world), both axes for both; None for the whole
+    list when every leaf is whole."""
+    n = len(_params(model))
+    tp = [bool(sp) for sp in model.leaf_specs()]
+    sl = [False] * n if sharding is None else \
+        [d is not None for d in sharding.dims]
+    if not any(tp) and not any(sl):
+        return None
+    mesh = model.mesh
+    out = []
+    for t, d in zip(tp, sl):
+        if t and d:
+            out.append(mesh.group("model", "data"))
+        elif t:
+            out.append(mesh.group("model"))
+        elif d:
+            out.append(True if sharding.axis is None else sharding.axis)
+        else:
+            out.append(None)
+    return out
 
 
 @dataclasses.dataclass
@@ -155,19 +214,31 @@ def init_state(model: BertMlm, tx: TransformerTx,
 
 
 def _sharding(model: BertMlm, kind: str, min_size: int) -> Sharding:
-    world = meshlib.process_count()
+    _, data = _axes(model)
+    world = _size(data)
     if world <= 1:
         # the reference's check: without a data axis larger than 1 the
         # placement shards nothing, and the run would go on replicated
         # while the user believes the ZeRO sharding engaged
+        mesh = model.mesh
+        shape = dict(mesh) if mesh is not None else {"data": world}
         raise ValueError(
             f"--param-sharding {kind} shards over the 'data' mesh axis, "
-            f"but this mesh has none (mesh {{'data': {world}}}); add "
-            f"data=N or drop the flag")
+            f"but this mesh has none (mesh {shape}); add data=N or drop "
+            f"the flag")
     shapes = [tuple(p.shape) for p in _params(model)]
-    dims = [fsdp.shard_dim(s, world, min_size) for s in shapes]
+    specs = model.leaf_specs()
+    # augment_spec on the whole shape, past the dimensions the rules
+    # gave the model axis (a model-sharded dimension is never sliced)
+    dims = []
+    for shape, spec in zip(shapes, specs):
+        whole = [n * (model.mesh.axis_size(spec[d]) if d < len(spec)
+                      and spec[d] else 1) for d, n in enumerate(shape)]
+        dims.append(fsdp.shard_dim(whole, world, min_size, taken={
+            d for d, ax in enumerate(spec) if ax}))
+    rank = meshlib.process_index() if data is None else data.index
     return Sharding(kind, shapes, dims, fsdp.FlatLayout(shapes, dims, world),
-                    meshlib.process_index(), world)
+                    rank, world, data)
 
 
 def init_zero1_state(model: BertMlm, tx: TransformerTx,
@@ -215,7 +286,8 @@ def _gather(state: TrainState) -> None:
     """fsdp: every sharded parameter made whole in the model, from one
     all-gather of the ranks' chunks."""
     sh = state.sharding
-    whole = sh.layout.whole(collectives.allgather(sh.shards, tiled=True))
+    whole = sh.layout.whole(collectives.allgather(sh.shards, tiled=True,
+                                                  axis=sh.axis))
     for i, p in enumerate(_params(state.model)):
         if i in whole:
             p.data = whole[i]
@@ -289,31 +361,38 @@ def _packed(tensors: list, loss: torch.Tensor):
 
 def _reduce(state: TrainState, grads: list, loss: torch.Tensor,
             accum: int, across: bool):
-    """The gradients and the loss summed over the ranks and divided by
-    ``accum``: ``(tree to update, its gradients, sharded flags, loss)``.
-    """
+    """The gradients and the loss summed over the reduce axis (module
+    note) and divided by ``accum``: ``(tree to update, its gradients,
+    each leaf's norm axis, loss)``."""
     sh = state.sharding
+    model = state.model
+    red, _ = _axes(model)
     if sh is None:
         if across:
             buf, grads = _packed(grads, loss)
-            collectives.allreduce_sum(buf)
+            collectives.allreduce_sum(buf, red)
             loss = buf[-1]
         if accum > 1:
             torch._foreach_div_(grads, accum)
             loss = loss / accum
-        return state.model.param_tree(), grads, None, loss
+        return model.param_tree(), grads, _norm_axes(model, None), loss
     lay = sh.layout
     chunk = collectives.reduce_scatter(lay.pack(grads, torch.empty(
-        lay.world * lay.chunk, dtype=torch.float32, device=loss.device)))
+        lay.world * lay.chunk, dtype=torch.float32, device=loss.device)),
+        sh.axis)
+    mesh = model.mesh
+    if mesh is not None:
+        # the slices' sums over the data axis, then over the seq axis
+        collectives.allreduce_sum(chunk, mesh.group("seq"))
     whole = [i for i, d in enumerate(sh.dims) if d is None]
     buf, views = _packed([grads[i] for i in whole], loss)
-    collectives.allreduce_sum(buf)
+    collectives.allreduce_sum(buf, red)
     if accum > 1:
         chunk.div_(accum)
         buf.div_(accum)
     out = {**lay.views(chunk), **dict(zip(whole, views))}
     return (_opt_tree(state), [out[i] for i in range(len(grads))],
-            [d is not None for d in sh.dims], buf[-1])
+            _norm_axes(model, sh), buf[-1])
 
 
 def _float32_grads(params: list) -> list:
@@ -359,12 +438,12 @@ def make_train_step(tx: TransformerTx, grad_accum: int = 1,
         if sh is not None and sh.kind == "fsdp":
             _gather(state)
         params = _params(model)
+        red, _ = _axes(model)
         # each microbatch's supervised positions over the global batch
         counts = model.loss_weights(batch).reshape(accum, -1).sum(1)
         if across:
-            collectives.allreduce_sum(counts)
-        aux_w = model.aux_weight() / (meshlib.process_count() if across
-                                      else 1)
+            collectives.allreduce_sum(counts, red)
+        aux_w = model.aux_weight() / (_size(red) if across else 1)
         master = state.opt if isinstance(state.opt, MasterOpt) else None
         for p in params:
             p.grad = None
@@ -403,8 +482,8 @@ def make_train_step(tx: TransformerTx, grad_accum: int = 1,
                 own = sh.layout.pack_own(params, sh.rank, torch.empty(
                     sh.layout.chunk, dtype=torch.float32,
                     device=loss.device))
-                sh.layout.unpack(collectives.allgather(own, tiled=True),
-                                 params)
+                sh.layout.unpack(collectives.allgather(
+                    own, tiled=True, axis=sh.axis), params)
             elif sh is not None:
                 _release(state)
         state.step += 1
@@ -417,7 +496,8 @@ def make_eval_step():
     """``eval_step(state, inputs) -> float32 logits (B, S, V)``: the
     forward in eval mode (no dropout), without gradients; ``inputs`` are
     the tokens (B, S), or the enc-dec family's ``{"src", "tgt"}`` pair
-    (logits over the target positions)."""
+    (logits over the target positions).  Under a model axis each rank's
+    vocabulary slice."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, inputs):
@@ -425,6 +505,19 @@ def make_eval_step():
             return state.model.apply(inputs, train=False)
 
     return eval_step
+
+
+def gathered_params(state: TrainState) -> dict:
+    """Every parameter whole, in the reference's tree (copies): fsdp's
+    slices gathered over the data axis, a model axis' blocks over it.
+    A collective: every rank of the mesh calls it."""
+    with torch.no_grad(), full_params(state) as model:
+        tree = tree_lib.map_leaves(lambda _, v: v.detach().clone(),
+                                   model.param_tree())
+        if model.tp is not None:
+            tree = sharding_rules.gather_tree(tree, model.logical_axes(),
+                                              model.mesh)
+        return tree
 
 
 def state_tensors(state: TrainState) -> list:

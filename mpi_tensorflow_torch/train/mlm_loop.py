@@ -1,5 +1,7 @@
 """Host loop for the transformer families (BASELINE config 5), on one
-device or data-parallel over the ranks of a ``torch.distributed`` world.
+device or over the ranks of a ``torch.distributed`` world laid out as
+``config.mesh_shape`` (``data``, and for bert_base and gpt_base the
+``model`` and ``seq`` axes).
 
 Counterpart of ``mpi_tensorflow_tpu/train/mlm_loop.py``'s ``train_mlm``
 for ``model`` ``"bert_base"`` (``BertMlm``), ``"moe_bert"``
@@ -31,9 +33,17 @@ without a process group):
   reference counts it: at the masked positions (MLM), or of position t
   predicting token t + 1 (causal, on the stream's input tokens, as the
   reference trains it; enc-dec, on the target side);
+- under ``model`` and ``seq`` axes (``models/bert.py``): the global
+  batch is ``batch_size`` x the data axis' size, each data rank's rows
+  as above, and each seq rank feeds its block of every row's positions
+  (``seq_len`` must divide by the seq axis); the ranks of a model axis
+  feed the same batch and draw the same dropout masks (the generator is
+  keyed on the rank's index over ``data`` x ``seq``); the held-out
+  argmax is taken over the whole vocabulary (``model.vocab_argmax``) and the
+  predictions gathered by each rank's mesh coordinates;
 - rank 0 prints (the reference's one process of a W-device mesh);
   ``tokens_per_sec = b*seq_len/sec`` with the global ``b``, and
-  ``num_devices = W``;
+  ``num_devices`` the mesh's size;
 - checkpoints, resume and preemption at the reference's call sites
   (``train.ckpt_hooks``): a sharded checkpoint queued at each trace
   point (under zero1 and fsdp each rank writes its slices), ``resume``
@@ -110,6 +120,24 @@ def eval_windows(test_n: int, b: int):
         yield np.resize(np.arange(i, i + take), b), take
 
 
+def place_predictions(parts, mesh, bs: int, s_loc: int) -> np.ndarray:
+    """Every rank's eval predictions laid out whole: ``parts`` (world,
+    W, bs, s_loc) in rank order, as ``host_allgather`` returns them, into
+    (W, bs * data, s_loc * seq), rank r's block at its coordinates on
+    ``mesh`` (``np.unravel_index(r, sizes)``, ``make_mesh``'s layout).
+    The ranks of a model axis hold the same ids; model coordinate 0's
+    are read."""
+    shape = dict(mesh)
+    out = np.empty((parts.shape[1], bs * shape.get("data", 1),
+                    s_loc * shape.get("seq", 1)), parts.dtype)
+    for r, part in enumerate(parts):
+        at = dict(zip(shape, np.unravel_index(r, tuple(shape.values()))))
+        if at.get("model", 0) == 0:
+            d, q = at.get("data", 0), at.get("seq", 0)
+            out[:, d * bs:(d + 1) * bs, q * s_loc:(q + 1) * s_loc] = part
+    return out
+
+
 FAMILIES = {"bert_base": bert.BertMlm, "moe_bert": moe.MoeBertMlm,
             "gpt_base": gpt.TrainableCausalLm, "encdec_t5": encdec.EncDecLm}
 
@@ -172,9 +200,19 @@ def train_mlm(config: Config, bert_cfg: Optional[bert.BertConfig] = None,
     if config.model not in FAMILIES:
         raise ValueError(f"train_mlm trains the transformer families, got "
                          f"model {config.model!r}")
-    world = meshlib.data_axis_size(meshlib.make_mesh(config.mesh_shape))
-    rank = meshlib.process_index()
-    say = verbose and rank == 0
+    mesh = meshlib.make_mesh(config.mesh_shape)
+    ndev = meshlib.process_count()
+    world, rank = mesh.axis_size("data"), mesh.axis_index("data")
+    n_seq = mesh.axis_size("seq")
+    if seq_len % n_seq:
+        raise ValueError(f"seq_len {seq_len} does not split evenly over the "
+                         f"{n_seq} ranks of the seq axis (mesh {dict(mesh)})")
+    s_loc = seq_len // n_seq
+    cols = slice(mesh.axis_index("seq") * s_loc,
+                 (mesh.axis_index("seq") + 1) * s_loc)
+    # the ranks of a model axis draw the same dropout masks
+    drop_rank = mesh.group("data", "seq").index
+    say = verbose and meshlib.process_index() == 0
     dev = resolve_device(device)
     if bert_cfg is None:
         bert_cfg = dataclasses.replace(bert.BERT_BASE,
@@ -206,7 +244,8 @@ def train_mlm(config: Config, bert_cfg: Optional[bert.BertConfig] = None,
                                 schedule=lr_schedule,
                                 optimizer=config.optimizer)
     causal = config.model == "gpt_base"
-    model = FAMILIES[config.model].from_seed(bert_cfg, config.seed).to(dev)
+    model = FAMILIES[config.model].from_seed(bert_cfg, config.seed,
+                                             mesh=mesh).to(dev)
     state = gspmd.init_for(config.param_sharding, model, tx)
     train_step = gspmd.make_train_step(tx, grad_accum=accum)
     eval_step = gspmd.make_eval_step()
@@ -215,25 +254,29 @@ def train_mlm(config: Config, bert_cfg: Optional[bert.BertConfig] = None,
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def batch_of(split, rows):
-        """The model's input dict for ``rows`` of a split."""
+        """The model's input dict for ``rows`` of a split (this rank's
+        block of their positions)."""
         if enc_dec:
             return {"src": put(split["inputs"][rows]),
                     "tgt": put(split["targets"][rows])}
-        return {"tokens": put(split["inputs"][rows]),
-                "mask": put(split["mask"][rows])}
+        return {"tokens": put(split["inputs"][rows][:, cols]),
+                "mask": put(split["mask"][rows][:, cols])}
 
     def masked_error() -> float:
         windows = list(eval_windows(test_n, b))
-        # this rank's rows of each window, then one gather
+        # this rank's rows (and positions) of each window, then one
+        # gather of every rank's, laid out by its mesh coordinates
         preds = []
         for idx, _ in windows:
             own = idx[rank * bs:(rank + 1) * bs]
             inputs = batch_of(test, own) if enc_dec \
-                else put(test["inputs"][own])
-            preds.append(eval_step(state, inputs).argmax(-1).cpu().numpy())
+                else put(test["inputs"][own][:, cols])
+            preds.append(state.model.vocab_argmax(
+                eval_step(state, inputs)).cpu().numpy())
         preds = np.stack(preds)
-        if world > 1:
-            preds = collectives.host_allgather(preds).transpose(1, 0, 2, 3)
+        if ndev > 1:
+            preds = place_predictions(collectives.host_allgather(preds),
+                                      mesh, bs, s_loc)
         errs, tot = 0, 0
         for (idx, take), pred in zip(windows, preds.reshape(
                 len(windows), b, seq_len)):
@@ -256,7 +299,8 @@ def train_mlm(config: Config, bert_cfg: Optional[bert.BertConfig] = None,
     metrics = {}
     hooks = CheckpointHooks(config.checkpoint_dir, verbose=verbose,
                             device=dev)
-    mw = metrics_writer.for_process(config.metrics_dir, rank)
+    mw = metrics_writer.for_process(config.metrics_dir,
+                                    meshlib.process_index())
     try:
         start_step = 0
         if config.resume:
@@ -267,11 +311,13 @@ def train_mlm(config: Config, bert_cfg: Optional[bert.BertConfig] = None,
         for t in range(start_step, num_steps):
             rows = rank_rows(window(t, b, train_n), b, accum, rank, world)
             batch = batch_of(train, rows)
-            gens = ([gspmd.step_generator(config.seed + 2, t, dev, rank, i)
+            gens = ([gspmd.step_generator(config.seed + 2, t, dev, drop_rank,
+                                          i)
                      for i in range(accum)] if bert_cfg.dropout > 0.0
                     else None)
             state, metrics = train_step(state, batch,
-                                        put(train["targets"][rows]), gens)
+                                        put(train["targets"][rows][:, cols]),
+                                        gens)
             pending += 1
             if hooks.stop_now(t):
                 hooks.preempt_save(state, t)
@@ -300,9 +346,9 @@ def train_mlm(config: Config, bert_cfg: Optional[bert.BertConfig] = None,
         mw.close()
     final_err = history[-1][1] if history else float("nan")
     if say:
-        logs.timing_summary(tps, sec * 1e3, world)
+        logs.timing_summary(tps, sec * 1e3, ndev)
     return MlmResult(state=state, history=history, final_error=final_err,
                      final_loss=float(metrics["loss"]) if metrics
                      else float("nan"), tokens_per_sec=tps,
-                     step_time_seconds=sec, num_devices=world,
+                     step_time_seconds=sec, num_devices=ndev,
                      num_steps=num_steps)

@@ -278,12 +278,13 @@ class TransformerTx:
         (one per leaf, in ``tree``'s leaf order); ``state.count``
         advances by one.
 
-        ``sharded`` (a bool per leaf) marks the leaves that are this
-        rank's slice of a parameter sharded over the process group
-        (``train.gspmd``'s zero1 and fsdp): their squares are summed
-        over the ranks for the global norm and for lamb's per-leaf
-        norms, while every other leaf is whole on every rank and counted
-        once.  The rest of the update is elementwise and runs on a slice
+        ``sharded`` (one entry per leaf: None or False, True, or a
+        ``parallel.mesh.Axis``) marks the leaves that are this rank's
+        block of a parameter sharded over the world (True) or over that
+        axis (``train.gspmd``'s zero1, fsdp and model axis): their
+        squares are summed over it for the global norm and for lamb's
+        per-leaf norms, while every other leaf is whole on every rank
+        and counted once.  The rest of the update is elementwise and runs on a slice
         as on a whole leaf."""
         named = tree_lib.named_leaves(tree)
         params = [p for _, p in named]
@@ -318,19 +319,34 @@ class TransformerTx:
         torch._foreach_sub_(params, u)
 
 
+def _by_axis(sharded) -> list:
+    """``[(axis, leaf indices)]`` of the leaves ``sharded`` marks: an
+    ``Axis`` (their squares summed over it), or True (the world)."""
+    groups = {}
+    for i, s in enumerate(sharded or ()):
+        if s is None or s is False:
+            continue
+        axis = None if s is True else s
+        key = None if axis is None else axis.names
+        groups.setdefault(key, (axis, []))[1].append(i)
+    return list(groups.values())
+
+
 def _sum_sq(norms: list, sharded) -> torch.Tensor:
     """The squares of per-leaf ``norms``, each leaf ``sharded`` marks
-    summed over the ranks in one all-reduce of those leaves' squares (a
-    whole leaf keeps its own value).  Nothing is copied from the host,
-    so a graph can capture it."""
+    summed over its axis in one all-reduce per axis (a whole leaf keeps
+    its own value).  Nothing is copied from the host, so a graph can
+    capture it."""
     sq = torch.stack(norms).square()
-    if sharded is None or not any(sharded):
+    groups = _by_axis(sharded)
+    if not groups:
         return sq
-    marked = [i for i, s in enumerate(sharded) if s]
-    summed = collectives.allreduce_sum(torch.stack([sq[i] for i in marked]))
     out = list(sq.unbind())
-    for j, i in enumerate(marked):
-        out[i] = summed[j]
+    for axis, marked in groups:
+        summed = collectives.allreduce_sum(
+            torch.stack([sq[i] for i in marked]), axis)
+        for j, i in enumerate(marked):
+            out[i] = summed[j]
     return torch.stack(out)
 
 
@@ -349,20 +365,21 @@ def trust_ratios(params: list, updates: list, sharded=None) -> list:
 
 def global_norm(grads: list, sharded=None) -> torch.Tensor:
     """optax's ``global_norm``: the square root of every gradient's sum
-    of squares.  The leaves ``sharded`` marks are slices of leaves split
-    over the process group: their part is all-reduced, the rest (whole
-    on every rank) added once."""
+    of squares.  The leaves ``sharded`` marks are blocks of leaves split
+    over an axis (an ``Axis``, or True for the world): their part is
+    all-reduced over it, the rest (whole on every rank) added once."""
     norms = torch._foreach_norm(grads)
-    if sharded is None or not any(sharded):
+    groups = _by_axis(sharded)
+    if not groups:
         return torch.linalg.vector_norm(torch.stack(norms))
-
-    def sum_sq(keep):
-        part = [n for n, s in zip(norms, sharded) if s == keep]
-        return torch.stack(part).square().sum() if part \
-            else torch.zeros((), device=norms[0].device)
-
-    return torch.sqrt(collectives.allreduce_sum(sum_sq(True))
-                      + sum_sq(False))
+    marked = {i for _, idx in groups for i in idx}
+    whole = [n for i, n in enumerate(norms) if i not in marked]
+    total = torch.stack(whole).square().sum() if whole \
+        else torch.zeros((), device=norms[0].device)
+    for axis, idx in groups:
+        total = total + collectives.allreduce_sum(
+            torch.stack([norms[i] for i in idx]).square().sum(), axis)
+    return torch.sqrt(total)
 
 
 def transformer_tx(base_lr: float, num_steps: int, *,

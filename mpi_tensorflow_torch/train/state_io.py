@@ -27,9 +27,13 @@ arrays back in place:
   parameters' tree), then the schedule's int32 ``count`` (the same
   number), then the int32 step; BERT's model state is empty.  Under
   zero1 the moments of each sharded leaf, and under fsdp its parameter
-  too, are this rank's slice along ``fsdp.shard_dim``: region ``r`` of
-  that leaf's ``world`` slices.  Every other leaf is whole, written by
-  rank 0.
+  too, are this rank's slice along ``fsdp.shard_dim`` over the data
+  axis; under a model axis each model-sharded leaf (its parameter and
+  moments) is this rank's block by the rules: the leaf is a grid of
+  those blocks at their global offsets (``checkpoint.tiled``), each
+  written by one of the ranks holding it (the one at index 0 of the
+  other axes).  Every other leaf is whole, written by rank 0.  A state
+  saved on one mesh restores on another.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import torch
 from mpi_tensorflow_torch.parallel import mesh as meshlib
 from mpi_tensorflow_torch.train import gspmd
 from mpi_tensorflow_torch.train import step as step_lib
-from mpi_tensorflow_torch.train.checkpoint import split, whole
+from mpi_tensorflow_torch.train.checkpoint import split, tiled, whole
 from mpi_tensorflow_torch.utils import tree as tree_lib
 
 # the port's OIHW conv weights <-> the reference's HWIO
@@ -164,15 +168,32 @@ def _gspmd_leaves(state: gspmd.TrainState) -> tuple[list, list, list, list]:
 
 def gspmd_parts(state: gspmd.TrainState) -> list:
     """The reference ``GspmdState``'s leaves of a transformer state."""
-    rank, world = meshlib.process_index(), meshlib.process_count()
     order, params, dims, shapes = _gspmd_leaves(state)
-    fsdp_params = state.sharding is not None \
-        and state.sharding.kind == "fsdp"
+    model, sh = state.model, state.sharding
+    mesh = model.mesh
+    rank = meshlib.process_index()
+    specs = model.leaf_specs()
+    fsdp_params = sh is not None and sh.kind == "fsdp"
 
-    def part(x, i, sharded):
-        if sharded and dims[i] is not None:
-            return split(x.detach(), shapes[i], dims[i], rank, world)
-        return whole(x.detach(), writes=rank == 0)
+    def part(x, i, sliced):
+        # this rank's block: over the model axis by the rules, over the
+        # data axis where zero1 / fsdp slice the leaf
+        splits, used = [], set()
+        shape = list(shapes[i])
+        for d, ax in enumerate(specs[i]):
+            if ax:
+                splits.append((d, mesh.axis_size(ax), mesh.axis_index(ax)))
+                shape[d] *= mesh.axis_size(ax)
+                used.add(ax)
+        if sliced and dims[i] is not None:
+            splits.append((dims[i], sh.world, sh.rank))
+            used.add("data")
+        if not splits:
+            return whole(x.detach(), writes=rank == 0)
+        # of the ranks holding one region, the one at 0 on the other axes
+        writes = mesh is None or all(
+            c == 0 for a, c in mesh.coords.items() if a not in used)
+        return tiled(x.detach(), shape, splits, writes)
 
     count = np.asarray(state.opt.count, np.int32)
     return ([part(params[i], i, fsdp_params) for i in order]

@@ -219,9 +219,11 @@ def test_config_defaults_and_unported_values():
         with pytest.raises(ValueError, match=what):
             Config(**kw)
     assert Config(grad_accum=2, param_sharding="fsdp").grad_accum == 2
+    # the model and seq axes are ported (tests/test_torch_tp_sp.py); the
+    # pipe axis still raises, naming its item (14d)
     with pytest.raises(NotImplementedError, match="item 14"):
         cli.main(["--device", "cpu", "--model", "bert_base", "--mesh",
-                  "data=1,model=2"])
+                  "data=1,pipe=2"])
 
 
 # ------------------------------------------------------- float parity

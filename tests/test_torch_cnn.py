@@ -141,9 +141,10 @@ def test_cli_config_and_fused_steps_default(argv, fused):
      "0  process at  14 with test error"),
     # lamb is ported: on the CNN the reference's refusal
     (["--optimizer", "lamb"], SystemExit, "applies to the transformer"),
-    # still not ported: a mesh axis other than data (item 14's second
-    # part) and the native prefetcher on the ResNet path (15c)
-    (["--mesh", "data=1,model=2"], NotImplementedError, "item 14"),
+    # still not ported: the pipe mesh axis (item 14d; the model and seq
+    # axes are ported for the transformers) and the native prefetcher on
+    # the ResNet path (15c)
+    (["--mesh", "data=1,pipe=2"], NotImplementedError, "item 14"),
     (["--model", "resnet20", "--dataset", "cifar10", "--prefetch",
       "native"], NotImplementedError, "item 15")])
 def test_unported_values_raise_naming_their_item(argv, error, match,

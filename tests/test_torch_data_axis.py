@@ -473,7 +473,7 @@ def test_initialize_distributed_raises_or_is_a_no_op(monkeypatch):
 
 def test_data_axis_refusals(monkeypatch):
     """A rank without a card of its own, a launch env missing a key, a
-    model axis, avg50 over shards in one process and a rank holding two
+    pipe axis, avg50 over shards in one process and a rank holding two
     shards all raise."""
     import torch
 
@@ -494,7 +494,7 @@ def test_data_axis_refusals(monkeypatch):
         mesh.initialize_distributed("cpu")
     monkeypatch.delenv("WORLD_SIZE")
     with pytest.raises(NotImplementedError, match="item 14"):
-        mesh.make_mesh({"data": 1, "model": 2})
+        mesh.make_mesh({"data": 1, "pipe": 2})       # 14d; model is ported
     model = cnn.MnistCnn.from_seed(1)
     with pytest.raises(ValueError, match="one replica per rank"):
         loop.train(Config(sync="avg50"), model=model, num_shards=2,
